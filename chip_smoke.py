@@ -1,0 +1,649 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch port (squeezellm_tpu_torch).
+
+Run from the repository root on a machine with one NVIDIA H100:
+
+    python3 chip_smoke.py
+
+It builds the port's CUDA kernels from csrc/ with nvcc, holds each kernel
+against its plain PyTorch version at the main path's shapes, drives the
+port's main path (Engine.generate and Engine.benchmark on a random
+full-width LLaMA-2-7B, w4 and w3 with a 0.45% sparse sidecar, top-X 10 and
+a quantized lm_head), checks that the path went through the kernels, and
+prints the results. The last line is
+``{"ok": true, "device": {"platform": "gpu", ...}}``; the line before it
+has the card's name and power limit, and the one before that the kernels'
+record as JSON. A failing phase makes it exit non-zero without that line.
+Details go to build/chip_smoke.json.
+"""
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+import traceback
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+HBM_BYTES_S = 3.35e12  # H100 SXM HBM3
+# Peak rate by the type of a product's operands (H100 SXM data sheet,
+# dense): bf16 x bf16 with f32 accumulation on the tensor cores; f32 (or an
+# f32 operand) outside them.
+PEAK_FLOP_S = {"bf16": 989e12, "f32": 67e12}
+TOL_K1 = {"exact": 1e-5, "bf16": 1e-4}  # max |dy| / max |y|
+TOL_ATTN = 1e-4  # max |dout| / max |out|
+TOL_TF_EXACT = 1e-4  # teacher-forced logits, f32 model, kernels vs plain
+# The bf16 model one layer at a time (layer_check), kernels vs plain, max
+# |d| / max |out|: two bf16 steps at the top of the output's range. A
+# layer's output is rounded to bf16 twice on its way (the o projection's
+# residual sum, then the down projection's), and the kernels sum in
+# another f32 order than the plain versions, so one element can land one
+# bf16 step away at each rounding; one step is at most 2**-7 of max |out|.
+TOL_LAYER_BF16 = 2.0**-6
+K1_SHAPES = (("qkv", 12288, 4096, 32), ("o", 4096, 4096, 32),
+             ("gateup", 22016, 4096, 32), ("down", 4096, 11008, 32),
+             ("lm_head", 32000, 4096, 1))  # (name, out, in, per step)
+PROMPT_LENS = (7, 16, 100)
+NEW_TOKENS = 32
+BENCH_TOKENS = 128
+
+
+def sh(cmd):
+    try:
+        return subprocess.run(cmd, capture_output=True, text=True,
+                              timeout=60).stdout.strip()
+    except (OSError, subprocess.TimeoutExpired) as e:
+        return f"unavailable ({e})"
+
+
+class Timer:
+    """Median time of one launch with the L2 flushed before each, as a
+    decode step finds its weights (CUDA events around each launch)."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.flush = torch.empty(64 * 2**20, dtype=torch.float32,
+                                 device="cuda")  # 256 MB > 50 MB L2
+
+    def ms(self, fn, iters=10, warmup=3):
+        torch = self.torch
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        pairs = []
+        for _ in range(iters):
+            self.flush.zero_()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            fn()
+            e.record()
+            pairs.append((s, e))
+        torch.cuda.synchronize()
+        times = sorted(s.elapsed_time(e) for s, e in pairs)
+        return times[len(times) // 2]
+
+
+def bound_ms(nbytes, ops):
+    """The least time for the work: bytes over the HBM rate, or the
+    operations, each ``(count, operand type)`` over its peak rate."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = sum(n / PEAK_FLOP_S[kind] for n, kind in ops) * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def rel_err(a, b):
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30))
+
+
+def abs_err(a, b):
+    return float((a.float() - b.float()).abs().max())
+
+
+def check_k1(torch, timer, record):
+    from squeezellm_tpu_torch import synthetic
+    from squeezellm_tpu_torch.ops import lut_matmul, plain_ops
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    worst, worst_rel = 0.0, {"exact": 0.0, "bf16": 0.0}
+    for name, out_f, in_f, per_step in K1_SHAPES:
+        for bits in (4, 3):
+            sp = 0.0 if name == "lm_head" else 0.0045
+            t = synthetic.random_quant_linear(gen, dev, out_f, in_f, bits, sp,
+                                        0).tensors()
+            kw = {}
+            if "sp_rowptr" in t:
+                kw = dict(rowptr=t["sp_rowptr"], cols=t["sp_cols"],
+                          vals=t["sp_vals"])
+            nnz = t["sp_vals"].numel() if kw else 0
+            # the library yardstick: one matmul on the pre-dequantized
+            # weight, in the mode's operand type
+            w32 = plain_ops.dequantize(t["qweight"], t["lut"], bits, in_f)
+            lib_w = {"exact": w32, "bf16": w32.to(torch.bfloat16)}
+            for M in (1, 16, 100):
+                for mode in ("exact", "bf16"):
+                    dt = torch.bfloat16 if mode == "bf16" else torch.float32
+                    x = torch.randn(M, in_f, generator=gen, device=dev).to(dt)
+                    y0 = torch.randn(M, out_f, generator=gen,
+                                     device=dev).to(dt)
+                    args = (x, t["qweight"], t["lut"], bits)
+                    got = lut_matmul.lut_matmul(*args, y0=y0, mode=mode, **kw)
+                    want = lut_matmul.lut_matmul_plain(*args, y0=y0,
+                                                       mode=mode, **kw)
+                    torch.cuda.synchronize()
+                    err = rel_err(got, want)
+                    worst = max(worst, abs_err(got, want))
+                    worst_rel[mode] = max(worst_rel[mode], err)
+                    if mode == "bf16":  # outputs that round to another bf16
+                        flips = int((got.to(torch.bfloat16)
+                                     != want.to(torch.bfloat16)).sum())
+                        record["k1_bf16_flips"].append(
+                            [name, bits, M, flips, got.numel()])
+                    if err > TOL_K1[mode]:
+                        raise AssertionError(
+                            f"K1 {name} w{bits} M={M} {mode}: rel err {err}")
+                    # time kernel, plain and library; the dense products
+                    # are bf16 x bf16 in bf16 mode, f32 in exact mode, the
+                    # sparse fold f32 in both
+                    nbytes = (t["qweight"].numel() * 4 + t["lut"].numel() * 4
+                              + x.numel() * x.element_size()
+                              + y0.numel() * y0.element_size()
+                              + got.numel() * 4
+                              + (nnz * 8 + (out_f + 1) * 4 if kw else 0))
+                    b, by = bound_ms(nbytes, [
+                        (2 * M * in_f * out_f,
+                         "bf16" if mode == "bf16" else "f32"),
+                        (2 * M * nnz, "f32")])
+                    w = lib_w[mode]
+                    row = dict(
+                        shape=name, bits=bits, M=M, mode=mode, out=out_f,
+                        inp=in_f, launches_per_step=per_step, rel_err=err,
+                        ms=timer.ms(lambda: lut_matmul.lut_matmul(
+                            *args, y0=y0, mode=mode, **kw)),
+                        plain_ms=timer.ms(lambda: lut_matmul.lut_matmul_plain(
+                            *args, y0=y0, mode=mode, **kw), iters=5),
+                        library_ms=timer.ms(lambda: torch.matmul(x, w)),
+                        bound_ms=b, bound_by=by, bytes=nbytes)
+                    row["gb_s"] = nbytes / row["ms"] / 1e6
+                    record["k1_detail"].append(row)
+            del t, w32, lib_w
+    print("  K1 ms (bound by b=bytes/o=operations, plain, library matmul)")
+    for r in record["k1_detail"]:
+        if r["mode"] == "exact":
+            continue
+        e = next(q for q in record["k1_detail"] if q["mode"] == "exact"
+                 and all(q[k] == r[k] for k in ("shape", "bits", "M")))
+        print(f"  K1 {r['shape']:8s} w{r['bits']} M={r['M']:3d} " + "  ".join(
+            f"{q['mode']} {q['ms']:.4f} ({q['bound_ms']:.4f}"
+            f"{q['bound_by'][0]}, {q['plain_ms']:.3f}, {q['library_ms']:.4f})"
+            for q in (r, e)))
+    for bits in (4, 3):
+        for mode in ("bf16", "exact"):
+            rows = [r for r in record["k1_detail"] if r["M"] == 1
+                    and r["bits"] == bits and r["mode"] == mode]
+            step = {k: sum(r[k] * r["launches_per_step"] for r in rows)
+                    for k in ("ms", "bound_ms", "library_ms")}
+            record["k1_per_decode_step"].append(dict(bits=bits, mode=mode,
+                                                     **step))
+            print(f"  K1 per decode step w{bits} {mode}: {step['ms']:.3f} ms "
+                  f"(bound {step['bound_ms']:.3f}, library "
+                  f"{step['library_ms']:.3f})")
+    record["k1_max_abs_err"] = worst
+    flips = sum(f[3] for f in record["k1_bf16_flips"])
+    total = sum(f[4] for f in record["k1_bf16_flips"])
+    print(f"K1 ok: 60 cases, max rel err {worst_rel} within {TOL_K1}, "
+          f"max abs err {worst:.3g}; "
+          f"bf16 mode: {flips} of {total} outputs round to another bf16 "
+          f"value than the plain version's")
+
+
+def check_k2(torch, timer, record):
+    import torch.nn.functional as F
+
+    from squeezellm_tpu_torch.models import common
+    from squeezellm_tpu_torch.ops import decode_attn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    B, H, Hkv, hd, S = 1, 32, 32, 128, 2048
+    worst, worst_rel = 0.0, 0.0
+    for n in (1, 128, 1000, 2048):
+        qkv = torch.randn(B, (H + 2 * Hkv) * hd, generator=gen,
+                          device=dev).to(torch.bfloat16)
+        q = qkv[:, : H * hd].view(B, H, hd)
+        k = qkv[:, H * hd: (H + Hkv) * hd].view(B, Hkv, hd)
+        v = qkv[:, (H + Hkv) * hd:].view(B, Hkv, hd)
+        cache = torch.randn(2, B, S, Hkv * hd, generator=gen,
+                            device=dev).to(torch.bfloat16)
+        lengths = torch.full((B,), n, dtype=torch.int32, device=dev)
+        cos, sin = common.rope_cos_sin(lengths.long() - 1, hd, 10000.0,
+                                       torch.bfloat16)
+        kw = dict(rope_cos=cos.float().contiguous(),
+                  rope_sin=sin.float().contiguous())
+        kc, pc = cache.clone(), cache.clone()
+        got = decode_attn.decode_attention(q, k, v, kc[0], kc[1], lengths,
+                                           **kw)
+        want = decode_attn.decode_attention_plain(q, k, v, pc[0], pc[1],
+                                                  lengths, **kw)
+        torch.cuda.synchronize()
+        err = max(rel_err(got, want), rel_err(kc, pc))
+        worst = max(worst, abs_err(got, want), abs_err(kc, pc))
+        worst_rel = max(worst_rel, err)
+        if err > TOL_ATTN:
+            raise AssertionError(f"K2 n={n}: rel err {err}")
+        nbytes = (3 * H * hd * 2 + 2 * hd * 4 + 4 + 2 * n * Hkv * hd * 2
+                  + 2 * Hkv * hd * 2 + H * hd * 4)
+        # roped q and p are f32, so both products run at the f32 rate
+        b, by = bound_ms(nbytes, [(4 * H * n * hd, "f32")])
+        kh = kc[0, 0, :n].view(n, Hkv, hd).transpose(0, 1)[None].contiguous()
+        vh = kc[1, 0, :n].view(n, Hkv, hd).transpose(0, 1)[None].contiguous()
+        q4 = q[:, :, None, :].contiguous()
+        row = dict(n=n, S=S, rel_err=err,
+                   ms=timer.ms(lambda: decode_attn.decode_attention(
+                       q, k, v, kc[0], kc[1], lengths, **kw)),
+                   plain_ms=timer.ms(lambda: decode_attn.decode_attention_plain(
+                       q, k, v, pc[0], pc[1], lengths, **kw), iters=5),
+                   library_ms=timer.ms(
+                       lambda: F.scaled_dot_product_attention(q4, kh, vh)),
+                   bound_ms=b, bound_by=by, bytes=nbytes)
+        record["k2_detail"].append(row)
+        print(f"  K2 n={n:5d}: {row['ms']:.4f} ms (bound {b:.4f} by {by}, "
+              f"plain {row['plain_ms']:.3f}, sdpa {row['library_ms']:.4f})")
+    record["k2_max_abs_err"] = worst
+    print(f"K2 ok: max rel err {worst_rel:.3g} within {TOL_ATTN}, max abs "
+          f"err {worst:.3g}")
+
+
+def check_k3(torch, timer, record):
+    import torch.nn.functional as F
+
+    from squeezellm_tpu_torch.models import common
+    from squeezellm_tpu_torch.ops import flash_attn
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    H, Hkv, hd, S = 32, 32, 128, 4096
+    worst, worst_rel = 0.0, 0.0
+    for sq in PROMPT_LENS:
+        q = torch.randn(1, sq, H, hd, generator=gen,
+                        device=dev).to(torch.bfloat16).transpose(1, 2)
+        cache = {n: torch.randn(1, S, Hkv * hd, generator=gen,
+                                device=dev).to(torch.bfloat16)
+                 for n in ("k", "v")}
+        k, v = common.read_kv(cache, torch.bfloat16, Hkv)
+        got = flash_attn.flash_attention(q, k, v, 0)
+        want = flash_attn.flash_attention_plain(q, k, v, 0)
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        worst = max(worst, abs_err(got, want))
+        worst_rel = max(worst_rel, err)
+        if err > TOL_ATTN:
+            raise AssertionError(f"K3 Sq={sq}: rel err {err}")
+        nbytes = H * sq * hd * 2 + 2 * Hkv * sq * hd * 2 + H * sq * hd * 4
+        # q.k^T is bf16 x bf16; p.v takes p in f32
+        pairs = sq * (sq + 1) // 2
+        b, by = bound_ms(nbytes, [(2 * H * hd * pairs, "bf16"),
+                                  (2 * H * hd * pairs, "f32")])
+        qc = q.contiguous()
+        kc = k[:, :, :sq].contiguous()
+        vc = v[:, :, :sq].contiguous()
+        row = dict(Sq=sq, S=S, rel_err=err,
+                   ms=timer.ms(lambda: flash_attn.flash_attention(q, k, v, 0)),
+                   plain_ms=timer.ms(lambda: flash_attn.flash_attention_plain(
+                       q, k, v, 0), iters=5),
+                   library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
+                       qc, kc, vc, is_causal=True)),
+                   bound_ms=b, bound_by=by, bytes=nbytes)
+        record["k3_detail"].append(row)
+        print(f"  K3 Sq={sq:4d}: {row['ms']:.4f} ms (bound {b:.4f} by {by}, "
+              f"plain {row['plain_ms']:.3f}, sdpa {row['library_ms']:.4f})")
+    record["k3_max_abs_err"] = worst
+    print(f"K3 ok: max rel err {worst_rel:.3g} within {TOL_ATTN}, max abs "
+          f"err {worst:.3g}")
+
+
+def counters():
+    from squeezellm_tpu_torch.ops import decode_attn, flash_attn, lut_matmul
+
+    return (lut_matmul.lut_matmul, decode_attn.decode_attention,
+            flash_attn.flash_attention)
+
+
+def reset_counts():
+    for fn in counters():
+        fn.launches = 0
+
+
+def read_counts():
+    return [fn.launches for fn in counters()]
+
+
+def profile_decode(torch, eng, ids, steps=8):
+    """Device time per decode step and its split by kernel, from a
+    torch.profiler trace of `steps` steps. ``profile_failed`` says why
+    there is none (the profiler failed, or the trace holds no device
+    time); the device-busy numbers are then not measured."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cache = eng.new_cache(1, BENCH_TOKENS)
+    tok = torch.tensor(ids[:, :1], device="cuda")
+    kw = dict(dtype=eng.dtype, mode=eng.mode)
+    for i in range(2):
+        eng.model.decode_step(tok, i, cache, **kw)
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for i in range(2, 2 + steps):
+                eng.model.decode_step(tok, i, cache, **kw)
+            torch.cuda.synchronize()
+    except RuntimeError as e:
+        traceback.print_exc()
+        return {"profile_failed": f"{type(e).__name__}: {e}"}
+    by_name = {}
+    for e in prof.key_averages():
+        if not str(getattr(e, "device_type", "")).endswith("CUDA"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        by_name[e.key[:60]] = by_name.get(e.key[:60], 0.0) + us / 1e3 / steps
+    total = sum(by_name.values())
+    if total <= 0:
+        return {"profile_failed": "the trace holds no device time"}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"profile_failed": None, "device_ms_per_step": total,
+            "top_ms_per_step": [[k, v] for k, v in top]}
+
+
+def layer_check(torch, model, ids, n_prefill=16, n_decode=8):
+    """The bf16 path one layer at a time. Every layer is fed the plain
+    path's input and a copy of the plain path's cache, and its output
+    through the kernels is held against its plain output (max |d| / max
+    |out|), over a prefill of ``n_prefill`` tokens (K1 at 16 rows, K3) and
+    ``n_decode`` decode steps after it (K1 at one row, K2). Beside it, the
+    plain bf16 layer against the plain f32 layer (exact mode, f32 cache)
+    on the same input: the rounding of the bf16 regime itself."""
+    import dataclasses
+
+    from squeezellm_tpu_torch.models import common
+
+    bf = torch.bfloat16
+    c, dev = model.config, model.device
+    ids_t = torch.as_tensor(ids, device=dev)
+    cache = common.init_kv_cache(1, BENCH_TOKENS, c.n_layers, c.n_kv_heads,
+                                 c.head_dim, bf, dev)
+    calls = [("prefill", ids_t[:, :n_prefill],
+              dict(positions=torch.arange(n_prefill, device=dev)))]
+    calls += [("decode", ids_t[:, p: p + 1],
+               dict(decode_pos=torch.full((1,), p, device=dev)))
+              for p in range(n_prefill, n_prefill + n_decode)]
+    res = {"kernels_vs_plain": {"prefill": [], "decode": []},
+           "bf16_vs_f32": {"prefill": [], "decode": []}, "differ": 0,
+           "outputs": 0}
+    with torch.no_grad():
+        for phase, tok, pos in calls:
+            plain = model._step(bf, "bf16", True, **pos)
+            kern = dataclasses.replace(plain, plain=False)
+            f32 = model._step(torch.float32, "exact", True, **pos)
+            x = model.embed[tok].to(bf)
+            for layer, lc in zip(model.layers, cache):
+                got = layer(x, kern, {n: t.clone() for n, t in lc.items()})
+                ref32 = layer(x.float(), f32,
+                              {n: t.float() for n, t in lc.items()})
+                want = layer(x, plain, lc)
+                if not torch.isfinite(got).all():
+                    raise AssertionError(f"layer_check {phase}: not finite")
+                res["kernels_vs_plain"][phase].append(rel_err(got, want))
+                res["bf16_vs_f32"][phase].append(rel_err(want, ref32))
+                res["differ"] += int((got != want).sum())
+                res["outputs"] += want.numel()
+                x = want
+    return res
+
+
+def run_model(torch, config, bits, record):
+    import numpy as np
+
+    from squeezellm_tpu_torch import engine, synthetic
+    from squeezellm_tpu_torch.models import fuse
+
+    t0 = time.perf_counter()
+    model = fuse.fuse_for_decode(synthetic.quantized_llama(config, bits,
+                                                           seed=bits))
+    exact = engine.Engine(model)  # f32 activations and cache
+    torch.cuda.synchronize()
+    print(f"w{bits}: model made and fused on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(bits)
+    prompts = [rng.integers(0, config.vocab_size, (1, n)) for n in PROMPT_LENS]
+    res = {"bits": bits}
+
+    # (i) the main path: three greedy requests through the kernels
+    reset_counts()
+    t0 = time.perf_counter()
+    got = [exact.generate(p, NEW_TOKENS) for p in prompts]
+    res["requests_s"] = time.perf_counter() - t0
+    res["launches"] = read_counts()
+    want_k1 = len(PROMPT_LENS) * NEW_TOKENS * (4 * config.n_layers + 1)
+    want = [want_k1, len(PROMPT_LENS) * (NEW_TOKENS - 1) * config.n_layers,
+            len(PROMPT_LENS) * config.n_layers]
+    if res["launches"] != want:
+        raise AssertionError(f"w{bits} launches {res['launches']} != {want}")
+    plain = engine.Engine(model, plain=True)
+    ref = [plain.generate(p, NEW_TOKENS) for p in prompts]
+    for g, r, n in zip(got, ref, PROMPT_LENS):
+        if g.shape != (1, n + NEW_TOKENS) or not np.array_equal(g, r):
+            raise AssertionError(f"w{bits} prompt {n}: kernel tokens {g} != "
+                                 f"plain tokens {r}")
+    res["tokens"] = [g[0, n:].tolist() for g, n in zip(got, PROMPT_LENS)]
+    ids = (np.arange(BENCH_TOKENS, dtype=np.int64)[None] * 7919) % config.vocab_size
+    tf = exact.teacher_forced_logits(ids[:, :16], max_seq=BENCH_TOKENS)
+    tf_ref = plain.teacher_forced_logits(ids[:, :16], max_seq=BENCH_TOKENS)
+    res["tf_exact_rel_err"] = rel_err(tf, tf_ref)
+    if not (torch.isfinite(tf).all() and res["tf_exact_rel_err"] <= TOL_TF_EXACT):
+        raise AssertionError(f"w{bits} f32 logits: {res['tf_exact_rel_err']}")
+    print(f"w{bits} (i) 3 requests (prompts {PROMPT_LENS}, {NEW_TOKENS} new "
+          f"tokens) in {res['requests_s']:.2f} s, tokens identical to the "
+          f"plain path; launches K1/K2/K3 {res['launches']}; f32 "
+          f"teacher-forced logits rel err {res['tf_exact_rel_err']:.3g}")
+
+    # (ii) the bf16 flagship benchmark
+    bf = engine.Engine(model, dtype=torch.bfloat16,
+                       cache_dtype=torch.bfloat16, mode="bf16")
+    stats = bf.benchmark(ids, max_seq=BENCH_TOKENS)
+    bf_plain = engine.Engine(model, dtype=torch.bfloat16,
+                             cache_dtype=torch.bfloat16, mode="bf16",
+                             plain=True)
+    # held one layer at a time; the full-depth distance is reported only:
+    # 32 random layers amplify one-step bf16 flips (PERF.md)
+    lc = layer_check(torch, model, ids)
+    stats["layer_check"] = lc
+    worst = max(max(v) for v in lc["kernels_vs_plain"].values())
+    tf = bf.teacher_forced_logits(ids[:, :16], max_seq=BENCH_TOKENS)
+    tf_bref = bf_plain.teacher_forced_logits(ids[:, :16], max_seq=BENCH_TOKENS)
+    stats["tf_bf16_rel_err"] = rel_err(tf, tf_bref)
+    stats["tf_bf16_plain_vs_f32"] = rel_err(tf_bref, tf_ref)
+    stats["tf_bf16_argmax_agree"] = float(
+        (tf.argmax(-1) == tf_bref.argmax(-1)).float().mean())
+    if not (math.isfinite(stats["check_ppl"]) and torch.isfinite(tf).all()
+            and worst <= TOL_LAYER_BF16):
+        raise AssertionError(f"w{bits} bf16: {stats}")
+
+    stats["profile"] = profile_decode(torch, bf, ids)
+
+    # (iii) launches in one decode step
+    cache = bf.new_cache(1, BENCH_TOKENS)
+    bf.model.prefill(torch.tensor(prompts[0], device="cuda"), cache,
+                     dtype=torch.bfloat16, mode="bf16")
+    reset_counts()
+    bf.model.decode_step(torch.tensor([[1]], device="cuda"), PROMPT_LENS[0],
+                         cache, dtype=torch.bfloat16, mode="bf16")
+    stats["launches_per_decode_step"] = read_counts()
+    if stats["launches_per_decode_step"] != [4 * config.n_layers + 1,
+                                             config.n_layers, 0]:
+        raise AssertionError(f"per-step launches {read_counts()}")
+    res["bench"] = stats
+    print(f"w{bits} (ii) bf16 decode: {stats['tokens_per_s']:.2f} tok/s, "
+          f"{stats['median_latency_s'] * 1e3:.3f} ms/token, "
+          f"{stats['achieved_gb_s']:.1f} GB/s over {stats['param_bytes']} "
+          f"param bytes, peak {stats['peak_memory_mib']:.0f} MiB, check ppl "
+          f"{stats['check_ppl']:.1f}")
+    for phase in ("prefill", "decode"):
+        kv, bv = (sorted(lc[k][phase]) for k in ("kernels_vs_plain",
+                                                 "bf16_vs_f32"))
+        print(f"w{bits} bf16 per layer, {phase}: kernels vs plain max "
+              f"{kv[-1]:.3g} median {kv[len(kv) // 2]:.3g} (limit "
+              f"{TOL_LAYER_BF16:.3g}); plain bf16 vs plain f32 max "
+              f"{bv[-1]:.3g} median {bv[len(bv) // 2]:.3g}")
+    print(f"w{bits} bf16 per layer: {lc['differ']} of {lc['outputs']} "
+          f"outputs differ; full depth, teacher-forced logits (reported, "
+          f"not held): kernels vs plain {stats['tf_bf16_rel_err']:.3g}, "
+          f"argmax agree {stats['tf_bf16_argmax_agree']:.3f}, plain bf16 vs "
+          f"plain f32 {stats['tf_bf16_plain_vs_f32']:.3g}")
+    print(f"w{bits} (iii) launches per decode step K1/K2/K3: "
+          f"{stats['launches_per_decode_step']}")
+    print_profile(f"w{bits}", stats, record)
+    record["models"].append(res)
+    return res
+
+
+def run_dense(torch, config, record):
+    import numpy as np
+
+    from squeezellm_tpu_torch import engine, synthetic
+
+    model = synthetic.dense_llama(config)
+    eng = engine.Engine(model, dtype=torch.bfloat16,
+                        cache_dtype=torch.bfloat16, mode="bf16")
+    ids = (np.arange(BENCH_TOKENS, dtype=np.int64)[None] * 7919) % config.vocab_size
+    stats = eng.benchmark(ids, max_seq=BENCH_TOKENS)
+    stats["profile"] = profile_decode(torch, eng, ids)
+    record["dense_bf16"] = stats
+    print(f"bf16 dense: {stats['tokens_per_s']:.2f} tok/s, "
+          f"{stats['median_latency_s'] * 1e3:.3f} ms/token, "
+          f"{stats['achieved_gb_s']:.1f} GB/s, peak "
+          f"{stats['peak_memory_mib']:.0f} MiB")
+    print_profile("bf16 dense", stats, record)
+
+
+def print_profile(label, stats, record):
+    prof = stats["profile"]
+    if prof["profile_failed"]:
+        record["profile_failed"].append(label)
+        print(f"{label} PROFILE FAILED, device busy not measured: "
+              f"{prof['profile_failed']}")
+        return
+    step_ms = stats["median_latency_s"] * 1e3
+    busy = prof["device_ms_per_step"]
+    print(f"{label} profile: device busy {busy:.3f} ms of a {step_ms:.3f} ms "
+          f"step (idle share {1 - busy / step_ms:.3f}); top: " + "; ".join(
+              f"{k} {v:.3f}" for k, v in prof["top_ms_per_step"]))
+
+
+def kernel_lines(record):
+    """One entry per kernel: its time at one main-path decode/prefill shape
+    (named in "at"); every shape's numbers are in build/chip_smoke.json."""
+    k1 = next(r for r in record["k1_detail"] if r["shape"] == "gateup"
+              and r["bits"] == 4 and r["M"] == 1 and r["mode"] == "bf16")
+    k2 = next(r for r in record["k2_detail"] if r["n"] == 128)
+    k3 = next(r for r in record["k3_detail"] if r["Sq"] == 100)
+    launches = [0, 0, 0]
+    for m in record["models"]:
+        launches = [a + b for a, b in zip(launches, m["launches"])]
+    rows = [
+        ("lut_matmul", "squeezellm_tpu_torch/csrc/lut_matmul.cu",
+         "squeezellm_tpu/ops/pallas_ops.py:252 (+ :208 _lut_matmul_kernel, "
+         ":427 _spmv_kernel)", launches[0], record["k1_max_abs_err"], k1,
+         "fused gate|up 22016x4096 w4, 1 row, bf16 mode, 0.45% sidecar"),
+        ("decode_attention", "squeezellm_tpu_torch/csrc/decode_attn.cu",
+         "squeezellm_tpu/ops/decode_attn.py:130", launches[1],
+         record["k2_max_abs_err"], k2,
+         "LLaMA-2-7B layer, B=1, 128 valid rows of a 2048-row bf16 cache"),
+        ("flash_attention", "squeezellm_tpu_torch/csrc/flash_attn.cu",
+         "squeezellm_tpu/ops/flash_attn.py:40", launches[2],
+         record["k3_max_abs_err"], k3,
+         "LLaMA-2-7B layer, 100-token prompt, bf16 q/k/v"),
+    ]
+    return {"kernels": [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": n, "max_abs_err": err, "ms": r["ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"], "at": at}
+        for name, src, rep, n, err, r, at in rows]}
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, HERE)
+    from squeezellm_tpu_torch import _build
+    from squeezellm_tpu_torch.models import registry
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = sh(["nvidia-smi", "--query-gpu=name,power.limit",
+              "--format=csv,noheader"]).splitlines()[0]
+    print(f"card: {smi}")
+    print(f"torch {torch.__version__}, torch.version.cuda "
+          f"{torch.version.cuda}, nvcc: "
+          f"{sh([_build.nvcc_path(), '--version']).splitlines()[-1]}")
+    record = {"card": smi, "torch": torch.__version__,
+              "cuda": torch.version.cuda, "k1_detail": [], "k2_detail": [],
+              "k3_detail": [], "k1_bf16_flips": [], "k1_per_decode_step": [],
+              "models": [], "profile_failed": [],
+              "failed": []}
+    t0 = time.perf_counter()
+    _build.build()
+    _build.lib()
+    record["build_s"] = time.perf_counter() - t0
+    print(f"kernels built and loaded in {record['build_s']:.1f} s")
+
+    timer = Timer(torch)
+    _, config = registry.load_config(os.path.join(HERE, "models",
+                                                  "llama-2-7b"))
+    phases = [("K1", lambda: check_k1(torch, timer, record)),
+              ("K2", lambda: check_k2(torch, timer, record)),
+              ("K3", lambda: check_k3(torch, timer, record))]
+    phases += [(f"model w{b}", lambda b=b: run_model(torch, config, b, record))
+               for b in (4, 3)]
+    phases += [("dense bf16", lambda: run_dense(torch, config, record))]
+    for name, fn in phases:
+        t0 = time.perf_counter()
+        try:
+            fn()
+        except Exception:  # record the phase, go on to the next
+            traceback.print_exc()
+            record["failed"].append(name)
+            print(f"PHASE FAILED: {name}")
+        torch.cuda.empty_cache()
+        print(f"[{name}: {time.perf_counter() - t0:.1f} s]")
+    if "dense_bf16" in record:
+        dense = record["dense_bf16"]["tokens_per_s"]
+        for m in record["models"]:
+            print(f"w{m['bits']}-s45 vs bf16 dense: "
+                  f"{m['bench']['tokens_per_s'] / dense:.3f}x")
+
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    with open(os.path.join(HERE, "build", "chip_smoke.json"), "w") as f:
+        json.dump(record, f, indent=1)
+    if record["failed"]:
+        print(f"chip_smoke: failed phases {record['failed']}",
+              file=sys.stderr)
+        return 1
+    print(json.dumps(kernel_lines(record)))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,150 @@
+"""Build the package's CUDA kernels at first use and bind them with ctypes.
+
+Every ``csrc/*.cu`` is compiled by its own ``nvcc`` process (all started
+together) for Hopper (``sm_90a``) and linked into one shared library with a
+plain C interface; nothing here includes PyTorch's headers, so a build
+takes seconds. The library lands in ``build/kernels-<hash>/`` beside the
+package, keyed on a hash of the sources and flags, so an edited source
+builds anew and an unchanged one is loaded as it is.
+
+Each C entry point launches on the stream it is given and returns
+``cudaGetLastError()``; :func:`check` raises on anything but 0.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from typing import Optional
+
+_PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
+BUILD_ROOT = os.path.join(os.path.dirname(_PKG_DIR), "build")
+LIB_NAME = "libsqueezellm_torch_kernels.so"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# argtypes of every C entry point (csrc/*.cu); all return int (cudaError_t)
+SIGNATURES = {
+    # x, x_bf16, qweight, lut, rowptr, cols, vals, y0, y0_bf16, y,
+    # M, in, out, bits, bf16_mode, stream
+    "slt_lut_matmul": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P,
+                       _I, _I, _I, _I, _I, _P],
+    # q, k_new, v_new, q_bstride, kv_bstride, in_bf16, cos, sin, ck, cv,
+    # cache_bf16, lengths, out, B, S, Hkv, g, hd, window, scale, stream
+    "slt_decode_attn": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
+                        _I, _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
+    # q, k, v, out, 9 strides, q_bf16, kv_bf16, B, H, Hkv, Sq, Sk, hd,
+    # offset, window, scale, stream
+    "slt_flash_attn": [_P, _P, _P, _P] + [_I] * 9 + [_I] * 2 + [_I] * 8
+                      + [_F, _P],
+}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources() + sorted(glob.glob(os.path.join(CSRC_DIR,
+                                                           "*.cuh"))):
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def build() -> str:
+    """Compile the kernels if this source hash has no library yet.
+
+    Returns the library's path. The compiler's output (``-Xptxas -v``:
+    registers, shared memory and spills of each kernel) is kept beside it
+    in ``build.log``."""
+    out_dir = os.path.join(BUILD_ROOT, f"kernels-{_source_hash()}")
+    lib_path = os.path.join(out_dir, LIB_NAME)
+    if os.path.exists(lib_path):
+        return lib_path
+    os.makedirs(out_dir, exist_ok=True)
+    nvcc = nvcc_path()
+    tmp = tempfile.mkdtemp(dir=out_dir)
+    try:
+        procs = []
+        for src in _sources():
+            obj = os.path.join(tmp, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for src, _, p in procs:
+            out, _ = p.communicate()
+            logs.append(f"== {os.path.basename(src)} (rc {p.returncode})\n"
+                        f"{out}")
+            if p.returncode != 0:
+                failed.append(os.path.basename(src))
+        log = "\n".join(logs)
+        with open(os.path.join(out_dir, "build.log"), "w") as f:
+            f.write(log)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log[-8000:]}")
+        tmp_lib = os.path.join(tmp, LIB_NAME)
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             "-o", tmp_lib, *[o for _, o, _ in procs]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"linking the kernels failed:\n{link.stdout}")
+        os.replace(tmp_lib, lib_path)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return lib_path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(build())
+        for name, argtypes in SIGNATURES.items():
+            fn = getattr(handle, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        handle.slt_error_string.argtypes = [ctypes.c_int]
+        handle.slt_error_string.restype = ctypes.c_char_p
+        _lib = handle
+    return _lib
+
+
+def check(err: int, what: str) -> None:
+    if err != 0:
+        msg = lib().slt_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

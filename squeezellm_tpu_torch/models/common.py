@@ -1,0 +1,199 @@
+"""Shared building blocks: linears (dense or LUT-quantized), norms, RoPE,
+attention with a preallocated token-major KV cache.
+
+The PyTorch counterpart of the JAX package's ``models/common.py``; the
+same functions under the same names, on tensors. The KV cache is updated
+in place (JAX returns a new one).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, List, Optional
+
+import torch
+from torch import nn
+
+from squeezellm_tpu_torch.ops.quant_linear import (
+    QuantLinearSpec,
+    quant_linear_apply,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class LinearSpec:
+    """Static description of one linear: dense fp or LUT-quantized."""
+
+    in_features: int
+    out_features: int
+    has_bias: bool = False
+    quant: Optional[QuantLinearSpec] = None  # None => dense weights
+
+    @property
+    def is_quant(self) -> bool:
+        return self.quant is not None
+
+
+def apply_linear(spec: LinearSpec, params: Dict[str, torch.Tensor],
+                 x: torch.Tensor, *, mode: str = "exact",
+                 y0: Optional[torch.Tensor] = None,
+                 plain: bool = False) -> torch.Tensor:
+    """y = y0 + x @ W^T (+ b). Dense params: {'w': (out, in), 'b'?};
+    quantized: the quant_linear tensors. A quantized linear folds y0 into
+    its kernel's output init; a dense one adds it."""
+    if spec.is_quant:
+        return quant_linear_apply(spec.quant, params, x, mode=mode, y0=y0,
+                                  plain=plain)
+    y = torch.matmul(x, params["w"].to(x.dtype).t())
+    if y0 is not None:
+        y = y + y0.to(x.dtype)
+    if spec.has_bias:
+        y = y + params["b"].to(x.dtype)
+    return y
+
+
+class Linear(nn.Module):
+    """A linear's spec and tensors (buffers) as a module."""
+
+    def __init__(self, spec: LinearSpec, tensors: Dict[str, torch.Tensor]):
+        super().__init__()
+        self.spec = spec
+        self._names = tuple(tensors)
+        for name, t in tensors.items():
+            self.register_buffer(name, t)
+
+    def tensors(self) -> Dict[str, torch.Tensor]:
+        return {name: getattr(self, name) for name in self._names}
+
+    def forward(self, x: torch.Tensor, *, mode: str = "exact",
+                y0: Optional[torch.Tensor] = None,
+                plain: bool = False) -> torch.Tensor:
+        return apply_linear(self.spec, self.tensors(), x, mode=mode, y0=y0,
+                            plain=plain)
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(dt) * weight.to(dt)
+
+
+# ---------------------------------------------------------------------------
+# RoPE (HF LLaMA convention: rotate_half over contiguous halves)
+# ---------------------------------------------------------------------------
+
+
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
+                 dtype=torch.float32):
+    """positions: int tensor (...,). Returns cos/sin (..., head_dim),
+    computed in f32 in the JAX package's op order, then cast to dtype."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                        device=positions.device) / head_dim
+    inv_freq = 1.0 / (theta ** exps)
+    angles = positions.float()[..., None] * inv_freq  # (..., hd/2)
+    emb = torch.cat([angles, angles], dim=-1)
+    return torch.cos(emb).to(dtype), torch.sin(emb).to(dtype)
+
+
+def apply_rope_tm(x: torch.Tensor, cos: torch.Tensor,
+                  sin: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, H, D) TOKEN-major; cos/sin: (B, S, D) or (S, D)."""
+    if cos.dim() == x.dim() - 2:
+        cos = cos[None]
+        sin = sin[None]
+    cos = cos[:, :, None, :]
+    sin = sin[:, :, None, :]
+    d2 = x.shape[-1] // 2
+    rotated = torch.cat([-x[..., d2:], x[..., :d2]], dim=-1)
+    return x * cos + rotated * sin
+
+
+# ---------------------------------------------------------------------------
+# Attention with a preallocated KV cache
+# ---------------------------------------------------------------------------
+
+
+def init_kv_cache(batch: int, max_seq: int, n_layers: int, n_kv_heads: int,
+                  head_dim: int, dtype=torch.float32,
+                  device="cuda") -> List[Dict[str, torch.Tensor]]:
+    """Per-layer list of {'k','v'} of shape (B, max_seq, H_kv * D):
+    TOKEN-major, a token's row contiguous across heads."""
+    shape = (batch, max_seq, n_kv_heads * head_dim)
+    return [{"k": torch.zeros(shape, dtype=dtype, device=device),
+             "v": torch.zeros(shape, dtype=dtype, device=device)}
+            for _ in range(n_layers)]
+
+
+def read_kv(cache: Dict[str, torch.Tensor], dtype, n_kv_heads: int):
+    """HEAD-major (k, v) views (B, H_kv, S, D) of a token-major cache in
+    ``dtype`` (views, not copies, when the cache already has it)."""
+    B, S, KV = cache["k"].shape
+    hd = KV // n_kv_heads
+
+    def hm(a):
+        return a.view(B, S, n_kv_heads, hd).transpose(1, 2).to(dtype)
+
+    return hm(cache["k"]), hm(cache["v"])
+
+
+def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    """x: (B, H, S, D) -> (B, H*n_rep, S, D)."""
+    if n_rep == 1:
+        return x
+    b, h, s, d = x.shape
+    return x[:, :, None].expand(b, h, n_rep, s, d).reshape(b, h * n_rep, s, d)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              mask: torch.Tensor) -> torch.Tensor:
+    """q: (B, H, Sq, D); k/v: (B, H, Sk, D); mask broadcastable to
+    (B, H, Sq, Sk), True = attend. Softmax in f32."""
+    dt = q.dtype
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    logits = logits.masked_fill(~mask, torch.finfo(torch.float32).min)
+    probs = torch.softmax(logits, dim=-1).to(dt)
+    return torch.matmul(probs.float(), v.float()).to(dt)
+
+
+def causal_mask(sq: int, sk: int, offset: int = 0,
+                sliding_window: Optional[int] = None,
+                device="cpu") -> torch.Tensor:
+    """(1, 1, sq, sk) bool causal mask; query i sits at position offset+i."""
+    qpos = offset + torch.arange(sq, device=device)[:, None]
+    kpos = torch.arange(sk, device=device)[None, :]
+    m = kpos <= qpos
+    if sliding_window is not None:
+        m = m & (kpos > qpos - sliding_window)
+    return m[None, None]
+
+
+def decode_mask(max_seq: int, pos: torch.Tensor,
+                sliding_window: Optional[int] = None) -> torch.Tensor:
+    """Mask for single-token queries at position(s) pos: scalar ->
+    (1, 1, 1, max_seq); (B,) -> (B, 1, 1, max_seq)."""
+    kpos = torch.arange(max_seq, device=pos.device)[None, :]
+    p = pos.reshape(-1, 1)
+    m = kpos <= p
+    if sliding_window is not None:
+        m = m & (kpos > p - sliding_window)
+    return m[:, None, None, :]
+
+
+def update_kv_cache(cache: Dict[str, torch.Tensor], k_new: torch.Tensor,
+                    v_new: torch.Tensor, pos) -> Dict[str, torch.Tensor]:
+    """Write one new token's k/v (B, 1, H_kv, D) at position(s) pos (int,
+    or (B,) tensor for per-slot positions), in place, cast to the cache
+    dtype."""
+    B = k_new.shape[0]
+    for name, new in (("k", k_new), ("v", v_new)):
+        c = cache[name]
+        rows = new.reshape(B, -1).to(c.dtype)
+        if isinstance(pos, int):
+            c[:, pos] = rows
+        else:
+            c[torch.arange(B, device=c.device), pos.long()] = rows
+    return cache

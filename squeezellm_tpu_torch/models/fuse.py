@@ -1,0 +1,96 @@
+"""Decode-time module fusion: concatenate q|k|v and gate|up along output
+channels into single quantized linears.
+
+The counterpart of the JAX package's ``models/fuse.py`` (``_fuse_linears``
+and ``fuse_for_decode``). The inputs are shared, so packed words and LUTs
+concatenate along the output axis, the CSR sidecars stack row blocks, and
+top-X indices move to the fused output space. No SpMV slot plans are
+built: K1 folds the CSR sidecar itself.
+"""
+
+from __future__ import annotations
+
+from typing import List, Sequence
+
+import torch
+
+from squeezellm_tpu_torch.models.common import Linear, LinearSpec
+from squeezellm_tpu_torch.ops.quant_linear import QuantLinearSpec
+
+FUSE_GROUPS = (("qkv", ("q", "k", "v")), ("gateup", ("gate", "up")))
+
+
+def _fusable(linears: Sequence) -> bool:
+    if any(m is None or not m.spec.is_quant for m in linears):
+        return False
+    q0 = linears[0].spec.quant
+    return all(m.spec.quant.bits == q0.bits
+               and m.spec.in_features == linears[0].spec.in_features
+               for m in linears)
+
+
+def fuse_linears(linears: List[Linear]) -> Linear:
+    """Concatenate quantized linears (same bits, same input) along the
+    output dim."""
+    specs = [m.spec.quant for m in linears]
+    ps = [m.tensors() for m in linears]
+    bits, in_f = specs[0].bits, specs[0].in_features
+    offsets = [0]
+    for s in specs:
+        offsets.append(offsets[-1] + s.out_features)
+    out_f = offsets[-1]
+    dev = ps[0]["qweight"].device
+    new = {
+        "qweight": torch.cat([p["qweight"] for p in ps], dim=1),
+        "lut": torch.cat([p["lut"] for p in ps], dim=0),
+    }
+    nnz = sum(s.nnz for s in specs)
+    if nnz:
+        ptrs, base = [torch.zeros(1, dtype=torch.int32, device=dev)], 0
+        for s, p in zip(specs, ps):
+            if s.include_sparse:
+                ptrs.append(p["sp_rowptr"][1:] + base)
+                base += s.nnz
+            else:
+                ptrs.append(torch.full((s.out_features,), base,
+                                       dtype=torch.int32, device=dev))
+        new["sp_rowptr"] = torch.cat(ptrs)
+        new["sp_cols"] = torch.cat([p["sp_cols"] for s, p in zip(specs, ps)
+                                    if s.include_sparse])
+        new["sp_vals"] = torch.cat([p["sp_vals"] for s, p in zip(specs, ps)
+                                    if s.include_sparse])
+    topx = sum(s.topx for s in specs)
+    if topx:
+        new["topx_weights"] = torch.cat(
+            [p["topx_weights"] for s, p in zip(specs, ps) if s.topx], dim=1)
+        new["topx_indices"] = torch.cat(
+            [p["topx_indices"] + off
+             for s, p, off in zip(specs, ps, offsets) if s.topx])
+    has_bias = any(s.has_bias for s in specs)
+    if has_bias:
+        new["bias"] = torch.cat([
+            p["bias"] if s.has_bias
+            else torch.zeros(s.out_features, dtype=torch.float32, device=dev)
+            for s, p in zip(specs, ps)])
+    q = QuantLinearSpec(bits=bits, in_features=in_f, out_features=out_f,
+                        has_bias=has_bias, nnz=nnz, topx=topx)
+    return Linear(LinearSpec(in_features=in_f, out_features=out_f,
+                             has_bias=has_bias, quant=q), new)
+
+
+def fuse_for_decode(model):
+    """Fuse every fusable q|k|v and gate|up group of a Llama model in
+    place (one layer at a time, so the old tensors are freed as it goes);
+    returns the model. Unfusable groups stay as they are."""
+    for layer in model.layers:
+        for block in (layer.attn, layer.mlp):
+            for fused_name, names in FUSE_GROUPS:
+                members = [block.proj[n] if n in block.proj else None
+                           for n in names]
+                if not _fusable(members):
+                    continue
+                fused = fuse_linears(members)
+                for n in names:
+                    del block.proj[n]
+                block.proj[fused_name] = fused
+    return model

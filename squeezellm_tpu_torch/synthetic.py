@@ -1,0 +1,114 @@
+"""Random LLaMA models made on the device from a seeded generator.
+
+``quantized_llama`` is the flagship the JAX package's ``bench.py`` measures
+(``_build_quantized_llama``): packed random codes, sorted random LUTs
+(scale 0.02), a 0.45% COO-style sparse sidecar (every entry live, rows
+sorted, values N(0, 0.08)), top-X=10 hybrid channels (N(0, 0.05)), a
+quantized lm_head at the model's bit width, a bf16 embedding and unit
+norms. Unlike ``bench.py``, every layer gets its own tensors: a layer set
+shared across layers would let the 50 MB L2 of an H100 serve part of each
+step from cache and inflate the achieved bandwidth.
+
+``dense_llama`` is the speed yardstick: the same config with bf16 dense
+weights (N(0, 1) * 0.5 / sqrt(in), as the JAX ``random_dense_params``).
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from squeezellm_tpu_torch import formats
+from squeezellm_tpu_torch.models import llama
+from squeezellm_tpu_torch.models.common import Linear, LinearSpec
+from squeezellm_tpu_torch.ops.quant_linear import QuantLinearSpec
+
+
+def random_quant_linear(gen, device, out_f: int, in_f: int, bits: int,
+                        sparsity: float, topx: int) -> Linear:
+    """One random quantized linear (bench.py's statistics), unfused."""
+    nw = formats.n_words(in_f, bits)
+    tensors = {
+        "qweight": torch.randint(-2**31, 2**31 - 1, (nw, out_f),
+                                 generator=gen, device=device,
+                                 dtype=torch.int64).to(torch.int32),
+        "lut": (torch.randn(out_f, 2**bits, generator=gen, device=device)
+                * 0.02).sort(dim=1).values,
+    }
+    nnz = 0
+    n = int(out_f * in_f * sparsity)
+    if n:
+        nnz = max(512, -(-n // 512) * 512)  # bench.py's padded count, all live
+        rows = torch.randint(0, out_f, (nnz,), generator=gen,
+                             device=device).sort().values
+        counts = torch.bincount(rows, minlength=out_f)
+        rowptr = torch.zeros(out_f + 1, dtype=torch.int64, device=device)
+        rowptr[1:] = torch.cumsum(counts, 0)
+        tensors["sp_rowptr"] = rowptr.to(torch.int32)
+        tensors["sp_cols"] = torch.randint(0, in_f, (nnz,), generator=gen,
+                                           device=device, dtype=torch.int32)
+        tensors["sp_vals"] = torch.randn(nnz, generator=gen,
+                                         device=device) * 0.08
+    if topx:
+        tensors["topx_weights"] = torch.randn(in_f, topx, generator=gen,
+                                              device=device) * 0.05
+        tensors["topx_indices"] = torch.randperm(
+            out_f, generator=gen, device=device)[:topx].to(torch.int32)
+    q = QuantLinearSpec(bits=bits, in_features=in_f, out_features=out_f,
+                        nnz=nnz, topx=topx)
+    return Linear(LinearSpec(in_features=in_f, out_features=out_f, quant=q),
+                  tensors)
+
+
+def _generator(seed: int, device) -> torch.Generator:
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+def quantized_llama(config: llama.LlamaConfig, bits: int, *,
+                    sparsity: float = 0.0045, topx: int = 10,
+                    seed: int = 0, device="cuda") -> llama.Llama:
+    """The random Dense-and-Sparse flagship, unfused."""
+    device = torch.device(device)
+    gen = _generator(seed, device)
+    h = config.hidden_size
+    layers = []
+    for _ in range(config.n_layers):
+        linears = {name: random_quant_linear(gen, device, o, i, bits,
+                                             sparsity, topx)
+                   for name, (o, i) in config.linear_shapes().items()}
+        layers.append(llama.DecoderLayer(
+            config, linears, torch.ones(h, device=device),
+            torch.ones(h, device=device)))
+    embed = (torch.randn(config.vocab_size, h, generator=gen, device=device)
+             * 0.02).to(torch.bfloat16)
+    head = random_quant_linear(gen, device, config.vocab_size, h, bits, 0.0, 0)
+    return llama.Llama(config, embed, layers, torch.ones(h, device=device),
+                       head)
+
+
+def dense_llama(config: llama.LlamaConfig, *, seed: int = 0,
+                device="cuda") -> llama.Llama:
+    """The dense yardstick model: every weight in bf16."""
+    dtype = torch.bfloat16
+    device = torch.device(device)
+    gen = _generator(seed, device)
+    h = config.hidden_size
+
+    def lin(o, i, scale):
+        w = torch.randn(o, i, generator=gen, device=device, dtype=dtype)
+        return Linear(LinearSpec(in_features=i, out_features=o),
+                      {"w": w * scale})
+
+    layers = []
+    for _ in range(config.n_layers):
+        linears = {name: lin(o, i, 0.5 / math.sqrt(i))
+                   for name, (o, i) in config.linear_shapes().items()}
+        layers.append(llama.DecoderLayer(
+            config, linears, torch.ones(h, device=device, dtype=dtype),
+            torch.ones(h, device=device, dtype=dtype)))
+    embed = torch.randn(config.vocab_size, h, generator=gen, device=device,
+                        dtype=dtype) * 0.02
+    return llama.Llama(config, embed, layers,
+                       torch.ones(h, device=device, dtype=dtype),
+                       lin(config.vocab_size, h, 0.02))

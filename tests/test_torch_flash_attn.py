@@ -1,0 +1,57 @@
+"""K3's plain version (the port's flash attention on CPU tensors) against
+the JAX package's Pallas flash kernel in interpret mode: causal from an
+offset, GQA, sliding window, k/v taken from a longer cache."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from squeezellm_tpu.ops import flash_attn as jfa
+from squeezellm_tpu_torch.ops import flash_attn
+
+TOL = 2e-5  # abs, outputs of magnitude ~1; both sides accumulate in f32
+
+
+@pytest.mark.parametrize("g,window", [(1, None), (2, None), (2, 24)])
+def test_flash_offset0_matches_pallas(g, window):
+    rng = np.random.default_rng(g + (window or 0))
+    B, Hkv, Sq, hd = 2, 2, 48, 32
+    H = g * Hkv
+    q = rng.normal(size=(B, H, Sq, hd)).astype(np.float32)
+    k = rng.normal(size=(B, Hkv, Sq, hd)).astype(np.float32)
+    v = rng.normal(size=(B, Hkv, Sq, hd)).astype(np.float32)
+    want = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               jnp.asarray(0, jnp.int32),
+                               sliding_window=window, interpret=True)
+    got = flash_attn.flash_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                     torch.from_numpy(v), 0,
+                                     sliding_window=window)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=TOL)
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "bfloat16"])
+def test_flash_offset_into_cache_matches_pallas(kv_dtype):
+    """q rows at [24, 40) over a 64-row cache whose rows past 40 hold
+    finite garbage, never attended."""
+    rng = np.random.default_rng(1)
+    B, Hkv, g, Sq, Sk, hd, off = 1, 2, 2, 16, 64, 32, 24
+    q = rng.normal(size=(B, Hkv * g, Sq, hd)).astype(np.float32)
+    k = rng.normal(size=(B, Hkv, Sk, hd)).astype(np.float32)
+    v = rng.normal(size=(B, Hkv, Sk, hd)).astype(np.float32)
+    k[:, :, off + Sq:] = 1e4
+    v[:, :, off + Sq:] = -1e4
+    jdt = jnp.bfloat16 if kv_dtype == "bfloat16" else jnp.float32
+    want = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k, jdt),
+                               jnp.asarray(v, jdt),
+                               jnp.asarray(off, jnp.int32), interpret=True)
+    tdt = getattr(torch, kv_dtype)
+    got = flash_attn.flash_attention(
+        torch.from_numpy(q), torch.from_numpy(k).to(tdt),
+        torch.from_numpy(v).to(tdt), off)
+    assert np.isfinite(got.numpy()).all()
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=TOL)

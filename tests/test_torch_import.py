@@ -1,0 +1,45 @@
+"""The port stands alone: importing every module of squeezellm_tpu_torch
+and running a CPU forward, greedy generation and the decode benchmark
+loads neither JAX nor the JAX package (matched as the exact module
+`squeezellm_tpu` or its submodules, not as a prefix of the port's name)."""
+
+import json
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = r"""
+import importlib, json, pkgutil, sys
+import numpy as np
+import squeezellm_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+from squeezellm_tpu_torch import engine, synthetic
+from squeezellm_tpu_torch.models import fuse, llama
+cfg = llama.LlamaConfig(vocab_size=64, hidden_size=64, intermediate_size=96,
+                        n_layers=1, n_heads=2, n_kv_heads=1, max_seq=32)
+model = synthetic.quantized_llama(cfg, 3, sparsity=0.02, topx=2, device="cpu")
+eng = engine.Engine(fuse.fuse_for_decode(model))
+out = eng.generate(np.array([[1, 2, 3]]), 4)
+stats = eng.benchmark(np.arange(8)[None], max_seq=32)
+logits = model.forward(__import__("torch").tensor([[1, 2, 3]]))
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "squeezellm_tpu"
+             or m.startswith("squeezellm_tpu."))
+print(json.dumps({"bad": bad, "shape": list(out.shape),
+                  "logits": list(logits.shape),
+                  "finite": bool(np.isfinite(stats["check_ppl"]))}))
+"""
+
+
+def test_port_imports_no_jax():
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr[-3000:]
+    got = json.loads(res.stdout.strip().splitlines()[-1])
+    assert got["bad"] == []
+    assert got["shape"] == [1, 7] and got["logits"] == [1, 3, 64]
+    assert got["finite"]

@@ -1,0 +1,119 @@
+"""K1-K3 on the card against their plain PyTorch versions, at ragged small
+shapes the full-width smoke run does not reach (column and row tails,
+partial packed words, GQA groups, head dims 32/64/128, strided inputs),
+and a tiny model's kernel path against its plain path.
+
+Needs an NVIDIA GPU and nvcc; skipped elsewhere. On the card:
+``python -m pytest tests/test_torch_kernels_gpu.py -m gpu``."""
+
+import numpy as np
+import pytest
+import torch
+
+from squeezellm_tpu_torch import engine, synthetic
+from squeezellm_tpu_torch.models import common, fuse, llama
+from squeezellm_tpu_torch.ops import decode_attn, flash_attn, lut_matmul
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+@pytest.mark.parametrize("mode", ["exact", "bf16"])
+@pytest.mark.parametrize("bits", [3, 4])
+@pytest.mark.parametrize("M", [1, 3, 16, 40, 100])
+def test_lut_matmul_kernel_matches_plain(dev, M, bits, mode):
+    g = torch.Generator(device=dev).manual_seed(M * 10 + bits)
+    in_f, out_f = 116, 200
+    lin = synthetic.random_quant_linear(g, dev, out_f, in_f, bits, 0.05, 0)
+    t = lin.tensors()
+    for x_dt, y0_dt, sparse in ((torch.float32, torch.float32, True),
+                                (torch.bfloat16, torch.bfloat16, True),
+                                (torch.float32, None, False)):
+        x = torch.randn(M, in_f, generator=g, device=dev).to(x_dt)
+        y0 = (None if y0_dt is None
+              else torch.randn(M, out_f, generator=g, device=dev).to(y0_dt))
+        kw = dict(rowptr=t["sp_rowptr"], cols=t["sp_cols"],
+                  vals=t["sp_vals"]) if sparse else {}
+        args = (x, t["qweight"], t["lut"], bits)
+        got = lut_matmul.lut_matmul(*args, y0=y0, mode=mode, **kw)
+        want = lut_matmul.lut_matmul_plain(*args, y0=y0, mode=mode, **kw)
+        torch.cuda.synchronize()
+        assert _rel(got, want) <= 1e-5, (x_dt, sparse, _rel(got, want))
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,g,window", [(32, 2, None), (64, 4, 5),
+                                         (128, 1, None), (128, 8, 40)])
+def test_decode_attention_kernel_matches_plain(dev, hd, g, window,
+                                               cache_dtype):
+    gen = torch.Generator(device=dev).manual_seed(hd + g)
+    B, Hkv, S = 3, 2, 80
+    H = g * Hkv
+    # q/k/v as column slices of one fused projection row, as the model
+    # hands them over
+    qkv = torch.randn(B, (H + 2 * Hkv) * hd, generator=gen, device=dev)
+    q = qkv[:, : H * hd].view(B, H, hd)
+    k = qkv[:, H * hd: (H + Hkv) * hd].view(B, Hkv, hd)
+    v = qkv[:, (H + Hkv) * hd:].view(B, Hkv, hd)
+    cache = torch.randn(2, B, S, Hkv * hd, generator=gen,
+                        device=dev).to(cache_dtype)
+    lengths = torch.tensor([37, 0, S], dtype=torch.int32, device=dev)
+    cos, sin = common.rope_cos_sin((lengths - 1).clamp(min=0).long(), hd,
+                                   10000.0)
+    got_c, want_c = cache.clone(), cache.clone()
+    kw = dict(sliding_window=window, rope_cos=cos.contiguous(),
+              rope_sin=sin.contiguous())
+    got = decode_attn.decode_attention(q, k, v, got_c[0], got_c[1], lengths,
+                                       **kw)
+    want = decode_attn.decode_attention_plain(q, k, v, want_c[0], want_c[1],
+                                              lengths, **kw)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max() <= 1e-4
+    assert (got_c.float() - want_c.float()).abs().max() <= 1e-6
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,offset,hd,g,window", [
+    (1, 0, 128, 1, None), (7, 0, 128, 1, None), (33, 0, 64, 2, None),
+    (16, 21, 32, 4, None), (45, 3, 128, 2, 9)])
+def test_flash_attention_kernel_matches_plain(dev, Sq, offset, hd, g,
+                                              window, kv_dtype):
+    gen = torch.Generator(device=dev).manual_seed(Sq + offset)
+    B, Hkv, S = 2, 2, 96
+    H = g * Hkv
+    q = torch.randn(B, Sq, H, hd, generator=gen, device=dev).transpose(1, 2)
+    cache = {n: torch.randn(B, S, Hkv * hd, generator=gen,
+                            device=dev).to(kv_dtype) for n in ("k", "v")}
+    k, v = common.read_kv(cache, kv_dtype, Hkv)  # strided head-major views
+    got = flash_attn.flash_attention(q, k, v, offset, sliding_window=window)
+    want = flash_attn.flash_attention_plain(q, k, v, offset,
+                                            sliding_window=window)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max() <= 1e-4
+
+
+def test_tiny_model_kernel_path_matches_plain_path(dev):
+    cfg = llama.LlamaConfig(vocab_size=512, hidden_size=256,
+                            intermediate_size=384, n_layers=2, n_heads=4,
+                            n_kv_heads=2, max_seq=128)
+    prompt = np.array([[5, 9, 200, 31, 7, 77, 101]])
+    outs = []
+    for plain in (False, True):
+        model = synthetic.quantized_llama(cfg, 4, sparsity=0.01, topx=3,
+                                          seed=3, device=dev)
+        eng = engine.Engine(fuse.fuse_for_decode(model), plain=plain)
+        outs.append((eng.generate(prompt, 12),
+                     eng.teacher_forced_logits(np.arange(10)[None])))
+    np.testing.assert_array_equal(outs[0][0], outs[1][0])
+    assert _rel(outs[0][1], outs[1][1]) <= 1e-4

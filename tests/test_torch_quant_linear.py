@@ -1,0 +1,179 @@
+"""The port's quantized linear (K1's plain version + top-X + bias + y0) and
+plain_ops against the JAX package: Pallas `lut_matmul` in interpret mode
+(with and without SpMV slot plans) through `quant_linear_apply`, and
+`xla_ops`. Inputs from a seeded numpy generator go to both packages."""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from squeezellm_tpu import formats as jformats
+from squeezellm_tpu.ops import quant_linear as jql
+from squeezellm_tpu.ops import spmv, xla_ops
+from squeezellm_tpu_torch import carry, formats
+from squeezellm_tpu_torch.ops import lut_matmul as tlm
+from squeezellm_tpu_torch.ops import plain_ops
+from squeezellm_tpu_torch.ops import quant_linear as tql
+
+OUT_F, IN_F = 128, 116  # the last packed word is partial at bits 3 and 4
+TOL = {"exact": 1e-5, "bf16": 1e-4}  # max |dy| / max |y|
+
+
+def _random_linear(rng, bits, topx=3, bias=True):
+    """JAX-format params: garbage in every unused code slot of qweight, a
+    COO sidecar with zero padding at the end, top-X channels, a bias."""
+    nw = jformats.n_words(IN_F, bits)
+    p = {
+        "qweight": rng.integers(-2**31, 2**31, (nw, OUT_F),
+                                dtype=np.int64).astype(np.int32),
+        "lut": np.sort(rng.standard_normal((OUT_F, 2**bits))
+                       .astype(np.float32), axis=1),
+    }
+    dense = np.zeros((OUT_F, IN_F), np.float32)
+    mask = rng.random((OUT_F, IN_F)) < 0.02
+    dense[mask] = rng.standard_normal(mask.sum()).astype(np.float32)
+    coo = jformats.SparseCOO.from_dense(dense, pad_multiple=64)
+    assert coo.nnz < len(coo.vals)  # padding present
+    p.update(sp_rows=coo.rows, sp_cols=coo.cols, sp_vals=coo.vals)
+    p["topx_weights"] = rng.standard_normal((IN_F, topx)).astype(np.float32)
+    p["topx_indices"] = rng.choice(OUT_F, topx, replace=False).astype(np.int32)
+    if bias:
+        p["bias"] = rng.standard_normal(OUT_F).astype(np.float32)
+    spec = jql.QuantLinearSpec(bits=bits, in_features=IN_F,
+                               out_features=OUT_F, has_bias=bias,
+                               nnz_pad=len(coo.vals), topx=topx)
+    return spec, p
+
+
+def _port_linear(spec, p):
+    meta = {"quant": True, "bits": spec.bits, "has_bias": spec.has_bias,
+            "topx": spec.topx}
+    return carry.linear_from_tree(IN_F, meta, p, "cpu")
+
+
+def _rel(a, b):
+    return float(np.max(np.abs(np.asarray(a) - np.asarray(b)))
+                 / np.max(np.abs(np.asarray(b))))
+
+
+@pytest.mark.parametrize("mode", ["exact", "bf16"])
+@pytest.mark.parametrize("M", [1, 16, 40])
+@pytest.mark.parametrize("bits", [3, 4])
+def test_quant_linear_matches_pallas(bits, M, mode):
+    """sparse + topX + bias + y0 at M rows; the JAX side runs with the
+    slot plans (fused sparse GEMV up to 16 rows, gather_spmv above) and
+    without them (XLA sparse add)."""
+    rng = np.random.default_rng(100 * bits + M)
+    spec, p = _random_linear(rng, bits)
+    x = rng.standard_normal((M, IN_F)).astype(np.float32)
+    y0 = rng.standard_normal((M, OUT_F)).astype(np.float32)
+    backend = "pallas-bf16" if mode == "bf16" else "pallas"
+
+    lin = _port_linear(spec, p)
+    got = lin(torch.from_numpy(x), mode=mode, y0=torch.from_numpy(y0))
+    assert got.dtype == torch.float32 and got.shape == (M, OUT_F)
+
+    pspec, pp = spmv.attach_plan(spec, p)
+    for s, params in ((spec, p), (pspec, pp)):
+        want = jql.quant_linear_apply(
+            s, {k: jnp.asarray(v) for k, v in params.items()},
+            jnp.asarray(x), backend=backend, y0=jnp.asarray(y0))
+        assert _rel(got, want) <= TOL[mode], (s.sg_rows, _rel(got, want))
+
+
+@pytest.mark.parametrize("bits", [3, 4])
+def test_plain_ops_match_xla_ops(bits):
+    rng = np.random.default_rng(7 + bits)
+    spec, p = _random_linear(rng, bits)
+    x = rng.standard_normal((5, IN_F)).astype(np.float32)
+    qw, lut = torch.from_numpy(p["qweight"]), torch.from_numpy(p["lut"])
+
+    w = plain_ops.dequantize(qw, lut, bits, IN_F)
+    w_want = xla_ops.dequantize(jnp.asarray(p["qweight"]),
+                                jnp.asarray(p["lut"]), bits, IN_F)
+    np.testing.assert_array_equal(w.numpy(), np.asarray(w_want))
+
+    y = plain_ops.lut_matmul(torch.from_numpy(x), qw, lut, bits)
+    y_want = xla_ops.lut_matmul(jnp.asarray(x), jnp.asarray(p["qweight"]),
+                                jnp.asarray(p["lut"]), bits)
+    assert _rel(y, y_want) <= 1e-5
+
+    rowptr, cols, vals = carry.csr_from_coo(p["sp_rows"], p["sp_cols"],
+                                            p["sp_vals"], OUT_F, IN_F)
+    ys = plain_ops.sparse_matmul(torch.from_numpy(x), torch.from_numpy(rowptr),
+                                 torch.from_numpy(cols),
+                                 torch.from_numpy(vals), OUT_F)
+    ys_want = xla_ops.sparse_matmul(jnp.asarray(x), jnp.asarray(p["sp_rows"]),
+                                    jnp.asarray(p["sp_cols"]),
+                                    jnp.asarray(p["sp_vals"]), OUT_F)
+    np.testing.assert_allclose(ys.numpy(), np.asarray(ys_want), rtol=1e-5,
+                               atol=1e-5)
+
+    yh = plain_ops.hybrid_matmul(torch.from_numpy(x),
+                                 torch.from_numpy(p["topx_weights"]),
+                                 torch.from_numpy(p["topx_indices"]), OUT_F)
+    yh_want = xla_ops.hybrid_matmul(jnp.asarray(x),
+                                    jnp.asarray(p["topx_weights"]),
+                                    jnp.asarray(p["topx_indices"]), OUT_F)
+    np.testing.assert_allclose(yh.numpy(), np.asarray(yh_want), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("bits", [2, 3, 4, 8])
+def test_unpack_codes_matches_jax_formats(bits):
+    rng = np.random.default_rng(bits)
+    words = rng.integers(-2**31, 2**31, (formats.n_words(IN_F, bits), 9),
+                         dtype=np.int64).astype(np.int32)
+    got = formats.unpack_codes(torch.from_numpy(words), bits, IN_F)
+    np.testing.assert_array_equal(got.numpy(),
+                                  jformats.unpack_codes(words, bits, IN_F))
+    assert formats.CODES_PER_WORD == jformats.CODES_PER_WORD
+
+
+def test_csr_drops_padding_and_sorts_stably():
+    rows = np.array([3, 1, 3, 1, 0, 0], np.int32)
+    cols = np.array([5, 2, 1, 7, 0, 0], np.int32)
+    vals = np.array([1.0, 2.0, 3.0, 4.0, 0.0, 0.0], np.float32)  # 2 pads
+    rowptr, c, v = carry.csr_from_coo(rows, cols, vals, 4, 8)
+    np.testing.assert_array_equal(rowptr, [0, 0, 2, 2, 4])
+    np.testing.assert_array_equal(c, [2, 7, 5, 1])
+    np.testing.assert_array_equal(v, [2.0, 4.0, 1.0, 3.0])
+    with pytest.raises(ValueError):
+        carry.csr_from_coo(np.array([4]), np.array([0]), np.array([1.0]), 4, 8)
+
+
+@pytest.mark.parametrize("rows", [[], [2], [0, 0, 0, 0, 0, 3], [1, 3, 3]])
+def test_sparse_matmul_sums_each_csr_row(rows):
+    """Empty rows, one crowded row and an empty sidecar, against a loop."""
+    rng = np.random.default_rng(len(rows))
+    x = rng.standard_normal((3, 8)).astype(np.float32)
+    cols = rng.integers(0, 8, len(rows)).astype(np.int32)
+    vals = rng.standard_normal(len(rows)).astype(np.float32)
+    rowptr, c, v = carry.csr_from_coo(np.array(rows, np.int32), cols, vals,
+                                      4, 8)
+    got = plain_ops.sparse_matmul(torch.from_numpy(x), torch.from_numpy(rowptr),
+                                  torch.from_numpy(c), torch.from_numpy(v), 4)
+    want = np.zeros((3, 4), np.float32)
+    for r, col, val in zip(rows, cols, vals):
+        want[:, r] += val * x[:, col]
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=1e-6)
+
+
+def test_lut_matmul_wrapper_takes_plain_path_on_cpu():
+    """On a CPU tensor the wrapper is its plain version and launches
+    nothing."""
+    rng = np.random.default_rng(3)
+    spec, p = _random_linear(rng, 4)
+    x = torch.from_numpy(rng.standard_normal((2, IN_F)).astype(np.float32))
+    before = tlm.lut_matmul.launches
+    args = (x, torch.from_numpy(p["qweight"]), torch.from_numpy(p["lut"]), 4)
+    torch.testing.assert_close(tlm.lut_matmul(*args, mode="bf16"),
+                               tlm.lut_matmul_plain(*args, mode="bf16"),
+                               rtol=0, atol=0)
+    assert tlm.lut_matmul.launches == before
+    with pytest.raises(ValueError):
+        tql.quant_linear_apply(
+            tql.QuantLinearSpec(bits=4, in_features=IN_F, out_features=OUT_F),
+            {"qweight": args[1], "lut": args[2]}, x, mode="f16")
