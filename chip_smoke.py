@@ -6,11 +6,20 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from csrc/ with nvcc, holds each kernel
-against its plain PyTorch version at the main path's shapes, drives the
-port's main path (Engine.generate and Engine.benchmark on a random
-full-width LLaMA-2-7B, w4 and w3 with a 0.45% sparse sidecar, top-X 10 and
-a quantized lm_head), checks that the path went through the kernels, and
-prints the results. The last line is
+(K1-K5) against its plain PyTorch version at the main path's shapes, and
+drives the port's paths on random full-width models made from a seed,
+checking after each that it went through its kernels:
+
+* Engine.generate and Engine.benchmark on LLaMA-2-7B, w4 and w3 with a
+  0.45% sparse sidecar, top-X 10 and a quantized lm_head (K1, K2, K3), and
+  the bf16 dense model of the same config;
+* eval.perplexity on the same two models over 4 strides of 2048 synthetic
+  tokens, 2 strides a forward (K4 and K3), f32 and bf16;
+* Engine(cache_dtype="int8") on the w4 model: a request and the decode
+  benchmark beside the bf16-cache one (K5);
+* OPT-6.7B w4: one eval group and one greedy request (K2 without rope).
+
+The last line is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``; the line before it
 has the card's name and power limit, and the one before that the kernels'
 record as JSON. A failing phase makes it exit non-zero without that line.
@@ -47,6 +56,37 @@ K1_SHAPES = (("qkv", 12288, 4096, 32), ("o", 4096, 4096, 32),
 PROMPT_LENS = (7, 16, 100)
 NEW_TOKENS = 32
 BENCH_TOKENS = 128
+# K4: W against the plain version's. Exact mode: equal. bf16 mode: equal,
+# or one bf16 step apart where the fold's add lands on a rounding tie the
+# two sides could break differently (none expected: both add in f32 and
+# round to nearest even); the count of differing elements is printed.
+# y = x @ W + y0 at EVAL_SEQLEN rows against the plain K4 route within
+# TOL_K1. Against K1's plain version (`lut_matmul_plain`) exact mode is
+# held to TOL_K1 too; bf16 mode is held to TOL_K4_SEAM only: in this row
+# band the sidecar meets the bf16-rounded x and is rounded into the bf16 W
+# (as in the JAX package), while K1 reads x unrounded and keeps the
+# sidecar in f32, so the two differ by a few bf16 steps of the sparse part.
+TOL_K4_SEAM = 2e-3
+K4_SHAPES = (("qkv", 12288, 4096, 32), ("o", 4096, 4096, 32),
+             ("gateup", 22016, 4096, 32), ("down", 4096, 11008, 32),
+             ("lm_head", 32000, 4096, 1), ("opt_up", 16384, 4096, 32),
+             ("opt_down", 4096, 16384, 32))  # (name, out, in, per forward)
+EVAL_SEQLEN = 2048
+EVAL_STRIDES = 4
+EVAL_GROUP = 2
+TOL_PPL = 1e-4  # f32 perplexity, kernels vs plain, relative
+INT8_PROMPT = 100
+# The int8-cache model, kernels vs plain. The two paths' linears differ by
+# ~1e-6 (another summation order), which moves a k or v element across an
+# int8 rounding boundary about once in 1e4 elements; each flipped code is
+# one step of max|row|/127 in one cache element, and the 32 random layers
+# amplify the flips (as they do bf16's, see TOL_LAYER_BF16). So the model
+# is held one layer at a time, every layer fed the plain path's input and
+# cache: kernels vs plain within one int8 step, 2**-7 of max |out|. The
+# request's full-depth logit distance and the count of leading tokens that
+# equal the plain path's are reported, not held.
+TOL_LAYER_INT8 = 2.0**-7
+OPT_PROMPT = 16
 
 
 def sh(cmd):
@@ -55,6 +95,50 @@ def sh(cmd):
                               timeout=60).stdout.strip()
     except (OSError, subprocess.TimeoutExpired) as e:
         return f"unavailable ({e})"
+
+
+class CardSampler:
+    """Samples the card's SM clock, power draw and temperature with
+    nvidia-smi every 100 ms while a block runs; ``stats`` then holds their
+    medians and extremes (empty when nvidia-smi gave nothing). The compute-
+    bound phases depend on the clock the card sustains, so their times are
+    printed with it."""
+
+    QUERY = "clocks.sm,power.draw,temperature.gpu"
+
+    def __enter__(self):
+        self.stats = {}
+        try:
+            self.proc = subprocess.Popen(
+                ["nvidia-smi", f"--query-gpu={self.QUERY}",
+                 "--format=csv,noheader,nounits", "-lms", "100"],
+                stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        except OSError:
+            self.proc = None
+        return self
+
+    def __exit__(self, *exc):
+        if self.proc is None:
+            return False
+        self.proc.terminate()
+        try:
+            out, _ = self.proc.communicate(timeout=10)
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            out, _ = self.proc.communicate()
+        rows = []
+        for line in out.splitlines():
+            try:
+                rows.append([float(v) for v in line.split(",")])
+            except ValueError:
+                continue
+        if rows:
+            clock, power, temp = (sorted(c) for c in zip(*rows))
+            self.stats = {"samples": len(rows),
+                          "sm_mhz_median": clock[len(clock) // 2],
+                          "sm_mhz_min": clock[0], "power_w_max": power[-1],
+                          "temp_c_max": temp[-1]}
+        return False
 
 
 class Timer:
@@ -305,44 +389,238 @@ def check_k3(torch, timer, record):
           f"err {worst:.3g}")
 
 
+def check_k4(torch, timer, record):
+    from squeezellm_tpu_torch import synthetic
+    from squeezellm_tpu_torch.ops import dequant_dense as dd
+    from squeezellm_tpu_torch.ops import lut_matmul
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(14)
+    M = EVAL_SEQLEN
+    worst_w, worst_y = 0.0, 0.0
+    worst_rel = {"exact": 0.0, "bf16": 0.0}
+    seam = {"exact": 0.0, "bf16": 0.0}
+    differ, total = 0, 0
+    for name, out_f, in_f, per_fwd in K4_SHAPES:
+        for bits in (4, 3):
+            sp = 0.0 if name == "lm_head" else 0.0045
+            t = synthetic.random_quant_linear(gen, dev, out_f, in_f, bits, sp,
+                                              0).tensors()
+            kw = {}
+            if "sp_rowptr" in t:
+                kw = dict(rowptr=t["sp_rowptr"], cols=t["sp_cols"],
+                          vals=t["sp_vals"])
+            nnz = t["sp_vals"].numel() if kw else 0
+            args = (t["qweight"], t["lut"], bits, in_f)
+            for mode in ("exact", "bf16"):
+                dt = torch.bfloat16 if mode == "bf16" else torch.float32
+                w = dd.dequant_dense(*args, mode=mode, **kw)
+                w_plain = dd.dequant_dense_plain(*args, mode=mode, **kw)
+                torch.cuda.synchronize()
+                if w.shape != (in_f, out_f) or w.dtype != dt:
+                    raise AssertionError(f"K4 {name}: W {w.shape} {w.dtype}")
+                n_diff = int((w != w_plain).sum())
+                w_err = abs_err(w, w_plain)
+                differ += n_diff
+                total += w.numel()
+                if n_diff and (mode == "exact" or w_err > float(
+                        w_plain.float().abs().max()) * 2.0**-7):
+                    raise AssertionError(
+                        f"K4 {name} w{bits} {mode}: {n_diff} of {w.numel()} "
+                        f"elements of W differ, max |d| {w_err}")
+                x = torch.randn(M, in_f, generator=gen, device=dev).to(dt)
+                y0 = torch.randn(M, out_f, generator=gen, device=dev).to(dt)
+                y = dd.dense_matmul(x, w) + y0.float()
+                y_plain = dd.dense_matmul(x, w_plain, plain=True) + y0.float()
+                # K1's plain version, 256 rows at a time (its sparse fold
+                # takes rows x out x widest CSR row floats of scratch)
+                y_k1 = torch.cat([lut_matmul.lut_matmul_plain(
+                    x[r: r + 256], t["qweight"], t["lut"], bits,
+                    y0=y0[r: r + 256], mode=mode, **kw)
+                    for r in range(0, M, 256)])
+                torch.cuda.synchronize()
+                err = rel_err(y, y_plain)
+                k1_err = rel_err(y, y_k1)
+                worst_w = max(worst_w, w_err)
+                worst_y = max(worst_y, abs_err(y, y_plain))
+                worst_rel[mode] = max(worst_rel[mode], err)
+                seam[mode] = max(seam[mode], k1_err)
+                lim = TOL_K1[mode] if mode == "exact" else TOL_K4_SEAM
+                if err > TOL_K1[mode] or k1_err > lim:
+                    raise AssertionError(
+                        f"K4 {name} w{bits} {mode}: y rel err {err} vs the "
+                        f"plain K4 route, {k1_err} vs lut_matmul_plain")
+                del y, y_plain, y_k1, x, y0
+                nbytes = (t["qweight"].numel() * 4 + t["lut"].numel() * 4
+                          + w.numel() * w.element_size()
+                          + (nnz * 8 + (out_f + 1) * 4 if kw else 0))
+                b, by = bound_ms(nbytes, [(nnz, "f32")])
+                del w, w_plain
+                row = dict(
+                    shape=name, bits=bits, mode=mode, out=out_f, inp=in_f,
+                    launches_per_forward=per_fwd, w_differs=n_diff,
+                    rel_err=err, rel_err_vs_k1_plain=k1_err,
+                    ms=timer.ms(lambda: dd.dequant_dense(*args, mode=mode,
+                                                         **kw)),
+                    plain_ms=timer.ms(lambda: dd.dequant_dense_plain(
+                        *args, mode=mode, **kw), iters=3, warmup=1),
+                    library_ms=None, bound_ms=b, bound_by=by, bytes=nbytes)
+                row["gb_s"] = nbytes / row["ms"] / 1e6
+                record["k4_detail"].append(row)
+            del t
+            torch.cuda.empty_cache()
+    print("  K4 ms (bound, plain) [GB/s]; no library call computes it")
+    for r in record["k4_detail"]:
+        print(f"  K4 {r['shape']:8s} w{r['bits']} {r['mode']:5s} "
+              f"{r['ms']:.4f} ({r['bound_ms']:.4f}{r['bound_by'][0]}, "
+              f"{r['plain_ms']:.2f}) [{r['gb_s']:.0f}]")
+    for bits in (4, 3):
+        for mode in ("bf16", "exact"):
+            rows = [r for r in record["k4_detail"] if r["bits"] == bits
+                    and r["mode"] == mode and not r["shape"].startswith("opt")]
+            fwd = {k: sum(r[k] * r["launches_per_forward"] for r in rows)
+                   for k in ("ms", "bound_ms")}
+            record["k4_per_forward"].append(dict(bits=bits, mode=mode, **fwd))
+            print(f"  K4 per LLaMA-2-7B forward w{bits} {mode}: "
+                  f"{fwd['ms']:.2f} ms (bound {fwd['bound_ms']:.2f})")
+    # the kernel's own output is W; y also carries the library GEMM
+    record["k4_max_abs_err"] = worst_w
+    record["k4_y_max_abs_err"] = worst_y
+    print(f"K4 ok: 28 cases, W differs from the plain version's in {differ} "
+          f"of {total} elements (max |d| {worst_w:.3g}); y at {M} rows vs "
+          f"the plain K4 route max rel err {worst_rel} within {TOL_K1} (max "
+          f"abs {worst_y:.3g}); vs lut_matmul_plain {seam} "
+          f"(exact held to {TOL_K1['exact']}, bf16 to {TOL_K4_SEAM}: the "
+          f"sidecar is rounded to bf16 in this row band)")
+
+
+def check_k5(torch, timer, record):
+    import torch.nn.functional as F
+
+    from squeezellm_tpu_torch.models import common
+    from squeezellm_tpu_torch.ops import decode_attn, kv_quant
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(15)
+    B, H, hd, S = 1, 32, 128, 2048
+    # (kv heads, rope, window, input dtype); the first is LLaMA-2-7B's bf16
+    # decode step and the one that is timed
+    variants = ((32, True, None, torch.bfloat16),
+                (8, True, None, torch.bfloat16),
+                (32, False, None, torch.float32),
+                (8, True, 256, torch.float32))
+    worst, worst_rel = 0.0, 0.0
+    for n in (1, 128, 1000, 2048):
+        for vi, (Hkv, rope, window, dt) in enumerate(variants):
+            qkv = torch.randn(B, (H + 2 * Hkv) * hd, generator=gen,
+                              device=dev).to(dt)
+            q = qkv[:, : H * hd].view(B, H, hd)
+            k = qkv[:, H * hd: (H + Hkv) * hd].view(B, Hkv, hd)
+            v = qkv[:, (H + Hkv) * hd:].view(B, Hkv, hd)
+            hist = torch.randn(2, B, S, Hkv, hd, generator=gen, device=dev)
+            codes, scales = kv_quant.quantize_rows(hist)
+            codes = codes.reshape(2, B, S, Hkv * hd)
+            scales = scales[..., 0].transpose(2, 3).contiguous()  # 2,B,Hkv,S
+            lengths = torch.full((B,), n, dtype=torch.int32, device=dev)
+            kw = dict(sliding_window=window)
+            if rope:
+                cos, sin = common.rope_cos_sin(lengths.long() - 1, hd,
+                                               10000.0, dt)
+                kw.update(rope_cos=cos.float().contiguous(),
+                          rope_sin=sin.float().contiguous())
+            kc, ks = codes.clone(), scales.clone()
+            pc, ps = codes.clone(), scales.clone()
+            got = decode_attn.decode_attention_q8(
+                q, k, v, kc[0], kc[1], ks[0], ks[1], lengths, **kw)
+            want = decode_attn.decode_attention_q8_plain(
+                q, k, v, pc[0], pc[1], ps[0], ps[1], lengths, **kw)
+            torch.cuda.synchronize()
+            err = rel_err(got, want)
+            worst = max(worst, abs_err(got, want))
+            worst_rel = max(worst_rel, err)
+            if (err > TOL_ATTN or not torch.equal(kc, pc)
+                    or not torch.equal(ks, ps)
+                    or torch.equal(kc[:, :, n - 1], codes[:, :, n - 1])):
+                raise AssertionError(
+                    f"K5 n={n} Hkv={Hkv} rope={rope} window={window}: rel "
+                    f"err {err}, codes equal {torch.equal(kc, pc)}, scales "
+                    f"equal {torch.equal(ks, ps)}, row {n - 1} rewritten "
+                    f"{not torch.equal(kc[:, :, n - 1], codes[:, :, n - 1])}")
+            if vi:
+                continue
+            nbytes = (3 * H * hd * 2 + 2 * hd * 4 + 4 + 2 * n * Hkv * (hd + 4)
+                      + 2 * Hkv * (hd + 4) + H * hd * 4)
+            b, by = bound_ms(nbytes, [(4 * H * n * hd, "f32")])
+            cache = {"k": kc[0], "v": kc[1], "ks": ks[0], "vs": ks[1]}
+            kh, vh = (a[:, :, :n].contiguous()
+                      for a in common.read_kv(cache, torch.bfloat16, Hkv))
+            q4 = q[:, :, None, :].contiguous()
+            row = dict(
+                n=n, S=S, rel_err=err,
+                ms=timer.ms(lambda: decode_attn.decode_attention_q8(
+                    q, k, v, kc[0], kc[1], ks[0], ks[1], lengths, **kw)),
+                plain_ms=timer.ms(
+                    lambda: decode_attn.decode_attention_q8_plain(
+                        q, k, v, pc[0], pc[1], ps[0], ps[1], lengths, **kw),
+                    iters=5),
+                library_ms=timer.ms(
+                    lambda: F.scaled_dot_product_attention(q4, kh, vh)),
+                bound_ms=b, bound_by=by, bytes=nbytes)
+            record["k5_detail"].append(row)
+            print(f"  K5 n={n:5d}: {row['ms']:.4f} ms (bound {b:.4f} by "
+                  f"{by}, plain {row['plain_ms']:.3f}, sdpa on the "
+                  f"dequantized cache {row['library_ms']:.4f})")
+    record["k5_max_abs_err"] = worst
+    print(f"K5 ok: 16 cases (MHA and GQA 8 of 32, rope and none, window "
+          f"256), codes and scales equal to the plain version's, max rel err "
+          f"{worst_rel:.3g} within {TOL_ATTN}, max abs err {worst:.3g}")
+
+
 def counters():
-    from squeezellm_tpu_torch.ops import decode_attn, flash_attn, lut_matmul
+    """The five wrappers, K1 to K5."""
+    from squeezellm_tpu_torch.ops import (decode_attn, dequant_dense,
+                                          flash_attn, lut_matmul)
 
     return (lut_matmul.lut_matmul, decode_attn.decode_attention,
-            flash_attn.flash_attention)
+            flash_attn.flash_attention, dequant_dense.dequant_dense,
+            decode_attn.decode_attention_q8)
 
 
 def reset_counts():
     for fn in counters():
         fn.launches = 0
+    counters()[1].ropeless_launches = 0
+
+
+def expect_counts(record, path, want):
+    """Read the counts a path's run left, hold them to `want` (K1..K5) and
+    keep them for the kernels' line."""
+    got = read_counts()
+    if got != want:
+        raise AssertionError(f"{path}: launches K1..K5 {got} != {want}")
+    record["paths"].append({"path": path, "launches": got})
+    return got
 
 
 def read_counts():
     return [fn.launches for fn in counters()]
 
 
-def profile_decode(torch, eng, ids, steps=8):
-    """Device time per decode step and its split by kernel, from a
-    torch.profiler trace of `steps` steps. ``profile_failed`` says why
-    there is none (the profiler failed, or the trace holds no device
-    time); the device-busy numbers are then not measured."""
+def device_ms_by_kernel(torch, fn):
+    """(device ms of one call of `fn` by kernel name, None), from a
+    torch.profiler trace; (None, why) when the profiler failed or the
+    trace holds no device time: the numbers are then not measured."""
     from torch.profiler import ProfilerActivity, profile
 
-    cache = eng.new_cache(1, BENCH_TOKENS)
-    tok = torch.tensor(ids[:, :1], device="cuda")
-    kw = dict(dtype=eng.dtype, mode=eng.mode)
-    for i in range(2):
-        eng.model.decode_step(tok, i, cache, **kw)
     torch.cuda.synchronize()
     try:
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for i in range(2, 2 + steps):
-                eng.model.decode_step(tok, i, cache, **kw)
+            fn()
             torch.cuda.synchronize()
     except RuntimeError as e:
         traceback.print_exc()
-        return {"profile_failed": f"{type(e).__name__}: {e}"}
+        return None, f"{type(e).__name__}: {e}"
     by_name = {}
     for e in prof.key_averages():
         if not str(getattr(e, "device_type", "")).endswith("CUDA"):
@@ -350,59 +628,128 @@ def profile_decode(torch, eng, ids, steps=8):
         us = getattr(e, "self_device_time_total", None)
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
-        by_name[e.key[:60]] = by_name.get(e.key[:60], 0.0) + us / 1e3 / steps
-    total = sum(by_name.values())
-    if total <= 0:
-        return {"profile_failed": "the trace holds no device time"}
+        by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
+    if sum(by_name.values()) <= 0:
+        return None, "the trace holds no device time"
+    return by_name, None
+
+
+def profile_decode(torch, eng, ids, steps=8):
+    """Device time per decode step and its split by kernel, from a trace
+    of `steps` steps; ``profile_failed`` says why there is none."""
+    cache = eng.new_cache(1, BENCH_TOKENS)
+    tok = torch.tensor(ids[:, :1], device="cuda")
+    kw = dict(dtype=eng.dtype, mode=eng.mode)
+    for i in range(2):
+        eng.model.decode_step(tok, i, cache, **kw)
+
+    def run():
+        for i in range(2, 2 + steps):
+            eng.model.decode_step(tok, i, cache, **kw)
+
+    by_name, why = device_ms_by_kernel(torch, run)
+    if by_name is None:
+        return {"profile_failed": why}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return {"profile_failed": None, "device_ms_per_step": total,
-            "top_ms_per_step": [[k, v] for k, v in top]}
+    return {"profile_failed": None,
+            "device_ms_per_step": sum(by_name.values()) / steps,
+            "top_ms_per_step": [[k[:60], v / steps] for k, v in top]}
 
 
-def layer_check(torch, model, ids, n_prefill=16, n_decode=8):
-    """The bf16 path one layer at a time. Every layer is fed the plain
-    path's input and a copy of the plain path's cache, and its output
-    through the kernels is held against its plain output (max |d| / max
-    |out|), over a prefill of ``n_prefill`` tokens (K1 at 16 rows, K3) and
-    ``n_decode`` decode steps after it (K1 at one row, K2). Beside it, the
-    plain bf16 layer against the plain f32 layer (exact mode, f32 cache)
-    on the same input: the rounding of the bf16 regime itself."""
+def profile_eval_stride(torch, model, tokens, mode, dtype):
+    """Device time of one eval stride (one forward of EVAL_SEQLEN tokens
+    and its NLL) and the shares of K4, the dense matmuls after it (and the
+    top-X products: every library GEMM), K3 and the rest."""
+    from squeezellm_tpu_torch import eval as eval_mod
+
+    tok = torch.as_tensor(tokens[:, :EVAL_SEQLEN].astype("int64"),
+                          device="cuda")
+
+    def run():
+        with torch.no_grad():
+            logits = model.forward(tok, dtype=dtype, mode=mode)
+            eval_mod.stride_nll(logits, tok)
+
+    by_name, why = device_ms_by_kernel(torch, run)
+    if by_name is None:
+        return {"profile_failed": why}
+    parts = {"K4": 0.0, "dense matmul": 0.0, "K3": 0.0, "rest": 0.0}
+    for name, ms in by_name.items():
+        low = name.lower()
+        if "dequant_dense_kernel" in low or "sparse_fold_kernel" in low:
+            parts["K4"] += ms
+        elif "flash_attn_kernel" in low:
+            parts["K3"] += ms
+        elif any(t in low for t in ("gemm", "cutlass", "cublas", "nvjet",
+                                    "xmma")):
+            parts["dense matmul"] += ms
+        else:
+            parts["rest"] += ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"profile_failed": None, "device_ms": sum(by_name.values()),
+            "parts_ms": parts, "top_ms": [[k[:70], v] for k, v in top]}
+
+
+def layer_check(torch, model, ids, dtype, mode, cache_dtype, n_prefill=16,
+                n_decode=8):
+    """A regime (activation dtype, K1 mode, cache dtype) one layer at a
+    time. Every layer is fed the plain path's input and a copy of the plain
+    path's cache, and its output through the kernels is held against its
+    plain output (max |d| / max |out|), over a prefill of ``n_prefill``
+    tokens (K1, K3) and ``n_decode`` decode steps after it (K1 at one row,
+    K2 or K5). Beside it, the plain layer of this regime against the plain
+    f32 layer (exact mode, f32 cache holding what this cache holds) on the
+    same input: the rounding of the regime itself."""
     import dataclasses
 
     from squeezellm_tpu_torch.models import common
 
-    bf = torch.bfloat16
     c, dev = model.config, model.device
     ids_t = torch.as_tensor(ids, device=dev)
     cache = common.init_kv_cache(1, BENCH_TOKENS, c.n_layers, c.n_kv_heads,
-                                 c.head_dim, bf, dev)
+                                 c.head_dim, cache_dtype, dev)
+
+    def as_f32(lc):
+        k, v = common.read_kv(lc, torch.float32, c.n_kv_heads)
+        return {"k": k.transpose(1, 2).reshape(1, BENCH_TOKENS, -1),
+                "v": v.transpose(1, 2).reshape(1, BENCH_TOKENS, -1)}
+
     calls = [("prefill", ids_t[:, :n_prefill],
               dict(positions=torch.arange(n_prefill, device=dev)))]
     calls += [("decode", ids_t[:, p: p + 1],
                dict(decode_pos=torch.full((1,), p, device=dev)))
               for p in range(n_prefill, n_prefill + n_decode)]
     res = {"kernels_vs_plain": {"prefill": [], "decode": []},
-           "bf16_vs_f32": {"prefill": [], "decode": []}, "differ": 0,
+           "regime_vs_f32": {"prefill": [], "decode": []}, "differ": 0,
            "outputs": 0}
     with torch.no_grad():
         for phase, tok, pos in calls:
-            plain = model._step(bf, "bf16", True, **pos)
+            plain = model._step(dtype, mode, True, **pos)
             kern = dataclasses.replace(plain, plain=False)
             f32 = model._step(torch.float32, "exact", True, **pos)
-            x = model.embed[tok].to(bf)
+            x = model.embed[tok].to(dtype)
             for layer, lc in zip(model.layers, cache):
                 got = layer(x, kern, {n: t.clone() for n, t in lc.items()})
-                ref32 = layer(x.float(), f32,
-                              {n: t.float() for n, t in lc.items()})
+                ref32 = layer(x.float(), f32, as_f32(lc))
                 want = layer(x, plain, lc)
                 if not torch.isfinite(got).all():
                     raise AssertionError(f"layer_check {phase}: not finite")
                 res["kernels_vs_plain"][phase].append(rel_err(got, want))
-                res["bf16_vs_f32"][phase].append(rel_err(want, ref32))
+                res["regime_vs_f32"][phase].append(rel_err(want, ref32))
                 res["differ"] += int((got != want).sum())
                 res["outputs"] += want.numel()
                 x = want
     return res
+
+
+def print_layer_check(label, lc, limit, regime):
+    for phase in ("prefill", "decode"):
+        kv, bv = (sorted(lc[k][phase]) for k in ("kernels_vs_plain",
+                                                 "regime_vs_f32"))
+        print(f"{label} per layer, {phase}: kernels vs plain max "
+              f"{kv[-1]:.3g} median {kv[len(kv) // 2]:.3g} (limit "
+              f"{limit:.3g}); plain {regime} vs plain f32 max "
+              f"{bv[-1]:.3g} median {bv[len(bv) // 2]:.3g}")
 
 
 def run_model(torch, config, bits, record):
@@ -427,12 +774,10 @@ def run_model(torch, config, bits, record):
     t0 = time.perf_counter()
     got = [exact.generate(p, NEW_TOKENS) for p in prompts]
     res["requests_s"] = time.perf_counter() - t0
-    res["launches"] = read_counts()
     want_k1 = len(PROMPT_LENS) * NEW_TOKENS * (4 * config.n_layers + 1)
-    want = [want_k1, len(PROMPT_LENS) * (NEW_TOKENS - 1) * config.n_layers,
-            len(PROMPT_LENS) * config.n_layers]
-    if res["launches"] != want:
-        raise AssertionError(f"w{bits} launches {res['launches']} != {want}")
+    res["launches"] = expect_counts(record, f"w{bits} requests", [
+        want_k1, len(PROMPT_LENS) * (NEW_TOKENS - 1) * config.n_layers,
+        len(PROMPT_LENS) * config.n_layers, 0, 0])
     plain = engine.Engine(model, plain=True)
     ref = [plain.generate(p, NEW_TOKENS) for p in prompts]
     for g, r, n in zip(got, ref, PROMPT_LENS):
@@ -448,7 +793,7 @@ def run_model(torch, config, bits, record):
         raise AssertionError(f"w{bits} f32 logits: {res['tf_exact_rel_err']}")
     print(f"w{bits} (i) 3 requests (prompts {PROMPT_LENS}, {NEW_TOKENS} new "
           f"tokens) in {res['requests_s']:.2f} s, tokens identical to the "
-          f"plain path; launches K1/K2/K3 {res['launches']}; f32 "
+          f"plain path; launches K1..K5 {res['launches']}; f32 "
           f"teacher-forced logits rel err {res['tf_exact_rel_err']:.3g}")
 
     # (ii) the bf16 flagship benchmark
@@ -460,7 +805,8 @@ def run_model(torch, config, bits, record):
                              plain=True)
     # held one layer at a time; the full-depth distance is reported only:
     # 32 random layers amplify one-step bf16 flips (PERF.md)
-    lc = layer_check(torch, model, ids)
+    lc = layer_check(torch, model, ids, torch.bfloat16, "bf16",
+                     torch.bfloat16)
     stats["layer_check"] = lc
     worst = max(max(v) for v in lc["kernels_vs_plain"].values())
     tf = bf.teacher_forced_logits(ids[:, :16], max_seq=BENCH_TOKENS)
@@ -484,7 +830,7 @@ def run_model(torch, config, bits, record):
                          cache, dtype=torch.bfloat16, mode="bf16")
     stats["launches_per_decode_step"] = read_counts()
     if stats["launches_per_decode_step"] != [4 * config.n_layers + 1,
-                                             config.n_layers, 0]:
+                                             config.n_layers, 0, 0, 0]:
         raise AssertionError(f"per-step launches {read_counts()}")
     res["bench"] = stats
     print(f"w{bits} (ii) bf16 decode: {stats['tokens_per_s']:.2f} tok/s, "
@@ -492,23 +838,208 @@ def run_model(torch, config, bits, record):
           f"{stats['achieved_gb_s']:.1f} GB/s over {stats['param_bytes']} "
           f"param bytes, peak {stats['peak_memory_mib']:.0f} MiB, check ppl "
           f"{stats['check_ppl']:.1f}")
-    for phase in ("prefill", "decode"):
-        kv, bv = (sorted(lc[k][phase]) for k in ("kernels_vs_plain",
-                                                 "bf16_vs_f32"))
-        print(f"w{bits} bf16 per layer, {phase}: kernels vs plain max "
-              f"{kv[-1]:.3g} median {kv[len(kv) // 2]:.3g} (limit "
-              f"{TOL_LAYER_BF16:.3g}); plain bf16 vs plain f32 max "
-              f"{bv[-1]:.3g} median {bv[len(bv) // 2]:.3g}")
+    print_layer_check(f"w{bits} bf16", lc, TOL_LAYER_BF16, "bf16")
     print(f"w{bits} bf16 per layer: {lc['differ']} of {lc['outputs']} "
           f"outputs differ; full depth, teacher-forced logits (reported, "
           f"not held): kernels vs plain {stats['tf_bf16_rel_err']:.3g}, "
           f"argmax agree {stats['tf_bf16_argmax_agree']:.3f}, plain bf16 vs "
           f"plain f32 {stats['tf_bf16_plain_vs_f32']:.3g}")
-    print(f"w{bits} (iii) launches per decode step K1/K2/K3: "
+    print(f"w{bits} (iii) launches per decode step K1..K5: "
           f"{stats['launches_per_decode_step']}")
     print_profile(f"w{bits}", stats, record)
     record["models"].append(res)
+    # nothing of the phases above stays allocated while the next ones read
+    # their peak memory
+    del exact, plain, bf, bf_plain, tf, tf_ref, tf_bref, cache
+    res["eval"] = run_eval(torch, model, f"w{bits}", record)
+    if bits == 4:
+        res["int8"] = run_int8(torch, model, ids, stats, record)
     return res
+
+
+def run_eval(torch, model, label, record, modes=("exact", "bf16"),
+             strides=EVAL_STRIDES):
+    """eval.perplexity over `strides` strides of EVAL_SEQLEN synthetic
+    tokens, EVAL_GROUP a forward, through the kernels and through their
+    plain versions. The f32 perplexities are held together; the bf16 ones
+    are printed only (the random model is chaotic in bf16)."""
+    from squeezellm_tpu_torch import data
+    from squeezellm_tpu_torch import eval as eval_mod
+
+    cfg = model.config
+    tokens = data.synthetic_tokens(cfg.vocab_size, strides * EVAL_SEQLEN,
+                                   seed=17)
+    forwards = -(-strides // EVAL_GROUP)
+    linears = sum(1 for m in model.layers[0].modules()
+                  if hasattr(m, "spec") and m.spec.is_quant)
+    res = {"strides": strides, "group": EVAL_GROUP, "seqlen": EVAL_SEQLEN}
+    for mode in modes:
+        dt = torch.float32 if mode == "exact" else torch.bfloat16
+        kw = dict(seqlen=EVAL_SEQLEN, group=EVAL_GROUP, dtype=dt, mode=mode)
+        reset_counts()
+        with CardSampler() as card:
+            t0 = time.perf_counter()
+            ppl = eval_mod.perplexity(model, tokens, **kw)
+            secs = time.perf_counter() - t0
+            # every linear at 4096 rows goes through K4 and none through K1
+            launches = expect_counts(record, f"{label} eval {mode}", [
+                0, 0, cfg.n_layers * forwards,
+                (linears * cfg.n_layers + 1) * forwards, 0])
+            prof = profile_eval_stride(torch, model, tokens, mode, dt)
+        ppl_plain = eval_mod.perplexity(model, tokens, plain=True, **kw)
+        rel = abs(ppl - ppl_plain) / ppl_plain
+        if not (math.isfinite(ppl) and math.isfinite(ppl_plain)):
+            raise AssertionError(f"{label} eval {mode}: ppl {ppl}, plain "
+                                 f"{ppl_plain}")
+        if mode == "exact" and rel > TOL_PPL:
+            raise AssertionError(f"{label} eval f32: ppl {ppl} vs plain "
+                                 f"{ppl_plain}, rel {rel} > {TOL_PPL}")
+        res[mode] = dict(ppl=ppl, ppl_plain=ppl_plain, rel=rel,
+                         s_per_stride=secs / strides, launches=launches,
+                         profile=prof, card=card.stats)
+        held = f"within {TOL_PPL}" if mode == "exact" else "reported only"
+        print(f"{label} eval {mode}: ppl {ppl:.6g} through the kernels, "
+              f"{ppl_plain:.6g} plain, rel {rel:.3g} ({held}); "
+              f"{secs / strides:.3f} s a stride (host clock, {strides} "
+              f"strides, {EVAL_GROUP} a forward; card meanwhile "
+              f"{card.stats}); launches K1..K5 {launches}")
+        if prof["profile_failed"]:
+            record["profile_failed"].append(f"{label} eval {mode}")
+            print(f"{label} eval {mode} PROFILE FAILED, device time not "
+                  f"measured: {prof['profile_failed']}")
+        else:
+            print(f"{label} eval {mode} stride: device {prof['device_ms']:.1f}"
+                  " ms: " + ", ".join(f"{k} {v:.1f}" for k, v in
+                                      prof["parts_ms"].items())
+                  + "; top: " + "; ".join(f"{k} {v:.1f}"
+                                          for k, v in prof["top_ms"][:4]))
+    return res
+
+
+def run_int8(torch, model, ids, bf16_stats, record):
+    """Engine(cache_dtype="int8"): one f32 request against the plain path,
+    then the bf16 decode benchmark beside the bf16-cache one."""
+    import numpy as np
+
+    from squeezellm_tpu_torch import engine
+
+    cfg = model.config
+    prompt = np.random.default_rng(8).integers(0, cfg.vocab_size,
+                                               (1, INT8_PROMPT))
+    eng = engine.Engine(model, cache_dtype="int8")
+    reset_counts()
+    got = eng.generate(prompt, NEW_TOKENS)
+    launches = expect_counts(record, "w4 int8 request", [
+        NEW_TOKENS * (4 * cfg.n_layers + 1), 0, cfg.n_layers, 0,
+        (NEW_TOKENS - 1) * cfg.n_layers])
+    plain_eng = engine.Engine(model, cache_dtype="int8", plain=True)
+    ref = plain_eng.generate(prompt, NEW_TOKENS)
+
+    def forced_logits(e):
+        """The logits that choose each new token, the request's own steps
+        (prefill, then decode) fed the plain path's tokens."""
+        seq = torch.as_tensor(ref, device="cuda")
+        cache = e.new_cache(1)
+        kw = dict(dtype=e.dtype, mode=e.mode, plain=e.plain)
+        rows = [e.model.prefill(seq[:, :INT8_PROMPT], cache, **kw)[0, -1]]
+        for pos in range(INT8_PROMPT, INT8_PROMPT + NEW_TOKENS - 1):
+            rows.append(e.model.decode_step(seq[:, pos: pos + 1], pos, cache,
+                                            **kw)[0, -1])
+        return torch.stack(rows)
+
+    with torch.no_grad():
+        lk, lp = forced_logits(eng), forced_logits(plain_eng)
+    rel = rel_err(lk, lp)
+    flips = int((lk.argmax(-1) != lp.argmax(-1)).sum())
+    same = int((got[0, INT8_PROMPT:] == ref[0, INT8_PROMPT:]).cumprod().sum())
+    lc = layer_check(torch, model, ref, torch.float32, "exact", "int8",
+                     n_prefill=INT8_PROMPT)
+    worst = max(max(v) for v in lc["kernels_vs_plain"].values())
+    finite = bool(torch.isfinite(lk).all())
+    del lk, lp
+    if (got.shape != (1, INT8_PROMPT + NEW_TOKENS) or worst > TOL_LAYER_INT8
+            or not finite):
+        raise AssertionError(
+            f"int8 request: per layer kernels vs plain {worst} (limit "
+            f"{TOL_LAYER_INT8}); full depth logits rel err {rel}, {same} "
+            f"leading tokens equal; kernel tokens {got[0, INT8_PROMPT:]} "
+            f"plain tokens {ref[0, INT8_PROMPT:]}")
+    bf = engine.Engine(model, dtype=torch.bfloat16, cache_dtype="int8",
+                       mode="bf16")
+    stats = bf.benchmark(ids, max_seq=BENCH_TOKENS)
+    stats["profile"] = profile_decode(torch, bf, ids)
+    cache = bf.new_cache(1, BENCH_TOKENS)
+    reset_counts()
+    bf.model.decode_step(torch.tensor([[1]], device="cuda"), 0, cache,
+                         dtype=torch.bfloat16, mode="bf16")
+    stats["launches_per_decode_step"] = read_counts()
+    if stats["launches_per_decode_step"] != [4 * cfg.n_layers + 1, 0, 0, 0,
+                                             cfg.n_layers]:
+        raise AssertionError(f"int8 per-step launches {read_counts()}")
+    if not math.isfinite(stats["check_ppl"]):
+        raise AssertionError(f"int8 bf16 benchmark: {stats}")
+    print(f"w4 int8 cache: f32 request (prompt {INT8_PROMPT}, {NEW_TOKENS} "
+          f"new tokens); at full depth (reported, not held) the logits that "
+          f"choose its tokens lie {rel:.3g} of max |logit| from the plain "
+          f"path's, {flips} argmax flips, {same} of {NEW_TOKENS} leading "
+          f"tokens identical; launches K1..K5 {launches}; per decode step "
+          f"{stats['launches_per_decode_step']}")
+    print_layer_check("w4 f32, int8 cache", lc, TOL_LAYER_INT8, "int8 cache")
+    for name, st in (("int8 cache", stats), ("bf16 cache", bf16_stats)):
+        prof = st["profile"]
+        busy = ("not measured" if prof["profile_failed"]
+                else f"{prof['device_ms_per_step']:.3f} ms")
+        print(f"w4 bf16 decode, {name}: {st['tokens_per_s']:.2f} tok/s, "
+              f"{st['median_latency_s'] * 1e3:.3f} ms/token, device time a "
+              f"step {busy}, peak {st['peak_memory_mib']:.0f} MiB, check ppl "
+              f"{st['check_ppl']:.1f}")
+    if stats["profile"]["profile_failed"]:
+        record["profile_failed"].append("w4 int8")
+    return {"launches": launches, "bench": stats, "logits_rel_err": rel,
+            "leading_tokens_equal": same, "argmax_flips": flips,
+            "layer_check": lc}
+
+
+def run_opt(torch, record):
+    """OPT-6.7B w4 at full width and depth: one eval group against the
+    plain path, and one f32 greedy request."""
+    import numpy as np
+
+    from squeezellm_tpu_torch import engine, synthetic
+    from squeezellm_tpu_torch.models import fuse, registry
+
+    model_type, cfg = registry.load_config(os.path.join(HERE, "models",
+                                                        "opt-6.7b"))
+    if model_type != "opt":
+        raise AssertionError(model_type)
+    t0 = time.perf_counter()
+    model = fuse.fuse_for_decode(synthetic.quantized_opt(cfg, 4, seed=6))
+    torch.cuda.synchronize()
+    print(f"opt-6.7b w4: model made and fused on the card in "
+          f"{time.perf_counter() - t0:.1f} s")
+    res = {"eval": run_eval(torch, model, "opt-6.7b w4", record,
+                            modes=("exact",), strides=EVAL_GROUP)}
+    prompt = np.random.default_rng(9).integers(0, cfg.vocab_size,
+                                               (1, OPT_PROMPT))
+    reset_counts()
+    got = engine.Engine(model).generate(prompt, NEW_TOKENS)
+    ropeless = counters()[1].ropeless_launches
+    res["launches"] = expect_counts(record, "opt-6.7b w4 request", [
+        NEW_TOKENS * (4 * cfg.n_layers + 1), (NEW_TOKENS - 1) * cfg.n_layers,
+        cfg.n_layers, 0, 0])
+    if ropeless != res["launches"][1]:
+        raise AssertionError(f"OPT: {ropeless} of {res['launches'][1]} K2 "
+                             "launches ran without rope rows")
+    ref = engine.Engine(model, plain=True).generate(prompt, NEW_TOKENS)
+    if got.shape != (1, OPT_PROMPT + NEW_TOKENS) or not np.array_equal(got,
+                                                                      ref):
+        raise AssertionError(f"OPT request: kernel tokens {got} != plain "
+                             f"tokens {ref}")
+    res["tokens"] = got[0, OPT_PROMPT:].tolist()
+    print(f"opt-6.7b w4 request (prompt {OPT_PROMPT}, {NEW_TOKENS} new "
+          f"tokens, f32) identical to the plain path; launches K1..K5 "
+          f"{res['launches']}, all {ropeless} K2 launches without rope")
+    record["opt"] = res
 
 
 def run_dense(torch, config, record):
@@ -551,9 +1082,12 @@ def kernel_lines(record):
               and r["bits"] == 4 and r["M"] == 1 and r["mode"] == "bf16")
     k2 = next(r for r in record["k2_detail"] if r["n"] == 128)
     k3 = next(r for r in record["k3_detail"] if r["Sq"] == 100)
-    launches = [0, 0, 0]
-    for m in record["models"]:
-        launches = [a + b for a, b in zip(launches, m["launches"])]
+    k4 = next(r for r in record["k4_detail"] if r["shape"] == "gateup"
+              and r["bits"] == 4 and r["mode"] == "bf16")
+    k5 = next(r for r in record["k5_detail"] if r["n"] == 128)
+    # every path's run: counts set to 0 just before it, read just after
+    launches = [sum(p["launches"][i] for p in record["paths"])
+                for i in range(5)]
     rows = [
         ("lut_matmul", "squeezellm_tpu_torch/csrc/lut_matmul.cu",
          "squeezellm_tpu/ops/pallas_ops.py:252 (+ :208 _lut_matmul_kernel, "
@@ -567,6 +1101,14 @@ def kernel_lines(record):
          "squeezellm_tpu/ops/flash_attn.py:40", launches[2],
          record["k3_max_abs_err"], k3,
          "LLaMA-2-7B layer, 100-token prompt, bf16 q/k/v"),
+        ("dequant_dense", "squeezellm_tpu_torch/csrc/dequant_dense.cu",
+         "squeezellm_tpu/ops/pallas_ops.py:765", launches[3],
+         record["k4_max_abs_err"], k4,
+         "fused gate|up 22016x4096 w4 to a bf16 W, 0.45% sidecar folded in"),
+        ("decode_attention_q8", "squeezellm_tpu_torch/csrc/decode_attn.cu",
+         "squeezellm_tpu/ops/decode_attn.py:386", launches[4],
+         record["k5_max_abs_err"], k5,
+         "LLaMA-2-7B layer, B=1, 128 valid rows of a 2048-row int8 cache"),
     ]
     return {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -596,9 +1138,10 @@ def main():
           f"{sh([_build.nvcc_path(), '--version']).splitlines()[-1]}")
     record = {"card": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "k1_detail": [], "k2_detail": [],
-              "k3_detail": [], "k1_bf16_flips": [], "k1_per_decode_step": [],
-              "models": [], "profile_failed": [],
-              "failed": []}
+              "k3_detail": [], "k4_detail": [], "k5_detail": [],
+              "k1_bf16_flips": [], "k1_per_decode_step": [],
+              "k4_per_forward": [], "models": [], "paths": [],
+              "profile_failed": [], "failed": []}
     t0 = time.perf_counter()
     _build.build()
     _build.lib()
@@ -610,10 +1153,13 @@ def main():
                                                   "llama-2-7b"))
     phases = [("K1", lambda: check_k1(torch, timer, record)),
               ("K2", lambda: check_k2(torch, timer, record)),
-              ("K3", lambda: check_k3(torch, timer, record))]
+              ("K3", lambda: check_k3(torch, timer, record)),
+              ("K4", lambda: check_k4(torch, timer, record)),
+              ("K5", lambda: check_k5(torch, timer, record))]
     phases += [(f"model w{b}", lambda b=b: run_model(torch, config, b, record))
                for b in (4, 3)]
-    phases += [("dense bf16", lambda: run_dense(torch, config, record))]
+    phases += [("opt-6.7b w4", lambda: run_opt(torch, record)),
+               ("dense bf16", lambda: run_dense(torch, config, record))]
     for name, fn in phases:
         t0 = time.perf_counter()
         try:

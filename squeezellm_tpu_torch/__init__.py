@@ -7,13 +7,16 @@ port imports neither JAX nor the JAX package.
 
 Layer map:
   formats       packed-weight layout (own copy of the shared format)
+  data          eval and calibration token sources (own copy)
   checkpoint    reads the shared checkpoint format
   carry         JAX parameter tree -> the port's model
-  ops           K1 lut_matmul, K2 decode_attn, K3 flash_attn (each a CUDA
-                kernel with its plain PyTorch version), plain_ops,
-                quant_linear
-  models        LLaMA-family decoder, decode-time fusion, registry
+  ops           K1 lut_matmul, K2/K5 decode_attn (bf16 and int8 cache), K3
+                flash_attn, K4 dequant_dense (each a CUDA kernel with its
+                plain PyTorch version), kv_quant, plain_ops, quant_linear
+  models        LLaMA-family and OPT decoders, decode-time fusion, registry
   engine        prefill + greedy decode, decode benchmark
+  eval          perplexity (GPTQ stride protocol)
+  cli           ``python -m squeezellm_tpu_torch eval|benchmark|generate``
   synthetic     random flagship models made on the device
   _build        nvcc build of csrc/*.cu at first use, ctypes binding
 

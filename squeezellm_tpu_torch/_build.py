@@ -46,6 +46,12 @@ SIGNATURES = {
     # offset, window, scale, stream
     "slt_flash_attn": [_P, _P, _P, _P] + [_I] * 9 + [_I] * 2 + [_I] * 8
                       + [_F, _P],
+    # qweight, lut, rowptr, cols, vals, w, in, out, bits, w_bf16, stream
+    "slt_dequant_dense": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # slt_decode_attn's, with the scale sidecars sk, sv after ck, cv and no
+    # cache_bf16
+    "slt_decode_attn_q8": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
+                           _P, _P, _I, _I, _I, _I, _I, _I, _F, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -49,7 +49,11 @@ def csr_from_coo(rows, cols, vals, out_features: int, in_features: int):
 
 
 def _in_features(config, name: str) -> int:
-    return config.intermediate_size if name == "down" else config.hidden_size
+    """Inputs of a layer's linear, fused names (qkv, gateup) included:
+    only the down projection reads the MLP's inner width."""
+    if name == "down":
+        return config.linear_shapes()["down"][1]
+    return config.hidden_size
 
 
 def linear_from_tree(in_f: int, meta: Dict[str, Any], p,
@@ -110,9 +114,16 @@ def from_tree(model_type: str, config_dict: Dict[str, Any],
     module_meta: the manifest's ``modules`` dict (``"<layer>.<name>"`` and
     ``"lm_head"`` -> {quant, bits, has_bias, topx, ...}); params_np: the
     tree {'embed', 'layers': [{name: {...}, 'input_norm', 'post_norm'}],
-    'final_norm', 'lm_head'} of numpy arrays."""
+    'final_norm', 'lm_head'} of numpy arrays. An OPT tree has 'embed_pos'
+    beside 'embed', and its norms ('attn_norm' and 'ffn_norm' in a layer,
+    'final_norm') are {'w', 'b'} pairs."""
     mod = registry.get_model_module(model_type)
-    config = mod.LlamaConfig(**config_dict)
+    config = registry.config_class(model_type)(**config_dict)
+    is_opt = model_type == "opt"
+
+    def norm(p):  # an OPT layer norm: (w, b)
+        return to_tensor(p["w"], device), to_tensor(p["b"], device)
+
     layers = []
     for li, lp in enumerate(params_np["layers"]):
         prefix = f"{li}."
@@ -123,11 +134,21 @@ def from_tree(model_type: str, config_dict: Dict[str, Any],
                                    device)
             for name in names
         }
-        layers.append(mod.DecoderLayer(config, linears,
-                                       to_tensor(lp["input_norm"], device),
-                                       to_tensor(lp["post_norm"], device)))
+        if is_opt:
+            layers.append(mod.DecoderLayer(
+                config, linears, {n: norm(lp[n])
+                                  for n in ("attn_norm", "ffn_norm")}))
+        else:
+            layers.append(mod.DecoderLayer(
+                config, linears, to_tensor(lp["input_norm"], device),
+                to_tensor(lp["post_norm"], device)))
     head_meta = module_meta.get("lm_head", {"quant": False})
     lm_head = linear_from_tree(config.hidden_size, head_meta,
                                params_np["lm_head"], device)
-    return mod.Llama(config, to_tensor(params_np["embed"], device), layers,
+    embed = to_tensor(params_np["embed"], device)
+    if is_opt:
+        return mod.OPT(config, embed, to_tensor(params_np["embed_pos"],
+                                                device), layers,
+                       norm(params_np["final_norm"]), lm_head)
+    return mod.Llama(config, embed, layers,
                      to_tensor(params_np["final_norm"], device), lm_head)

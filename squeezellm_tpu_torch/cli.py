@@ -1,0 +1,152 @@
+"""Command line of the port: ``python -m squeezellm_tpu_torch <command>``.
+
+  eval       perplexity (GPTQ stride protocol) on ``synthetic`` tokens or a
+             ``.npy`` token file
+  benchmark  batch-1 decode latency, tok/s, peak memory
+  generate   greedy generation from comma-separated prompt token ids
+
+Each takes ``--model DIR`` (a checkpoint directory that
+``checkpoint.save_quantized`` of the JAX package wrote) or ``--synthetic
+CONFIG --wbits N`` (a random Dense-and-Sparse model of an HF
+``config.json``, e.g. ``models/llama-2-7b/config.json``), and ``--device``
+(default ``cuda``). ``--mode exact`` runs f32 throughout; ``--mode bf16``
+the flagship regime (bf16 activations and cache, bf16-rounded LUT and x
+with f32 accumulation). The counterpart of ``cmd_eval``, ``cmd_benchmark``
+and ``cmd_generate`` of the JAX package's ``cli.py``; its other commands'
+modules are not ported yet.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+import numpy as np
+import torch
+
+CALIB_SAMPLES = 128  # sizes the synthetic corpus as the JAX CLI's default
+
+
+def _load_model(args):
+    from squeezellm_tpu_torch import checkpoint, synthetic
+    from squeezellm_tpu_torch.models import fuse, registry
+
+    if args.model:
+        _, model = checkpoint.load_quantized(args.model, args.device)
+    else:
+        path = args.synthetic
+        model_dir = os.path.dirname(path) if os.path.isfile(path) else path
+        model_type, config = registry.load_config(model_dir)
+        make = (synthetic.quantized_opt if model_type == "opt"
+                else synthetic.quantized_llama)
+        model = make(config, args.wbits, seed=args.seed, device=args.device)
+    if getattr(args, "fuse", False):
+        fuse.fuse_for_decode(model)
+    return model
+
+
+def _tokens(args, config) -> np.ndarray:
+    from squeezellm_tpu_torch import data
+
+    _, test = data.get_loaders(args.dataset, nsamples=CALIB_SAMPLES,
+                               seed=args.seed, seqlen=args.seqlen,
+                               vocab_size=config.vocab_size)
+    return np.asarray(test)
+
+
+def _engine(args, model):
+    from squeezellm_tpu_torch import engine
+
+    bf16 = args.mode == "bf16"
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    cache = {None: dtype, "bf16": torch.bfloat16, "f32": torch.float32,
+             "int8": "int8"}[args.kv_dtype]
+    return engine.Engine(model, dtype=dtype, cache_dtype=cache,
+                         mode=args.mode)
+
+
+def cmd_eval(args):
+    from squeezellm_tpu_torch import eval as eval_mod
+
+    model = _load_model(args)
+    ppl = eval_mod.perplexity(
+        model, _tokens(args, model.config), seqlen=args.seqlen,
+        nsamples=args.nsamples, group=args.group, mode=args.mode,
+        dtype=torch.bfloat16 if args.mode == "bf16" else torch.float32,
+        verbose=True)
+    print(json.dumps({"dataset": args.dataset, "seqlen": args.seqlen,
+                      "ppl": ppl}))
+
+
+def cmd_benchmark(args):
+    model = _load_model(args)
+    ids = _tokens(args, model.config)[:, : args.tokens]
+    print(json.dumps(_engine(args, model).benchmark(ids), indent=2))
+
+
+def cmd_generate(args):
+    model = _load_model(args)
+    prompt = np.asarray([int(t) for t in args.prompt_tokens.split(",")],
+                        np.int64)[None]
+    out = _engine(args, model).generate(prompt, args.max_new_tokens,
+                                        temperature=args.temperature)
+    print(json.dumps({"tokens": out[0].tolist()}))
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(prog="python -m squeezellm_tpu_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+
+    def common(sp):
+        src = sp.add_mutually_exclusive_group(required=True)
+        src.add_argument("--model", help="quantized checkpoint directory")
+        src.add_argument("--synthetic", metavar="CONFIG",
+                         help="HF config.json (or its directory) of a random "
+                              "Dense-and-Sparse model")
+        sp.add_argument("--wbits", type=int, default=4, choices=[3, 4],
+                        help="bit width of a --synthetic model")
+        sp.add_argument("--device", default="cuda")
+        sp.add_argument("--mode", default="exact", choices=["exact", "bf16"])
+        sp.add_argument("--seed", type=int, default=0)
+
+    def tokens(sp):
+        sp.add_argument("--dataset", default="synthetic",
+                        help="'synthetic' or a .npy file of token ids")
+        sp.add_argument("--seqlen", type=int, default=2048)
+
+    def decode(sp):
+        sp.add_argument("--fuse", action="store_true",
+                        help="fuse q|k|v and gate|up projections")
+        sp.add_argument("--kv-dtype", default=None,
+                        choices=["bf16", "f32", "int8"],
+                        help="KV cache storage; int8 stores codes and "
+                             "per-row f32 scales")
+
+    e = sub.add_parser("eval", help="perplexity evaluation")
+    common(e)
+    tokens(e)
+    e.add_argument("--nsamples", type=int, default=None,
+                   help="strides to evaluate (default: the whole corpus)")
+    e.add_argument("--group", type=int, default=8,
+                   help="strides per forward")
+    e.set_defaults(fn=cmd_eval)
+
+    b = sub.add_parser("benchmark", help="decode latency benchmark")
+    common(b)
+    tokens(b)
+    decode(b)
+    b.add_argument("--tokens", type=int, default=128)
+    b.set_defaults(fn=cmd_benchmark)
+
+    g = sub.add_parser("generate", help="greedy generation")
+    common(g)
+    decode(g)
+    g.add_argument("--prompt-tokens", required=True,
+                   help="comma-separated ids")
+    g.add_argument("--max-new-tokens", type=int, default=32)
+    g.add_argument("--temperature", type=float, default=0.0)
+    g.set_defaults(fn=cmd_generate)
+
+    args = p.parse_args(argv)
+    args.fn(args)

@@ -13,6 +13,8 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
+__device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
+
 __device__ __forceinline__ void store_f32(float v, float* p) { *p = v; }
 __device__ __forceinline__ void store_f32(float v, __nv_bfloat16* p) {
   *p = __float2bfloat16_rn(v);

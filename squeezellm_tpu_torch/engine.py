@@ -21,9 +21,10 @@ WARMUP_STEPS = 3
 
 
 class Engine:
-    """Runs a Llama model.
+    """Runs a Llama or OPT model.
 
-    dtype: activation dtype; cache_dtype: KV cache dtype; mode: 'exact'
+    dtype: activation dtype; cache_dtype: KV cache dtype, or "int8" for
+    int8 codes with f32 row scales (``ops/kv_quant.py``); mode: 'exact'
     (f32 LUT matmul) or 'bf16' (x and LUT rounded to bf16, f32
     accumulation: the flagship regime); plain: run each kernel's plain
     PyTorch version whatever the device (the reference the kernels are
@@ -47,8 +48,10 @@ class Engine:
 
     def new_cache(self, batch: int = 1, max_seq: Optional[int] = None):
         c = self.config
-        # the token axis rounds up to 16 rows, as the JAX package's does
-        s = -(-(max_seq or c.max_seq) // 16) * 16
+        # the token axis rounds up to 16 rows (128 for int8), so that cache
+        # shapes match the JAX package's; the kernels take any row count
+        align = 128 if common.is_int8(self.cache_dtype) else 16
+        s = -(-(max_seq or c.max_seq) // align) * align
         return common.init_kv_cache(batch, s, c.n_layers, c.n_kv_heads,
                                     c.head_dim, self.cache_dtype,
                                     self.device)

@@ -15,6 +15,7 @@ from typing import Dict, List, Optional
 import torch
 from torch import nn
 
+from squeezellm_tpu_torch.ops import kv_quant
 from squeezellm_tpu_torch.ops.quant_linear import (
     QuantLinearSpec,
     quant_linear_apply,
@@ -81,6 +82,16 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor,
     return (xf * torch.rsqrt(var + eps)).to(dt) * weight.to(dt)
 
 
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    dt = x.dtype
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * weight.float() + bias.float()).to(dt)
+
+
 # ---------------------------------------------------------------------------
 # RoPE (HF LLaMA convention: rotate_half over contiguous halves)
 # ---------------------------------------------------------------------------
@@ -116,27 +127,49 @@ def apply_rope_tm(x: torch.Tensor, cos: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
+def is_int8(dtype) -> bool:
+    return dtype == "int8" or dtype is torch.int8
+
+
 def init_kv_cache(batch: int, max_seq: int, n_layers: int, n_kv_heads: int,
                   head_dim: int, dtype=torch.float32,
                   device="cuda") -> List[Dict[str, torch.Tensor]]:
     """Per-layer list of {'k','v'} of shape (B, max_seq, H_kv * D):
-    TOKEN-major, a token's row contiguous across heads."""
+    TOKEN-major, a token's row contiguous across heads.
+
+    dtype "int8" (or torch.int8): the quantized cache. 'k'/'v' hold int8
+    codes and the sidecars 'ks'/'vs' one f32 scale per (slot, kv head,
+    token), stored (B, H_kv, max_seq): a head's scales contiguous along
+    the tokens. (The JAX package pads the head axis to 8 rows for the
+    TPU's f32 tile; the port stores exactly H_kv.) Rows quantize at
+    insert (``ops/kv_quant.py``)."""
     shape = (batch, max_seq, n_kv_heads * head_dim)
+    if is_int8(dtype):
+        side = (batch, n_kv_heads, max_seq)
+        return [{"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                 "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                 "ks": torch.zeros(side, dtype=torch.float32, device=device),
+                 "vs": torch.zeros(side, dtype=torch.float32, device=device)}
+                for _ in range(n_layers)]
     return [{"k": torch.zeros(shape, dtype=dtype, device=device),
              "v": torch.zeros(shape, dtype=dtype, device=device)}
             for _ in range(n_layers)]
 
 
 def read_kv(cache: Dict[str, torch.Tensor], dtype, n_kv_heads: int):
-    """HEAD-major (k, v) views (B, H_kv, S, D) of a token-major cache in
-    ``dtype`` (views, not copies, when the cache already has it)."""
+    """HEAD-major (k, v) (B, H_kv, S, D) of a token-major cache in
+    ``dtype``: views, not copies, when the cache already has it; codes
+    times the row scale for an int8 cache."""
     B, S, KV = cache["k"].shape
     hd = KV // n_kv_heads
 
     def hm(a):
-        return a.view(B, S, n_kv_heads, hd).transpose(1, 2).to(dtype)
+        return a.view(B, S, n_kv_heads, hd).transpose(1, 2)
 
-    return hm(cache["k"]), hm(cache["v"])
+    if "ks" in cache:
+        return ((hm(cache["k"]).float() * cache["ks"][..., None]).to(dtype),
+                (hm(cache["v"]).float() * cache["vs"][..., None]).to(dtype))
+    return hm(cache["k"]).to(dtype), hm(cache["v"]).to(dtype)
 
 
 def repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
@@ -183,17 +216,36 @@ def decode_mask(max_seq: int, pos: torch.Tensor,
     return m[:, None, None, :]
 
 
+def write_kv_rows(cache: Dict[str, torch.Tensor], k: torch.Tensor,
+                  v: torch.Tensor) -> None:
+    """Prefill: write k/v (B, s, H_kv, D) into rows [0, s), in place, cast
+    to the cache dtype; an int8 cache quantizes each row at insert."""
+    b, s = k.shape[:2]
+    for name, new in (("k", k), ("v", v)):
+        if "ks" in cache:
+            new, scale = kv_quant.quantize_rows(new)
+            cache[name + "s"][:, :, :s] = scale[..., 0].transpose(1, 2)
+        cache[name][:, :s] = new.reshape(b, s, -1)
+
+
 def update_kv_cache(cache: Dict[str, torch.Tensor], k_new: torch.Tensor,
                     v_new: torch.Tensor, pos) -> Dict[str, torch.Tensor]:
     """Write one new token's k/v (B, 1, H_kv, D) at position(s) pos (int,
     or (B,) tensor for per-slot positions), in place, cast to the cache
-    dtype."""
+    dtype; an int8 cache quantizes the row at insert."""
     B = k_new.shape[0]
+    slots = torch.arange(B, device=k_new.device)
     for name, new in (("k", k_new), ("v", v_new)):
+        if "ks" in cache:
+            new, scale = kv_quant.quantize_rows(new)
+            if isinstance(pos, int):
+                cache[name + "s"][:, :, pos] = scale[:, 0, :, 0]
+            else:
+                cache[name + "s"][slots, :, pos.long()] = scale[:, 0, :, 0]
         c = cache[name]
         rows = new.reshape(B, -1).to(c.dtype)
         if isinstance(pos, int):
             c[:, pos] = rows
         else:
-            c[torch.arange(B, device=c.device), pos.long()] = rows
+            c[slots, pos.long()] = rows
     return cache

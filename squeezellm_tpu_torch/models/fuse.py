@@ -1,5 +1,5 @@
-"""Decode-time module fusion: concatenate q|k|v and gate|up along output
-channels into single quantized linears.
+"""Decode-time module fusion: concatenate q|k|v and gate|up (LLaMA) or
+q|k|v (OPT) along output channels into single quantized linears.
 
 The counterpart of the JAX package's ``models/fuse.py`` (``_fuse_linears``
 and ``fuse_for_decode``). The inputs are shared, so packed words and LUTs
@@ -79,11 +79,14 @@ def fuse_linears(linears: List[Linear]) -> Linear:
 
 
 def fuse_for_decode(model):
-    """Fuse every fusable q|k|v and gate|up group of a Llama model in
-    place (one layer at a time, so the old tensors are freed as it goes);
-    returns the model. Unfusable groups stay as they are."""
+    """Fuse every fusable q|k|v and gate|up group of a Llama or OPT model
+    in place (one layer at a time, so the old tensors are freed as it
+    goes); returns the model. Unfusable groups stay as they are; OPT has
+    no gate|up group (its MLP is up, ReLU, down)."""
     for layer in model.layers:
-        for block in (layer.attn, layer.mlp):
+        for block in (layer.attn, getattr(layer, "mlp", None)):
+            if block is None:
+                continue
             for fused_name, names in FUSE_GROUPS:
                 members = [block.proj[n] if n in block.proj else None
                            for n in names]

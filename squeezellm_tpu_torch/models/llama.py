@@ -1,10 +1,12 @@
 """LLaMA-family decoder (LLaMA 1/2, Vicuna, Mistral, XGen) in PyTorch.
 
 The counterpart of the JAX package's ``models/llama.py`` for one device:
-GQA, optional sliding window, a token-major KV cache. Decode attention
-goes through K2 (``ops/decode_attn``); prefill and full-sequence attention
-through K3 (``ops/flash_attn``) for every prompt length; every quantized
-linear through K1 (``ops/lut_matmul``). ``plain=True`` runs each kernel's
+GQA, optional sliding window, a token-major KV cache (f32, bf16 or int8).
+Decode attention goes through K2, or K5 over an int8 cache
+(``ops/decode_attn``); prefill and full-sequence attention through K3
+(``ops/flash_attn``) for every prompt length; every quantized linear
+through K1 (``ops/lut_matmul``) below 1024 rows and K4
+(``ops/dequant_dense``) from there. ``plain=True`` runs each kernel's
 plain PyTorch version instead, whatever the device: the reference the
 kernels are held against on the card.
 """
@@ -20,6 +22,7 @@ from torch import nn
 from squeezellm_tpu_torch.models import common
 from squeezellm_tpu_torch.models.common import Linear
 from squeezellm_tpu_torch.ops import decode_attn, flash_attn
+
 
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
@@ -72,15 +75,16 @@ class LlamaConfig:
 
 
 @dataclasses.dataclass
-class _Step:
-    """Per-call state shared by every layer of one forward."""
+class Step:
+    """Per-call state shared by every layer of one forward. A model
+    without rope (OPT) leaves the four rope fields None."""
 
     dtype: torch.dtype
     mode: str
     plain: bool
     cos: Optional[torch.Tensor] = None  # (S, hd) in dtype
     sin: Optional[torch.Tensor] = None
-    # decode (one token per slot, with a cache): K2 operands
+    # decode (one token per slot, with a cache): K2/K5 operands
     lengths: Optional[torch.Tensor] = None  # (B,) int32
     rope_cos: Optional[torch.Tensor] = None  # (B, hd) f32
     rope_sin: Optional[torch.Tensor] = None
@@ -88,14 +92,15 @@ class _Step:
 
 class AttnBlock(nn.Module):
     """``_attn_block``: q|k|v (fused or not), attention, o-proj with the
-    residual folded into its output init."""
+    residual, when one is given, folded into its output init. Shared with
+    OPT, whose steps carry no rope rows."""
 
-    def __init__(self, config: LlamaConfig, proj: Dict[str, Linear]):
+    def __init__(self, config, proj: Dict[str, Linear]):
         super().__init__()
         self.config = config
         self.proj = nn.ModuleDict(proj)
 
-    def forward(self, x, step: _Step, cache=None, residual=None):
+    def forward(self, x, step: Step, cache=None, residual=None):
         cfg = self.config
         b, s, _ = x.shape
         hd = cfg.head_dim
@@ -115,23 +120,37 @@ class AttnBlock(nn.Module):
         v = v.reshape(b, s, nkv, hd)
 
         if step.lengths is not None:
-            # decode: rope + cache write + attention in one K2 launch
-            attend = (decode_attn.decode_attention_plain if step.plain
-                      else decode_attn.decode_attention)
-            out = attend(q[:, 0], k[:, 0], v[:, 0], cache["k"], cache["v"],
-                         step.lengths, sliding_window=cfg.sliding_window,
-                         rope_cos=step.rope_cos, rope_sin=step.rope_sin)
+            # decode: rope + cache write + attention in one launch, K5
+            # over an int8 cache and K2 otherwise
+            if "ks" in cache:
+                attend = (decode_attn.decode_attention_q8_plain if step.plain
+                          else decode_attn.decode_attention_q8)
+                caches = (cache["k"], cache["v"], cache["ks"], cache["vs"])
+            else:
+                attend = (decode_attn.decode_attention_plain if step.plain
+                          else decode_attn.decode_attention)
+                caches = (cache["k"], cache["v"])
+            out = attend(
+                q[:, 0], k[:, 0], v[:, 0], *caches, step.lengths,
+                sliding_window=cfg.sliding_window, rope_cos=step.rope_cos,
+                rope_sin=step.rope_sin)
             out = out.to(step.dtype).reshape(b, 1, nh * hd)
         else:
-            q = common.apply_rope_tm(q, step.cos, step.sin)
-            k = common.apply_rope_tm(k, step.cos, step.sin)
+            if step.cos is not None:
+                q = common.apply_rope_tm(q, step.cos, step.sin)
+                k = common.apply_rope_tm(k, step.cos, step.sin)
             if cache is not None:
-                # prefill writes rows [0, s), then attends the cache as it
-                # holds them (cache dtype)
-                cache["k"][:, :s] = k.reshape(b, s, -1)
-                cache["v"][:, :s] = v.reshape(b, s, -1)
+                # prefill writes rows [0, s) (an int8 cache quantizes them
+                # at insert), then attends the cache as it holds them: the
+                # history decode will read
+                common.write_kv_rows(cache, k, v)
                 kh, vh = common.read_kv(cache, step.dtype, nkv)
             else:
+                if k.stride() != v.stride():
+                    # a roped k is a new tensor while v is still a column
+                    # slice of the fused q|k|v output: K3 reads k and v
+                    # through one set of strides
+                    k, v = k.contiguous(), v.contiguous()
                 kh, vh = k.transpose(1, 2), v.transpose(1, 2)
             attend = (flash_attn.flash_attention_plain if step.plain
                       else flash_attn.flash_attention)
@@ -149,7 +168,7 @@ class MLPBlock(nn.Module):
         super().__init__()
         self.proj = nn.ModuleDict(proj)
 
-    def forward(self, x, step: _Step, residual=None):
+    def forward(self, x, step: Step, residual=None):
         lin = dict(mode=step.mode, plain=step.plain)
         if "gateup" in self.proj:
             gu = self.proj["gateup"](x, **lin)
@@ -178,7 +197,7 @@ class DecoderLayer(nn.Module):
         self.register_buffer("input_norm", input_norm)
         self.register_buffer("post_norm", post_norm)
 
-    def forward(self, x, step: _Step, cache=None):
+    def forward(self, x, step: Step, cache=None):
         eps = self.config.rms_eps
         h = common.rms_norm(x, self.input_norm, eps)
         x = self.attn(h, step, cache, residual=x)
@@ -193,7 +212,7 @@ class LMHead(nn.Module):
         super().__init__()
         self.linear = linear
 
-    def forward(self, x, step: _Step):
+    def forward(self, x, step: Step):
         return self.linear(x, mode=step.mode, plain=step.plain).float()
 
 
@@ -215,13 +234,13 @@ class Llama(nn.Module):
         return self.embed.device
 
     def _step(self, dtype, mode, plain, *, positions=None,
-              decode_pos=None) -> _Step:
+              decode_pos=None) -> Step:
         """Per-call state: rope cos/sin at ``positions``, or for a decode
         step at ``decode_pos`` (B,) K2's operands, shared by every layer:
         lengths and the rope rows (the rope_cos_sin values in dtype, as
         f32)."""
         cfg = self.config
-        step = _Step(dtype=dtype, mode=mode, plain=plain)
+        step = Step(dtype=dtype, mode=mode, plain=plain)
         if decode_pos is not None:
             cos, sin = common.rope_cos_sin(decode_pos, cfg.head_dim,
                                            cfg.rope_theta, dtype)
@@ -233,7 +252,7 @@ class Llama(nn.Module):
                 positions, cfg.head_dim, cfg.rope_theta, dtype)
         return step
 
-    def _finish(self, x, step: _Step):
+    def _finish(self, x, step: Step):
         x = common.rms_norm(x, self.final_norm, self.config.rms_eps)
         return self.lm_head(x, step)
 

@@ -1,0 +1,176 @@
+"""OPT decoder (OPT 1.3B - 30B) in PyTorch.
+
+The counterpart of the JAX package's ``models/opt.py`` for one device:
+pre-LN layers, learned positional embeddings (HF offset +2), a ReLU MLP,
+biases on all six linears, none on the lm_head. No rope, no GQA, no
+sliding window: the attention block is the LLaMA one with no rope rows,
+so decode runs K2 (K5 over an int8 cache) with ``rope_cos=None``, prefill
+and full-sequence attention K3, and every quantized linear K1 or K4.
+Unlike LLaMA, the residual is added after each block, not folded into a
+linear's output init, as in the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Tuple
+
+import torch
+from torch import nn
+
+from squeezellm_tpu_torch.models import common
+from squeezellm_tpu_torch.models.common import Linear
+from squeezellm_tpu_torch.models.llama import AttnBlock, LMHead, Step
+
+MODULE_NAMES = ("q", "k", "v", "o", "up", "down")
+POS_OFFSET = 2  # HF OPTLearnedPositionalEmbedding offset
+
+
+@dataclasses.dataclass(frozen=True)
+class OPTConfig:
+    vocab_size: int = 50272
+    hidden_size: int = 2048
+    ffn_dim: int = 8192
+    n_layers: int = 24
+    n_heads: int = 32
+    max_seq: int = 2048
+    ln_eps: float = 1e-5
+
+    sliding_window = None  # not a field: OPT attends its whole prefix
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.n_heads
+
+    @property
+    def n_kv_heads(self) -> int:
+        return self.n_heads
+
+    def linear_shapes(self) -> Dict[str, Tuple[int, int]]:
+        """(out, in) of each quantizable module, torch W orientation."""
+        h = self.hidden_size
+        return {
+            "q": (h, h),
+            "k": (h, h),
+            "v": (h, h),
+            "o": (h, h),
+            "up": (self.ffn_dim, h),
+            "down": (h, self.ffn_dim),
+        }
+
+    @staticmethod
+    def from_hf_config(d: dict) -> "OPTConfig":
+        if d.get("word_embed_proj_dim", d["hidden_size"]) != d["hidden_size"]:
+            raise ValueError(
+                "OPT variants with embedding projection are not supported")
+        if not d.get("do_layer_norm_before", True):
+            raise ValueError("post-LN OPT not supported")
+        return OPTConfig(
+            vocab_size=d["vocab_size"],
+            hidden_size=d["hidden_size"],
+            ffn_dim=d["ffn_dim"],
+            n_layers=d["num_hidden_layers"],
+            n_heads=d["num_attention_heads"],
+            max_seq=d.get("max_position_embeddings", 2048),
+            ln_eps=1e-5,
+        )
+
+
+class DecoderLayer(nn.Module):
+    """``_layer``: pre-LN attention and ReLU MLP blocks with residuals.
+
+    norms: {'attn_norm': (w, b), 'ffn_norm': (w, b)}."""
+
+    def __init__(self, config: OPTConfig, linears: Dict[str, Linear],
+                 norms: Dict[str, Tuple[torch.Tensor, torch.Tensor]]):
+        super().__init__()
+        self.config = config
+        self.attn = AttnBlock(config, {n: m for n, m in linears.items()
+                                       if n in ("q", "k", "v", "qkv", "o")})
+        self.up = linears["up"]
+        self.down = linears["down"]
+        for name in ("attn_norm", "ffn_norm"):
+            self.register_buffer(name + "_w", norms[name][0])
+            self.register_buffer(name + "_b", norms[name][1])
+
+    def forward(self, x, step: Step, cache=None):
+        eps = self.config.ln_eps
+        lin = dict(mode=step.mode, plain=step.plain)
+        h = common.layer_norm(x, self.attn_norm_w, self.attn_norm_b, eps)
+        x = x + self.attn(h, step, cache)
+        h = common.layer_norm(x, self.ffn_norm_w, self.ffn_norm_b, eps)
+        h = torch.relu(self.up(h, **lin))
+        return x + self.down(h, **lin)
+
+
+class OPT(nn.Module):
+    """The whole decoder: token and position embeddings, layers, final
+    layer norm, lm_head."""
+
+    def __init__(self, config: OPTConfig, embed: torch.Tensor,
+                 embed_pos: torch.Tensor, layers: List[DecoderLayer],
+                 final_norm: Tuple[torch.Tensor, torch.Tensor],
+                 lm_head: Linear):
+        super().__init__()
+        self.config = config
+        self.register_buffer("embed", embed)
+        self.register_buffer("embed_pos", embed_pos)
+        self.layers = nn.ModuleList(layers)
+        self.register_buffer("final_norm_w", final_norm[0])
+        self.register_buffer("final_norm_b", final_norm[1])
+        self.lm_head = LMHead(lm_head)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def _embed(self, tokens, positions, dtype):
+        """tokens (B, S); positions (S,) or (B, S), 0-based."""
+        pos = self.embed_pos[positions + POS_OFFSET].to(dtype)
+        return self.embed[tokens].to(dtype) + pos
+
+    def _finish(self, x, step: Step):
+        x = common.layer_norm(x, self.final_norm_w, self.final_norm_b,
+                              self.config.ln_eps)
+        return self.lm_head(x, step)
+
+    def forward(self, tokens: torch.Tensor, *, dtype=torch.float32,
+                mode: str = "exact", plain: bool = False) -> torch.Tensor:
+        """Full-sequence causal forward -> logits (B, S, V) f32."""
+        s = tokens.shape[1]
+        x = self._embed(tokens, torch.arange(s, device=self.device), dtype)
+        step = Step(dtype=dtype, mode=mode, plain=plain)
+        for layer in self.layers:
+            x = layer(x, step)
+        return self._finish(x, step)
+
+    def prefill(self, tokens: torch.Tensor, cache, *, dtype=torch.float32,
+                mode: str = "exact", plain: bool = False) -> torch.Tensor:
+        """Process the prompt from position 0 and fill the cache (in
+        place); returns the last token's logits (B, 1, V) f32."""
+        b, s = tokens.shape
+        x = self._embed(tokens, torch.arange(s, device=self.device), dtype)
+        step = Step(dtype=dtype, mode=mode, plain=plain)
+        if s == 1:
+            # a one-token prompt is a decode step at position 0
+            step.lengths = torch.ones(b, dtype=torch.int32,
+                                      device=self.device)
+        for layer, layer_cache in zip(self.layers, cache):
+            x = layer(x, step, layer_cache)
+        return self._finish(x[:, -1:], step)
+
+    def decode_step(self, token: torch.Tensor, pos, cache, *,
+                    dtype=torch.float32, mode: str = "exact",
+                    plain: bool = False) -> torch.Tensor:
+        """One decode step. token (B, 1); pos: int or (B,) tensor, the
+        0-based position of this token. Updates the cache in place and
+        returns logits (B, 1, V) f32."""
+        b = token.shape[0]
+        pos_t = (torch.full((b,), pos, device=self.device)
+                 if isinstance(pos, int) else pos.reshape(-1))
+        x = self._embed(token, pos_t[:, None], dtype)
+        step = Step(dtype=dtype, mode=mode, plain=plain,
+                    lengths=(pos_t + 1).to(torch.int32))
+        for layer, layer_cache in zip(self.layers, cache):
+            x = layer(x, step, layer_cache)
+        return self._finish(x, step)

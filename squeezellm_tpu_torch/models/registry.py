@@ -1,7 +1,7 @@
-"""Architecture adapter: model type -> implementation (LLaMA family).
+"""Architecture adapter: model type -> implementation (the LLaMA family
+and OPT).
 
-The counterpart of the JAX package's ``models/registry.py``; OPT waits for
-its own slice of the port.
+The counterpart of the JAX package's ``models/registry.py``.
 """
 
 from __future__ import annotations
@@ -11,6 +11,7 @@ import os
 from typing import Optional
 
 from squeezellm_tpu_torch.models import llama as llama_mod
+from squeezellm_tpu_torch.models import opt as opt_mod
 
 # mistral/vicuna/xgen are llama-architecture variants (different configs).
 _REGISTRY = {
@@ -18,13 +19,11 @@ _REGISTRY = {
     "mistral": llama_mod,
     "vicuna": llama_mod,
     "xgen": llama_mod,
+    "opt": opt_mod,
 }
 
 
 def get_model_module(model_type: str):
-    if model_type == "opt":
-        raise NotImplementedError(
-            "OPT is not ported yet: it comes with the OPT slice of the port")
     if model_type not in _REGISTRY:
         raise ValueError(
             f"unknown model type {model_type!r}; known: {sorted(_REGISTRY)}")
@@ -36,7 +35,7 @@ def parse_model_type(name_or_path: str,
     """Model type from an HF config dict (preferred) or the path name."""
     if hf_config is not None and "model_type" in hf_config:
         mt = hf_config["model_type"]
-        if mt in _REGISTRY or mt == "opt":
+        if mt in _REGISTRY:
             return mt
         if mt == "llama2":
             return "llama"
@@ -47,9 +46,14 @@ def parse_model_type(name_or_path: str,
     return "llama"
 
 
+def config_class(model_type: str):
+    mod = get_model_module(model_type)
+    return mod.OPTConfig if mod is opt_mod else mod.LlamaConfig
+
+
 def load_config(model_dir: str):
     """(model_type, config) from an HF-style model dir with config.json."""
     with open(os.path.join(model_dir, "config.json")) as f:
         hf = json.load(f)
     model_type = parse_model_type(model_dir, hf)
-    return model_type, get_model_module(model_type).LlamaConfig.from_hf_config(hf)
+    return model_type, config_class(model_type).from_hf_config(hf)

@@ -23,7 +23,7 @@ from squeezellm_tpu_torch import _build, formats
 from squeezellm_tpu_torch.ops import plain_ops
 
 MODES = ("exact", "bf16")
-MAX_ROWS = 1023  # the kernel's row range on the main path (prompts <= 1023)
+MAX_ROWS = 1023  # quant_linear_apply sends 1024 rows and more to K4
 
 
 def _round_bf16(t: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,4 @@
-"""Random LLaMA models made on the device from a seeded generator.
+"""Random LLaMA and OPT models made on the device from a seeded generator.
 
 ``quantized_llama`` is the flagship the JAX package's ``bench.py`` measures
 (``_build_quantized_llama``): packed random codes, sorted random LUTs
@@ -11,6 +11,11 @@ step from cache and inflate the achieved bandwidth.
 
 ``dense_llama`` is the speed yardstick: the same config with bf16 dense
 weights (N(0, 1) * 0.5 / sqrt(in), as the JAX ``random_dense_params``).
+
+``quantized_opt`` and ``dense_opt`` are the same two for an OPT config:
+every layer linear also has a bias (N(0, 0.02)), the lm_head has none, the
+layer norms are unit with zero bias, and the learned position table has
+``max_seq + 2`` rows (N(0, 0.02)).
 """
 
 from __future__ import annotations
@@ -20,13 +25,14 @@ import math
 import torch
 
 from squeezellm_tpu_torch import formats
-from squeezellm_tpu_torch.models import llama
+from squeezellm_tpu_torch.models import llama, opt
 from squeezellm_tpu_torch.models.common import Linear, LinearSpec
 from squeezellm_tpu_torch.ops.quant_linear import QuantLinearSpec
 
 
 def random_quant_linear(gen, device, out_f: int, in_f: int, bits: int,
-                        sparsity: float, topx: int) -> Linear:
+                        sparsity: float, topx: int,
+                        bias: bool = False) -> Linear:
     """One random quantized linear (bench.py's statistics), unfused."""
     nw = formats.n_words(in_f, bits)
     tensors = {
@@ -55,10 +61,13 @@ def random_quant_linear(gen, device, out_f: int, in_f: int, bits: int,
                                               device=device) * 0.05
         tensors["topx_indices"] = torch.randperm(
             out_f, generator=gen, device=device)[:topx].to(torch.int32)
+    if bias:
+        tensors["bias"] = torch.randn(out_f, generator=gen,
+                                      device=device) * 0.02
     q = QuantLinearSpec(bits=bits, in_features=in_f, out_features=out_f,
-                        nnz=nnz, topx=topx)
-    return Linear(LinearSpec(in_features=in_f, out_features=out_f, quant=q),
-                  tensors)
+                        has_bias=bias, nnz=nnz, topx=topx)
+    return Linear(LinearSpec(in_features=in_f, out_features=out_f,
+                             has_bias=bias, quant=q), tensors)
 
 
 def _generator(seed: int, device) -> torch.Generator:
@@ -112,3 +121,61 @@ def dense_llama(config: llama.LlamaConfig, *, seed: int = 0,
     return llama.Llama(config, embed, layers,
                        torch.ones(h, device=device, dtype=dtype),
                        lin(config.vocab_size, h, 0.02))
+
+
+def _opt_model(config: opt.OPTConfig, gen, device, dtype, make_linear,
+               make_head) -> opt.OPT:
+    h = config.hidden_size
+
+    def norm():
+        return (torch.ones(h, device=device, dtype=dtype),
+                torch.zeros(h, device=device, dtype=dtype))
+
+    layers = []
+    for _ in range(config.n_layers):
+        linears = {name: make_linear(o, i)
+                   for name, (o, i) in config.linear_shapes().items()}
+        layers.append(opt.DecoderLayer(
+            config, linears, {"attn_norm": norm(), "ffn_norm": norm()}))
+    embed = (torch.randn(config.vocab_size, h, generator=gen, device=device)
+             * 0.02).to(torch.bfloat16)
+    embed_pos = (torch.randn(config.max_seq + opt.POS_OFFSET, h,
+                             generator=gen, device=device)
+                 * 0.02).to(torch.bfloat16)
+    return opt.OPT(config, embed, embed_pos, layers, norm(), make_head())
+
+
+def quantized_opt(config: opt.OPTConfig, bits: int, *,
+                  sparsity: float = 0.0045, topx: int = 10, seed: int = 0,
+                  device="cuda") -> opt.OPT:
+    """The random Dense-and-Sparse OPT, unfused, with a quantized head."""
+    device = torch.device(device)
+    gen = _generator(seed, device)
+    return _opt_model(
+        config, gen, device, torch.float32,
+        lambda o, i: random_quant_linear(gen, device, o, i, bits, sparsity,
+                                         topx, bias=True),
+        lambda: random_quant_linear(gen, device, config.vocab_size,
+                                    config.hidden_size, bits, 0.0, 0))
+
+
+def dense_opt(config: opt.OPTConfig, *, seed: int = 0,
+              device="cuda") -> opt.OPT:
+    """The dense OPT of the same config: every weight in bf16."""
+    dtype = torch.bfloat16
+    device = torch.device(device)
+    gen = _generator(seed, device)
+
+    def lin(o, i, scale, bias):
+        tensors = {"w": torch.randn(o, i, generator=gen, device=device,
+                                    dtype=dtype) * scale}
+        if bias:
+            tensors["b"] = torch.randn(o, generator=gen, device=device,
+                                       dtype=dtype) * 0.02
+        return Linear(LinearSpec(in_features=i, out_features=o,
+                                 has_bias=bias), tensors)
+
+    return _opt_model(
+        config, gen, device, dtype,
+        lambda o, i: lin(o, i, 0.5 / math.sqrt(i), True),
+        lambda: lin(config.vocab_size, config.hidden_size, 0.02, False))

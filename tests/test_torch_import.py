@@ -1,6 +1,8 @@
 """The port stands alone: importing every module of squeezellm_tpu_torch
-and running a CPU forward, greedy generation and the decode benchmark
-loads neither JAX nor the JAX package (matched as the exact module
+(eval, data, cli, models.opt and ops.kv_quant among them) and running a CPU
+forward, greedy generation, the decode benchmark, an int8-cache OPT
+request, a perplexity through the dequantize-then-matmul route and the
+command line loads neither JAX nor the JAX package (matched as the exact module
 `squeezellm_tpu` or its submodules, not as a prefix of the port's name)."""
 
 import json
@@ -25,12 +27,25 @@ eng = engine.Engine(fuse.fuse_for_decode(model))
 out = eng.generate(np.array([[1, 2, 3]]), 4)
 stats = eng.benchmark(np.arange(8)[None], max_seq=32)
 logits = model.forward(__import__("torch").tensor([[1, 2, 3]]))
+from squeezellm_tpu_torch import data
+from squeezellm_tpu_torch import eval as eval_mod
+from squeezellm_tpu_torch.models import opt
+from squeezellm_tpu_torch.ops import kv_quant, quant_linear
+ocfg = opt.OPTConfig(vocab_size=64, hidden_size=64, ffn_dim=96, n_layers=1,
+                     n_heads=2, max_seq=32)
+omodel = synthetic.quantized_opt(ocfg, 4, sparsity=0.02, topx=2, device="cpu")
+oout = engine.Engine(omodel, cache_dtype="int8").generate(
+    np.array([[1, 2, 3]]), 4)
+quant_linear.BIG_BATCH = 16
+ppl = eval_mod.perplexity(omodel, data.synthetic_tokens(64, 48), seqlen=16,
+                          group=2)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "squeezellm_tpu"
              or m.startswith("squeezellm_tpu."))
 print(json.dumps({"bad": bad, "shape": list(out.shape),
-                  "logits": list(logits.shape),
-                  "finite": bool(np.isfinite(stats["check_ppl"]))}))
+                  "logits": list(logits.shape), "opt": list(oout.shape),
+                  "finite": bool(np.isfinite(stats["check_ppl"])
+                                 and np.isfinite(ppl))}))
 """
 
 
@@ -42,4 +57,5 @@ def test_port_imports_no_jax():
     got = json.loads(res.stdout.strip().splitlines()[-1])
     assert got["bad"] == []
     assert got["shape"] == [1, 7] and got["logits"] == [1, 3, 64]
+    assert got["opt"] == [1, 7]
     assert got["finite"]

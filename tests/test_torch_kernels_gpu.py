@@ -1,7 +1,8 @@
-"""K1-K3 on the card against their plain PyTorch versions, at ragged small
+"""K1-K5 on the card against their plain PyTorch versions, at ragged small
 shapes the full-width smoke run does not reach (column and row tails,
-partial packed words, GQA groups, head dims 32/64/128, strided inputs),
-and a tiny model's kernel path against its plain path.
+partial packed words, GQA groups, head dims 32/64/128, strided inputs,
+unaligned int8 caches), and tiny models' kernel paths against their plain
+paths (LLaMA and OPT, f32 and int8 caches, the eval forward).
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere. On the card:
 ``python -m pytest tests/test_torch_kernels_gpu.py -m gpu``."""
@@ -10,9 +11,11 @@ import numpy as np
 import pytest
 import torch
 
-from squeezellm_tpu_torch import engine, synthetic
-from squeezellm_tpu_torch.models import common, fuse, llama
-from squeezellm_tpu_torch.ops import decode_attn, flash_attn, lut_matmul
+from squeezellm_tpu_torch import data, engine, synthetic
+from squeezellm_tpu_torch import eval as eval_mod
+from squeezellm_tpu_torch.models import common, fuse, llama, opt
+from squeezellm_tpu_torch.ops import (decode_attn, dequant_dense, flash_attn,
+                                      kv_quant, lut_matmul, quant_linear)
 
 pytestmark = pytest.mark.gpu
 
@@ -117,3 +120,98 @@ def test_tiny_model_kernel_path_matches_plain_path(dev):
                      eng.teacher_forced_logits(np.arange(10)[None])))
     np.testing.assert_array_equal(outs[0][0], outs[1][0])
     assert _rel(outs[0][1], outs[1][1]) <= 1e-4
+
+
+@pytest.mark.parametrize("mode", ["exact", "bf16"])
+@pytest.mark.parametrize("bits", [3, 4])
+@pytest.mark.parametrize("in_f,out_f", [(116, 200), (320, 129), (7, 33)])
+def test_dequant_dense_kernel_equals_plain(dev, in_f, out_f, bits, mode):
+    """W equal to the plain version's bit for bit, with a crowded sidecar
+    (duplicated slots), without one, and with zero-valued padding entries
+    that point at slot (0, 0)."""
+    g = torch.Generator(device=dev).manual_seed(in_f + bits)
+    t = synthetic.random_quant_linear(g, dev, out_f, in_f, bits, 0.2,
+                                      0).tensors()
+    args = (t["qweight"], t["lut"], bits, in_f)
+    pad = dict(rowptr=t["sp_rowptr"] + 3, cols=torch.cat(
+        [torch.zeros(3, dtype=torch.int32, device=dev), t["sp_cols"]]),
+        vals=torch.cat([torch.zeros(3, device=dev), t["sp_vals"]]))
+    pad["rowptr"][0] = 0
+    for kw in (dict(rowptr=t["sp_rowptr"], cols=t["sp_cols"],
+                    vals=t["sp_vals"]), {}, pad):
+        got = dequant_dense.dequant_dense(*args, mode=mode, **kw)
+        want = dequant_dense.dequant_dense_plain(*args, mode=mode, **kw)
+        torch.cuda.synchronize()
+        assert got.shape == (in_f, out_f) and got.dtype == want.dtype
+        assert torch.equal(got, want), int((got != want).sum())
+
+
+@pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,g,window,rope,S", [
+    (32, 2, None, True, 80), (64, 4, 5, True, 33), (128, 1, None, False, 80),
+    (128, 8, 40, True, 128)])
+def test_decode_attention_q8_kernel_matches_plain(dev, hd, g, window, rope,
+                                                  S, in_dtype):
+    """Codes and scales equal to the plain version's (the in-kernel
+    quantization is bit-identical to `quantize_rows`), output within 1e-4,
+    at cache lengths no 32- or 128-row rule would take."""
+    gen = torch.Generator(device=dev).manual_seed(hd + g)
+    B, Hkv = 3, 2
+    H = g * Hkv
+    qkv = torch.randn(B, (H + 2 * Hkv) * hd, generator=gen,
+                      device=dev).to(in_dtype)
+    if not rope:  # an all-zero k row: scale 1e-12, codes 0
+        qkv[0, H * hd: (H + 1) * hd] = 0
+    q = qkv[:, : H * hd].view(B, H, hd)
+    k = qkv[:, H * hd: (H + Hkv) * hd].view(B, Hkv, hd)
+    v = qkv[:, (H + Hkv) * hd:].view(B, Hkv, hd)
+    codes, scales = kv_quant.quantize_rows(
+        torch.randn(2, B, S, Hkv, hd, generator=gen, device=dev))
+    codes = codes.reshape(2, B, S, Hkv * hd)
+    scales = scales[..., 0].transpose(2, 3).contiguous()
+    lengths = torch.tensor([min(37, S), 0, S], dtype=torch.int32, device=dev)
+    kw = dict(sliding_window=window)
+    if rope:
+        cos, sin = common.rope_cos_sin((lengths - 1).clamp(min=0).long(), hd,
+                                       10000.0)
+        kw.update(rope_cos=cos.contiguous(), rope_sin=sin.contiguous())
+    gc, gs, wc, ws = codes.clone(), scales.clone(), codes.clone(), scales.clone()
+    got = decode_attn.decode_attention_q8(q, k, v, gc[0], gc[1], gs[0], gs[1],
+                                          lengths, **kw)
+    want = decode_attn.decode_attention_q8_plain(q, k, v, wc[0], wc[1], ws[0],
+                                                 ws[1], lengths, **kw)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    assert not got[1].any()
+    assert torch.equal(gc, wc) and torch.equal(gs, ws)
+    assert not torch.equal(gc, codes)  # the active slots' rows were written
+
+
+@pytest.mark.parametrize("family", ["llama", "opt"])
+def test_tiny_models_int8_and_eval_paths_match_plain(dev, family,
+                                                     monkeypatch):
+    """A tiny LLaMA and a tiny OPT: the int8-cache request token-identical
+    to the plain path, and the f32 perplexity through K4 (the dispatch point
+    lowered to the tiny stride) within 1e-4 of the plain path's."""
+    if family == "llama":
+        cfg = llama.LlamaConfig(vocab_size=512, hidden_size=256,
+                                intermediate_size=384, n_layers=2, n_heads=4,
+                                n_kv_heads=2, max_seq=128)
+        make = synthetic.quantized_llama
+    else:
+        cfg = opt.OPTConfig(vocab_size=512, hidden_size=256, ffn_dim=384,
+                            n_layers=2, n_heads=4, max_seq=128)
+        make = synthetic.quantized_opt
+    model = fuse.fuse_for_decode(make(cfg, 3, sparsity=0.01, topx=3, seed=4,
+                                      device=dev))
+    prompt = np.array([[5, 9, 200, 31, 7, 77, 101]])
+    toks = [engine.Engine(model, cache_dtype="int8", plain=plain)
+            .generate(prompt, 12) for plain in (False, True)]
+    np.testing.assert_array_equal(toks[0], toks[1])
+    monkeypatch.setattr(quant_linear, "BIG_BATCH", 64)
+    tokens = data.synthetic_tokens(cfg.vocab_size, 3 * 64, seed=1)
+    before = dequant_dense.dequant_dense.launches
+    ppl = [eval_mod.perplexity(model, tokens, seqlen=64, group=2,
+                               plain=plain) for plain in (False, True)]
+    assert dequant_dense.dequant_dense.launches > before
+    assert abs(ppl[0] - ppl[1]) <= 1e-4 * ppl[1]

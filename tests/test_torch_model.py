@@ -66,7 +66,7 @@ def _quant(rng, o, i, bits, sparse=True, topx=2):
     return spec, p
 
 
-def _jax_tree(config, bits, seed=0):
+def _jax_tree(config, bits, seed=0, sparse=True):
     """Random quantized tree in the JAX package's format (numpy)."""
     rng = np.random.default_rng(seed)
     h = config.hidden_size
@@ -74,7 +74,7 @@ def _jax_tree(config, bits, seed=0):
     for _ in range(config.n_layers):
         sd, pd = {}, {}
         for name, (o, i) in config.linear_shapes().items():
-            sd[name], pd[name] = _quant(rng, o, i, bits)
+            sd[name], pd[name] = _quant(rng, o, i, bits, sparse=sparse)
         pd["input_norm"] = (1 + 0.1 * rng.standard_normal(h)).astype(np.float32)
         pd["post_norm"] = (1 + 0.1 * rng.standard_normal(h)).astype(np.float32)
         spec_layers.append(sd)
