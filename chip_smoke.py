@@ -6,7 +6,7 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from csrc/ with nvcc, holds each kernel
-(K1-K5) against its plain PyTorch version at the main path's shapes, and
+(K1-K9) against its plain PyTorch version at the main path's shapes, and
 drives the port's paths on random full-width models made from a seed,
 checking after each that it went through its kernels:
 
@@ -17,7 +17,12 @@ checking after each that it went through its kernels:
   tokens, 2 strides a forward (K4 and K3), f32 and bf16;
 * Engine(cache_dtype="int8") on the w4 model: a request and the decode
   benchmark beside the bf16-cache one (K5);
-* OPT-6.7B w4: one eval group and one greedy request (K2 without rope).
+* OPT-6.7B w4: one eval group and one greedy request (K2 without rope);
+* serving.PagedContinuousBatchEngine on the w4 model, 8 slots over a pool
+  of 160 pages of 128 rows: 16 requests with a shared 256-token prefix
+  through run() by single steps, decode windows, prompt-lookup speculation
+  and sampling (K6, K8, K3 with a start), then the bf16 and int8 pools
+  (K7, K9).
 
 The last line is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``; the line before it
@@ -87,6 +92,13 @@ INT8_PROMPT = 100
 # equal the plain path's are reported, not held.
 TOL_LAYER_INT8 = 2.0**-7
 OPT_PROMPT = 16
+# paged serving: 16 requests of three prompt lengths, eight of them a shared
+# 256-token prefix (two full pages) and a 44-token suffix of their own
+PAGED_SLOTS, PAGED_PAGES, PAGE_SIZE, PAGED_MAX_SEQ = 8, 160, 128, 2048
+PAGED_PREFIX, PAGED_SUFFIX, PAGED_LENS = 256, 44, (100, 37)
+SPECULATIVE = (4, 2)
+# K6-K9 are timed at 8 slots x 1024 valid rows of a LLaMA-2-7B layer
+PAGED_AT_ROWS = 1024
 
 
 def sh(cmd):
@@ -577,13 +589,17 @@ def check_k5(torch, timer, record):
 
 
 def counters():
-    """The five wrappers, K1 to K5."""
+    """The nine wrappers, K1 to K9."""
     from squeezellm_tpu_torch.ops import (decode_attn, dequant_dense,
-                                          flash_attn, lut_matmul)
+                                          flash_attn, lut_matmul, paged_attn)
 
     return (lut_matmul.lut_matmul, decode_attn.decode_attention,
             flash_attn.flash_attention, dequant_dense.dequant_dense,
-            decode_attn.decode_attention_q8)
+            decode_attn.decode_attention_q8,
+            paged_attn.paged_decode_attention,
+            paged_attn.paged_decode_attention_q8,
+            paged_attn.paged_verify_attention,
+            paged_attn.paged_verify_attention_q8)
 
 
 def reset_counts():
@@ -593,11 +609,12 @@ def reset_counts():
 
 
 def expect_counts(record, path, want):
-    """Read the counts a path's run left, hold them to `want` (K1..K5) and
-    keep them for the kernels' line."""
+    """Read the counts a path's run left, hold them to `want` (K1.., the
+    kernels not named are held to 0) and keep them for the kernels' line."""
     got = read_counts()
+    want = list(want) + [0] * (len(got) - len(want))
     if got != want:
-        raise AssertionError(f"{path}: launches K1..K5 {got} != {want}")
+        raise AssertionError(f"{path}: launches K1..K9 {got} != {want}")
     record["paths"].append({"path": path, "launches": got})
     return got
 
@@ -793,7 +810,7 @@ def run_model(torch, config, bits, record):
         raise AssertionError(f"w{bits} f32 logits: {res['tf_exact_rel_err']}")
     print(f"w{bits} (i) 3 requests (prompts {PROMPT_LENS}, {NEW_TOKENS} new "
           f"tokens) in {res['requests_s']:.2f} s, tokens identical to the "
-          f"plain path; launches K1..K5 {res['launches']}; f32 "
+          f"plain path; launches K1..K9 {res['launches']}; f32 "
           f"teacher-forced logits rel err {res['tf_exact_rel_err']:.3g}")
 
     # (ii) the bf16 flagship benchmark
@@ -830,7 +847,7 @@ def run_model(torch, config, bits, record):
                          cache, dtype=torch.bfloat16, mode="bf16")
     stats["launches_per_decode_step"] = read_counts()
     if stats["launches_per_decode_step"] != [4 * config.n_layers + 1,
-                                             config.n_layers, 0, 0, 0]:
+                                             config.n_layers] + [0] * 7:
         raise AssertionError(f"per-step launches {read_counts()}")
     res["bench"] = stats
     print(f"w{bits} (ii) bf16 decode: {stats['tokens_per_s']:.2f} tok/s, "
@@ -844,7 +861,7 @@ def run_model(torch, config, bits, record):
           f"not held): kernels vs plain {stats['tf_bf16_rel_err']:.3g}, "
           f"argmax agree {stats['tf_bf16_argmax_agree']:.3f}, plain bf16 vs "
           f"plain f32 {stats['tf_bf16_plain_vs_f32']:.3g}")
-    print(f"w{bits} (iii) launches per decode step K1..K5: "
+    print(f"w{bits} (iii) launches per decode step K1..K9: "
           f"{stats['launches_per_decode_step']}")
     print_profile(f"w{bits}", stats, record)
     record["models"].append(res)
@@ -902,7 +919,7 @@ def run_eval(torch, model, label, record, modes=("exact", "bf16"),
               f"{ppl_plain:.6g} plain, rel {rel:.3g} ({held}); "
               f"{secs / strides:.3f} s a stride (host clock, {strides} "
               f"strides, {EVAL_GROUP} a forward; card meanwhile "
-              f"{card.stats}); launches K1..K5 {launches}")
+              f"{card.stats}); launches K1..K9 {launches}")
         if prof["profile_failed"]:
             record["profile_failed"].append(f"{label} eval {mode}")
             print(f"{label} eval {mode} PROFILE FAILED, device time not "
@@ -974,7 +991,7 @@ def run_int8(torch, model, ids, bf16_stats, record):
                          dtype=torch.bfloat16, mode="bf16")
     stats["launches_per_decode_step"] = read_counts()
     if stats["launches_per_decode_step"] != [4 * cfg.n_layers + 1, 0, 0, 0,
-                                             cfg.n_layers]:
+                                             cfg.n_layers, 0, 0, 0, 0]:
         raise AssertionError(f"int8 per-step launches {read_counts()}")
     if not math.isfinite(stats["check_ppl"]):
         raise AssertionError(f"int8 bf16 benchmark: {stats}")
@@ -982,7 +999,7 @@ def run_int8(torch, model, ids, bf16_stats, record):
           f"new tokens); at full depth (reported, not held) the logits that "
           f"choose its tokens lie {rel:.3g} of max |logit| from the plain "
           f"path's, {flips} argmax flips, {same} of {NEW_TOKENS} leading "
-          f"tokens identical; launches K1..K5 {launches}; per decode step "
+          f"tokens identical; launches K1..K9 {launches}; per decode step "
           f"{stats['launches_per_decode_step']}")
     print_layer_check("w4 f32, int8 cache", lc, TOL_LAYER_INT8, "int8 cache")
     for name, st in (("int8 cache", stats), ("bf16 cache", bf16_stats)):
@@ -998,6 +1015,527 @@ def run_int8(torch, model, ids, bf16_stats, record):
     return {"launches": launches, "bench": stats, "logits_rel_err": rel,
             "leading_tokens_equal": same, "argmax_flips": flips,
             "layer_check": lc}
+
+
+def paged_case(torch, gen, *, Hkv, ps, maxp, index, W, q8, dtype,
+               share=True):
+    """One K6-K9 case at 32 query heads of 128: pools of random history
+    (bf16 or f32 as `dtype`, or int8 codes with scales), a shuffled page
+    table whose first page is shared by every slot that writes beyond it
+    (`share`), inactive slots with a zeroed table, and the window's q/k/v as
+    head-major views of one fused token-major projection with their rope
+    rows. `index` holds lengths (W None: decode) or starts."""
+    from squeezellm_tpu_torch.models import common
+    from squeezellm_tpu_torch.ops import kv_quant
+
+    dev = torch.device("cuda")
+    H, hd, B = 32, 128, len(index)
+    P = B * maxp + 3
+    pt = torch.randperm(P, generator=gen, device=dev)[: B * maxp].to(
+        torch.int32).view(B, maxp).clone()
+    idx = torch.tensor(index, dtype=torch.int32, device=dev)
+    first = idx.long() - (1 if W is None else 0)
+    if share:
+        sharers = (first >= ps).nonzero()[:, 0]
+        pt[sharers, 0] = pt[sharers[0], 0]
+    pt[first < 0] = 0
+    w = W or 1
+    qkv = torch.randn(B, w, (H + 2 * Hkv) * hd, generator=gen,
+                      device=dev).to(dtype)
+    q = qkv[..., : H * hd].view(B, w, H, hd).transpose(1, 2)
+    k = qkv[..., H * hd: (H + Hkv) * hd].view(B, w, Hkv, hd).transpose(1, 2)
+    v = qkv[..., (H + Hkv) * hd:].view(B, w, Hkv, hd).transpose(1, 2)
+    pools = []
+    for _ in range(2):
+        hist = torch.randn(P, ps, Hkv, hd, generator=gen, device=dev)
+        if q8:
+            codes, sc = kv_quant.quantize_rows(hist)
+            pools.append((codes.view(P, ps, -1),
+                          kv_quant.pool_pack_scales(sc).contiguous()))
+        else:
+            pools.append((hist.view(P, ps, -1).to(dtype),))
+        del hist
+    pools = [p[0] for p in pools] + [p[1] for p in pools if len(p) > 1]
+    at = first.clamp(min=0)[:, None] + torch.arange(w, device=dev)
+    cos, sin = common.rope_cos_sin(at if W else at[:, 0], hd, 10000.0, dtype)
+    kw = dict(rope_cos=cos.float().contiguous(),
+              rope_sin=sin.float().contiguous())
+    if W is None:
+        q, k, v = q[:, :, 0], k[:, :, 0], v[:, :, 0]
+    return q, k, v, pools, pt, idx, kw
+
+
+def check_paged(torch, timer, record, number):
+    """K6 (decode) / K7 (decode, int8) / K8 (verify window) / K9 (verify,
+    int8) against the plain version: outputs within TOL_ATTN of max |out|,
+    the pools after the write equal (int8: codes and scales), at the
+    LLaMA-2-7B and Mistral-7B layer shapes, 128- and 16-row pages."""
+    import torch.nn.functional as F
+
+    from squeezellm_tpu_torch.ops import paged_attn
+
+    q8, verify = number in (7, 9), number in (8, 9)
+    name = (("paged_verify_attention" if verify else "paged_decode_attention")
+            + ("_q8" if q8 else ""))
+    fn, plain = getattr(paged_attn, name), getattr(paged_attn,
+                                                   name + "_plain")
+    gen = torch.Generator(device="cuda").manual_seed(20 + number)
+    H, hd = 32, 128
+    # (kv heads, window, page size, rows a slot can hold, dtype, W, index);
+    # two inactive slots each; Mistral's lengths lie on both sides of its
+    # window; verify windows start at a page's last rows and cross it; f32
+    # activations over 128-row pages are what the served f32 runs give
+    if verify:
+        cases = [(32, None, 128, 2048, torch.bfloat16, 5,
+                  [0, 126, 127, 1000, 2043, 120, -1, -1]),
+                 (32, None, 16, 2048, torch.float32, 2,
+                  [0, 15, 127, 1000, 2046, 31, -1, -1]),
+                 (32, None, 128, 2048, torch.float32, 5,
+                  [0, 126, 127, 1000, 2043, 252, -1, -1]),
+                 (32, None, 128, 2048, torch.bfloat16, 8,
+                  [0, 121, 127, 1000, 2040, 250, -1, -1]),
+                 (8, 4096, 128, 5120, torch.bfloat16, 5,
+                  [0, 126, 4090, 4096, 4995, 4094, -1, -1]),
+                 (8, 4096, 16, 5120, torch.float32, 8,
+                  [0, 9, 4090, 4096, 4992, 4089, -1, -1]),
+                 (8, 4096, 128, 5120, torch.bfloat16, 2,
+                  [0, 127, 4095, 4096, 4998, 4094, -1, -1])]
+    else:
+        llama_len = [1, 127, 128, 129, 1000, 2048, 0, 0]
+        mistral_len = [1, 129, 4095, 4096, 4097, 5000, 0, 0]
+        cases = [(32, None, 128, 2048, torch.bfloat16, None, llama_len),
+                 (32, None, 16, 2048, torch.float32, None, llama_len),
+                 (32, None, 128, 2048, torch.float32, None, llama_len),
+                 (8, 4096, 128, 5120, torch.bfloat16, None, mistral_len),
+                 (8, 4096, 16, 5120, torch.float32, None, mistral_len)]
+    worst, worst_rel = 0.0, 0.0
+    for Hkv, window, ps, rows, dtype, W, index in cases:
+        q, k, v, pools, pt, idx, kw = paged_case(
+            torch, gen, Hkv=Hkv, ps=ps, maxp=rows // ps, index=index, W=W,
+            q8=q8, dtype=dtype)
+        kw["sliding_window"] = window
+        got_p = [t.clone() for t in pools]
+        want_p = [t.clone() for t in pools]
+        got = fn(q, k, v, *got_p, pt, idx, **kw)
+        want = plain(q, k, v, *want_p, pt, idx, **kw)
+        torch.cuda.synchronize()
+        err = rel_err(got, want)
+        worst, worst_rel = max(worst, abs_err(got, want)), max(worst_rel, err)
+        same = [torch.equal(a, b) for a, b in zip(got_p, want_p)]
+        idle = bool(got[-2:].any())
+        if (err > TOL_ATTN or not all(same) or idle
+                or torch.equal(got_p[0], pools[0])):
+            raise AssertionError(
+                f"K{number} Hkv={Hkv} window={window} ps={ps} W={W}: rel err "
+                f"{err}, pools equal {same}, inactive slots' output nonzero "
+                f"{idle}, written {not torch.equal(got_p[0], pools[0])}")
+        del got_p, want_p, pools
+
+    # timed: 8 slots x PAGED_AT_ROWS valid rows of a LLaMA-2-7B layer, bf16
+    # activations, 128-row pages (W = 5 for a verify window), no page shared
+    # between slots, so that every valid row is read from memory once
+    B, n, Hkv, W = PAGED_SLOTS, PAGED_AT_ROWS, 32, (5 if verify else None)
+    w = W or 1
+    index = [n - w if verify else n] * B
+    q, k, v, pools, pt, idx, kw = paged_case(
+        torch, gen, Hkv=Hkv, ps=PAGE_SIZE, maxp=PAGED_MAX_SEQ // PAGE_SIZE,
+        index=index, W=W, q8=q8, dtype=torch.bfloat16, share=False)
+    plain_p = [t.clone() for t in pools]
+    pages = -(-n // PAGE_SIZE)
+    if pt[:, :pages].unique().numel() != B * pages:
+        raise AssertionError(f"K{number}: the timed case shares pages")
+    # each input read once, each output written once: q, the new k/v rows
+    # (read, and written to the pool), rope rows, the table entries of the
+    # pages that hold valid rows, the index, the n - w rows of k and v that
+    # every slot held before, out
+    row_bytes = Hkv * (hd + 4) if q8 else Hkv * hd * 2
+    nbytes = B * (H * w * hd * 2 + 2 * Hkv * w * hd * 2 + 2 * w * hd * 4
+                  + pages * 4 + 4 + 2 * (n - w) * row_bytes
+                  + 2 * w * row_bytes + H * w * hd * 4)
+    # roped q and p are f32: both products run at the f32 rate; each of the
+    # w query rows attends its causal prefix
+    pairs = sum(n - w + 1 + i for i in range(w))
+    b, by = bound_ms(nbytes, [(4 * B * H * hd * pairs, "f32")])
+    # the library yardstick: SDPA over the pages gathered beforehand into a
+    # dense bf16 cache (the gather is not timed)
+    kd, vd = paged_attn._gather(pools[:2], pools[2:] if q8 else None, pt, Hkv)
+    kd = kd[:, :, :n].to(torch.bfloat16).contiguous()
+    vd = vd[:, :, :n].to(torch.bfloat16).contiguous()
+    q4 = (q if verify else q[:, :, None]).contiguous()
+    mask = (torch.ones(w, n, dtype=torch.bool, device="cuda")
+            .tril(diagonal=n - w) if verify else None)
+    row = dict(slots=B, rows=n, W=w, page_size=PAGE_SIZE, shared_pages=0,
+               ms=timer.ms(lambda: fn(q, k, v, *pools, pt, idx, **kw)),
+               plain_ms=timer.ms(lambda: plain(q, k, v, *plain_p, pt, idx,
+                                               **kw), iters=5),
+               library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
+                   q4, kd, vd, attn_mask=mask)),
+               bound_ms=b, bound_by=by, bytes=nbytes)
+    row["gb_s"] = nbytes / row["ms"] / 1e6
+    record[f"k{number}_detail"].append(row)
+    record[f"k{number}_max_abs_err"] = worst
+    print(f"  K{number} {B} slots x {n} rows{f', W={w}' if verify else ''}: "
+          f"{row['ms']:.4f} ms (bound {b:.4f} by {by}, plain "
+          f"{row['plain_ms']:.3f}, sdpa on the gathered dense cache "
+          f"{row['library_ms']:.4f}) [{row['gb_s']:.0f} GB/s]")
+    print(f"K{number} ok: {len(cases)} cases (LLaMA-2-7B and Mistral-7B "
+          f"layers, window 4096, pages of 128 and 16 rows, shared and "
+          f"shuffled pages, two inactive slots), pools equal to the plain "
+          f"version's, max rel err {worst_rel:.3g} within {TOL_ATTN}, max "
+          f"abs err {worst:.3g}")
+
+
+def paged_requests(config):
+    """The 16 requests: eight share a 256-token prefix (two full pages),
+    four of 100 and four of 37 tokens. Two prefix requests stand in the
+    first eight, so that the other six meet registered pages."""
+    import numpy as np
+
+    rng = np.random.default_rng(31)
+
+    def toks(n):
+        return rng.integers(0, config.vocab_size, n).tolist()
+
+    prefix = toks(PAGED_PREFIX)
+    shared = [prefix + toks(PAGED_SUFFIX) for _ in range(8)]
+    mid = [toks(PAGED_LENS[0]) for _ in range(4)]
+    short = [toks(PAGED_LENS[1]) for _ in range(4)]
+    return (shared[:2] + mid[:3] + short[:3]
+            + shared[2:] + mid[3:] + short[3:])
+
+
+def serve_in_order(eng, prompts, order, sampling):
+    """Serve `prompts` admitted in `order`, each under its index as request
+    id, by single steps; tokens by request id."""
+    pending, out = list(order), {}
+    while pending or eng.free_slots() < eng.n_slots:
+        while pending and eng.free_slots():
+            j = pending.pop(0)
+            eng.add_request(prompts[j], NEW_TOKENS, sampling=sampling, _rid=j)
+        for rid, r in eng.step().items():
+            if r["done"]:
+                out[rid] = r["tokens"]
+    return out
+
+
+def run_with_known_drafts(torch, eng, prompts, tokens):
+    """`eng.run` over `prompts` with the prompt lookup replaced by drafts
+    that are each request's known continuation `tokens` (by request id;
+    zeros beyond its end): a teacher-forced speculation, in which a right
+    engine accepts every draft. The random model continues no pattern, so
+    its own lookups are never accepted."""
+    from squeezellm_tpu_torch import serving
+
+    K = eng.speculative[0]
+    dev = eng.device
+    known = torch.zeros(len(prompts), max(map(len, prompts)) + NEW_TOKENS + K,
+                        dtype=torch.long, device=dev)
+    for r, p in enumerate(prompts):
+        row = list(p) + list(tokens[r])
+        known[r, : len(row)] = torch.tensor(row, device=dev)
+
+    def drafts(ctx, pos, draft_len, ngram):
+        rid = torch.tensor([max(s.request_id, 0) for s in eng._slots],
+                           device=dev)
+        at = (pos.clamp(min=0)[:, None] + 1
+              + torch.arange(draft_len, device=dev))
+        return known[rid[:, None], at.clamp(max=known.shape[1] - 1)]
+
+    lookup = serving._prompt_lookup_draft
+    serving._prompt_lookup_draft = drafts
+    try:
+        return eng.run(prompts, max_new_tokens=NEW_TOKENS)
+    finally:
+        serving._prompt_lookup_draft = lookup
+
+
+def paged_layer_check(torch, model, dtype, mode, cache_dtype):
+    """A paged regime one layer at a time, as layer_check holds the dense
+    ones: two 5-token verify windows and 8 decode steps over a small pool
+    (8 slots, two of them inactive), every layer fed the plain path's input
+    and a copy of the plain path's pool; kernels vs plain, max |d| / max
+    |out|."""
+    import dataclasses
+
+    from squeezellm_tpu_torch.models import common
+
+    c, dev = model.config, model.device
+    B, W = PAGED_SLOTS, SPECULATIVE[0] + 1
+    gen = torch.Generator(device=dev).manual_seed(41)
+    pools = common.init_paged_pool(c.n_layers, B + 1, PAGE_SIZE, c.n_kv_heads,
+                                   c.head_dim, cache_dtype, dev)
+    pt = torch.arange(1, B + 1, dtype=torch.int32, device=dev)[:, None]
+    pt[-2:] = 0
+    caches = [dict(p, pt=pt.contiguous()) for p in pools]
+    pos = torch.zeros(B, dtype=torch.long, device=dev)
+    pos[-2:] = -1
+    res = {"window": [], "decode": []}
+    with torch.no_grad():
+        for i in range(2 + 8):
+            w = W if i < 2 else 1
+            tok = torch.randint(0, c.vocab_size, (B, w), generator=gen,
+                                device=dev)
+            if i < 2:
+                at = pos[:, None] + torch.arange(w, device=dev)
+                plain = model._step(dtype, mode, True, window_pos=at,
+                                    cache=caches)
+            else:
+                plain = model._step(dtype, mode, True, decode_pos=pos,
+                                    cache=caches)
+            kern = dataclasses.replace(plain, plain=False)
+            x = model.embed[tok].to(dtype)
+            for layer, lc in zip(model.layers, caches):
+                copy = {n: (t if n == "pt" else t.clone())
+                        for n, t in lc.items()}
+                got = layer(x, kern, copy)
+                want = layer(x, plain, lc)
+                if not torch.isfinite(got).all():
+                    raise AssertionError("paged_layer_check: not finite")
+                res["window" if i < 2 else "decode"].append(
+                    rel_err(got[:-2], want[:-2]))
+                x = want
+            pos = torch.where(pos < 0, pos, pos + w)
+    return res
+
+
+def profile_paged_step(torch, eng, prompts, steps=8):
+    """Wall and device time of one decode step at 8 active slots: admit
+    eight requests, warm up, then time `steps` single steps (each ends in
+    its own sync) and one window of `steps` steps (one sync), in the order
+    steps, window, window, steps, on the host clock; then trace `steps`
+    single steps."""
+    eng.add_requests(prompts[:PAGED_SLOTS], 6 * steps)
+    for _ in range(3):
+        eng.step()
+
+    def single():
+        for _ in range(steps):
+            eng.step()
+
+    def timed_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / steps * 1e3
+
+    def window():
+        eng.step_window(steps)
+
+    reads = [timed_ms(fn) for fn in (single, window, window, single)]
+    step_ms = (reads[0] + reads[3]) / 2
+    window_ms = (reads[1] + reads[2]) / 2
+    by_name, why = device_ms_by_kernel(torch, single)
+    for s in list(eng._slots):
+        if s.active:
+            eng.cancel(s.request_id)
+    res = {"step_ms": step_ms, "window_step_ms": window_ms,
+           "host_reads_ms": reads, "profile_failed": why}
+    if by_name is not None:
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+        device = sum(by_name.values()) / steps
+        res.update(device_ms_per_step=device,
+                   idle_share=1 - device / step_ms,
+                   top_ms_per_step=[[k[:60], v / steps] for k, v in top])
+    return res
+
+
+def run_paged(torch, config, record, smi):
+    """PagedContinuousBatchEngine on LLaMA-2-7B w4 at full width and depth:
+    8 slots over 160 pages of 128 rows."""
+    from squeezellm_tpu_torch import serving, synthetic
+    from squeezellm_tpu_torch.models import fuse
+    from squeezellm_tpu_torch.sampling import SamplingParams
+
+    L = config.n_layers
+    k1_call = 4 * L + 1
+    model = fuse.fuse_for_decode(synthetic.quantized_llama(config, 4, seed=4))
+    prompts = paged_requests(config)
+    n_new = len(prompts) * NEW_TOKENS
+    unshared = sum(-(-(len(p) + NEW_TOKENS + SPECULATIVE[0] + 1) // PAGE_SIZE)
+                   for p in prompts)
+    res = {"runs": {}, "unshared_pages": unshared}
+
+    def engine(**kw):
+        kw.setdefault("cache_dtype", torch.float32)
+        return serving.PagedContinuousBatchEngine(
+            model, slots=PAGED_SLOTS, n_pages=PAGED_PAGES,
+            page_size=PAGE_SIZE, max_seq=PAGED_MAX_SEQ, **kw)
+
+    def timed(label, eng, serve, paged_kernels=(5, 7)):
+        """One run of the 16 requests: tokens by request id. Holds the
+        launch counts to the engine's own count of model calls, the pages
+        to the pool's books."""
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = serve(eng)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        st = eng.stats
+        want = [0] * 9
+        if not eng.plain:
+            want[0] = k1_call * (st["prefills"] + st["decode_steps"]
+                                 + st["spec_windows"])
+            want[2] = L * st["prefills"]
+            want[paged_kernels[0]] = L * st["decode_steps"]
+            want[paged_kernels[1]] = L * st["spec_windows"]
+        launches = expect_counts(record, f"paged {label}", want)
+        pool = eng.pool
+        cached = set(pool._registry.values())
+        if (sorted(out) != list(range(len(prompts)))
+                or any(len(t) != NEW_TOKENS for t in out.values())
+                or pool.pages_in_use() != 0
+                or len(set(pool._free) | cached) != PAGED_PAGES
+                or pool.allocated >= unshared):
+            raise AssertionError(
+                f"paged {label}: requests {sorted(out)}, pages in use "
+                f"{pool.pages_in_use()}, free {len(pool._free)}, cached "
+                f"{len(cached)}, allocated {pool.allocated} (unshared "
+                f"{unshared})")
+        res["runs"][label] = dict(
+            seconds=secs, tok_s=n_new / secs, launches=launches, stats=st,
+            pages_allocated=pool.allocated)
+        acc = (f", accept rate {st['accepted'] / max(st['drafted'], 1):.3f} "
+               f"({st['accepted']} of {st['drafted']} drafts, "
+               f"{st['spec_windows']} windows)" if st["spec_windows"] else "")
+        print(f"paged {label}: {n_new} tokens in {secs:.2f} s, "
+              f"{n_new / secs:.1f} generated tok/s{acc}; {st['prefills']} "
+              f"prefills, {st['decode_steps']} decode steps; pages "
+              f"allocated {pool.allocated} (unshared {unshared}), all free "
+              f"or cached again; launches K1..K9 {launches} [{smi}]")
+        return out
+
+    def run(eng, **kw):
+        return eng.run(prompts, max_new_tokens=NEW_TOKENS, **kw)
+
+    # (i) f32, greedy: single steps, windows of 8, speculation, the plain path
+    torch.cuda.reset_peak_memory_stats()
+    step = timed("f32 step", engine(), run)
+    res["peak_mib_f32_pool"] = torch.cuda.max_memory_allocated() / 2**20
+    window = timed("f32 step_window(8)", engine(),
+                   lambda e: run(e, window=8))
+    spec = timed(f"f32 speculative={SPECULATIVE}",
+                 engine(speculative=SPECULATIVE), run)
+    plain = timed("f32 step, plain", engine(plain=True), run)
+    for label, got in (("step_window(8)", window), ("speculative", spec),
+                       ("plain", plain)):
+        if got != step:
+            bad = [r for r in step if got[r] != step[r]]
+            raise AssertionError(
+                f"paged f32 greedy: {label} differs from step in requests "
+                f"{bad}: {[(got[r], step[r]) for r in bad[:2]]}")
+    res["tokens"] = step
+    print(f"paged f32 greedy: step, step_window(8), speculative and the "
+          f"plain path give the same {NEW_TOKENS} tokens for each of the "
+          f"{len(prompts)} requests")
+
+    # (i') speculation that accepts: the drafts are the step run's own
+    # tokens, so every window must accept all it was offered, advance by
+    # that many rows, and decode on from the rows its K8 launches wrote
+    K = SPECULATIVE[0]
+    eng = engine(speculative=SPECULATIVE)
+    forced = timed(f"f32 speculative={SPECULATIVE}, drafts from the step "
+                   f"run", eng,
+                   lambda e: run_with_known_drafts(torch, e, prompts, step))
+    full, rest = divmod(NEW_TOKENS, K + 1)
+    want_drafted = len(prompts) * K * (full + bool(rest))
+    want_accepted = len(prompts) * (full * K + rest)
+    st = eng.stats
+    if (forced != step or st["drafted"] != want_drafted
+            or st["accepted"] < want_accepted):
+        bad = [r for r in step if forced[r] != step[r]]
+        raise AssertionError(
+            f"paged f32 speculation with known drafts: requests {bad} "
+            f"differ from step; drafted {st['drafted']} (want "
+            f"{want_drafted}), accepted {st['accepted']} (want at least "
+            f"{want_accepted})")
+    print(f"paged f32 speculation with the step run's tokens as drafts: "
+          f"{st['accepted']} of {st['drafted']} accepted (every draft that "
+          f"a request still needed), {full + bool(rest)} windows a request, "
+          f"the same tokens as step")
+    del eng  # its f32 pool must not stand in the later regimes' peaks
+
+    # (ii) f32, sampled: repeated, and admitted in another order
+    sp = SamplingParams(temperature=0.8, top_k=40, top_p=0.95)
+    order = list(range(len(prompts)))
+    a = timed("f32 sampled", engine(seed=5), lambda e: run(e, sampling=sp))
+    b = timed("f32 sampled, repeated", engine(seed=5),
+              lambda e: run(e, sampling=sp, window=8))
+    c = timed("f32 sampled, admitted in reverse", engine(seed=5),
+              lambda e: serve_in_order(e, prompts, order[::-1], sp))
+    if not (a == b == c) or a == step:
+        raise AssertionError(
+            f"paged sampled: repeated equal {a == b}, reverse admission "
+            f"equal {a == c}, equal to greedy {a == step}")
+    print("paged f32 sampled (temperature 0.8, top-k 40, top-p 0.95): the "
+          "same tokens when repeated in windows of 8 and when admitted in "
+          "reverse order, other than greedy's")
+    prof = profile_paged_step(torch, engine(), prompts)
+    res["profile_f32"] = prof
+
+    # (iii) the bf16 regime and the int8 pool: per layer against the plain
+    # path; full-depth token agreement reported only
+    regimes = (("bf16", torch.bfloat16, "bf16", torch.bfloat16,
+                TOL_LAYER_BF16, (5, 7)),
+               ("int8 pool", torch.float32, "exact", "int8", TOL_LAYER_INT8,
+                (6, 8)))
+    for label, dtype, mode, cache_dtype, limit, kernels in regimes:
+        kw = dict(dtype=dtype, mode=mode, cache_dtype=cache_dtype)
+        torch.cuda.reset_peak_memory_stats()
+        got = timed(f"{label} step_window(8)", engine(**kw),
+                    lambda e: run(e, window=8), kernels)
+        res[f"peak_mib_{label}"] = torch.cuda.max_memory_allocated() / 2**20
+        got_spec = timed(f"{label} speculative={SPECULATIVE}",
+                         engine(speculative=SPECULATIVE, **kw), run, kernels)
+        ref = timed(f"{label} step_window(8), plain",
+                    engine(plain=True, **kw), lambda e: run(e, window=8),
+                    kernels)
+        lc = paged_layer_check(torch, model, dtype, mode, cache_dtype)
+        worst = {k: max(v) for k, v in lc.items()}
+        agree = [sum(int(x == y) for x, y in zip(got[r], ref[r]))
+                 for r in sorted(ref)]
+        lead = [next((i for i, (x, y) in enumerate(zip(got[r], ref[r]))
+                      if x != y), NEW_TOKENS) for r in sorted(ref)]
+        spec_same = sum(got_spec[r] == got[r] for r in got)
+        res[label] = dict(layer_check=lc, tokens_equal_plain=agree,
+                          leading_tokens_equal_plain=lead,
+                          speculative_requests_equal=spec_same)
+        if max(worst.values()) > limit:
+            raise AssertionError(f"paged {label}: per layer kernels vs "
+                                 f"plain {worst} above {limit}")
+        print(f"paged {label} per layer (verify window, decode): kernels vs "
+              f"plain max {worst['window']:.3g}, {worst['decode']:.3g} "
+              f"(limit {limit:.3g}); full depth (reported, not held): "
+              f"{sum(agree)} of {n_new} tokens equal the plain path's, "
+              f"leading tokens equal per request min {min(lead)} median "
+              f"{sorted(lead)[len(lead) // 2]}; speculative equals windows "
+              f"in {spec_same} of {len(got)} requests")
+        if label == "bf16":
+            res["profile_bf16"] = profile_paged_step(torch, engine(**kw),
+                                                     prompts)
+    for label in ("f32", "bf16"):
+        prof = res[f"profile_{label}"]
+        if prof["profile_failed"]:
+            record["profile_failed"].append(f"paged {label}")
+            print(f"paged {label} step at 8 slots: {prof['step_ms']:.2f} ms "
+                  f"on the host clock ({prof['window_step_ms']:.2f} in a "
+                  f"window of 8); PROFILE FAILED, device time not "
+                  f"measured: {prof['profile_failed']} [{smi}]")
+        else:
+            print(f"paged {label} step at 8 slots: {prof['step_ms']:.2f} ms "
+                  f"on the host clock ({prof['window_step_ms']:.2f} in a "
+                  f"window of 8; reads step, window, window, step "
+                  f"{[round(r, 2) for r in prof['host_reads_ms']]}), "
+                  f"device busy "
+                  f"{prof['device_ms_per_step']:.3f} ms (idle share "
+                  f"{prof['idle_share']:.3f}); top: " + "; ".join(
+                      f"{k} {v:.3f}" for k, v in prof["top_ms_per_step"])
+                  + f" [{smi}]")
+    print(f"paged peak MiB: f32 pool {res['peak_mib_f32_pool']:.0f}, bf16 "
+          f"pool {res['peak_mib_bf16']:.0f}, int8 pool "
+          f"{res['peak_mib_int8 pool']:.0f} [{smi}]")
+    record["paged"] = res
 
 
 def run_opt(torch, record):
@@ -1037,7 +1575,7 @@ def run_opt(torch, record):
                              f"tokens {ref}")
     res["tokens"] = got[0, OPT_PROMPT:].tolist()
     print(f"opt-6.7b w4 request (prompt {OPT_PROMPT}, {NEW_TOKENS} new "
-          f"tokens, f32) identical to the plain path; launches K1..K5 "
+          f"tokens, f32) identical to the plain path; launches K1..K9 "
           f"{res['launches']}, all {ropeless} K2 launches without rope")
     record["opt"] = res
 
@@ -1085,9 +1623,12 @@ def kernel_lines(record):
     k4 = next(r for r in record["k4_detail"] if r["shape"] == "gateup"
               and r["bits"] == 4 and r["mode"] == "bf16")
     k5 = next(r for r in record["k5_detail"] if r["n"] == 128)
+    k6, k7, k8, k9 = (record[f"k{n}_detail"][0] for n in (6, 7, 8, 9))
     # every path's run: counts set to 0 just before it, read just after
     launches = [sum(p["launches"][i] for p in record["paths"])
-                for i in range(5)]
+                for i in range(9)]
+    paged_at = (f"LLaMA-2-7B layer, {PAGED_SLOTS} slots x {PAGED_AT_ROWS} "
+                f"valid rows, {PAGE_SIZE}-row pages, ")
     rows = [
         ("lut_matmul", "squeezellm_tpu_torch/csrc/lut_matmul.cu",
          "squeezellm_tpu/ops/pallas_ops.py:252 (+ :208 _lut_matmul_kernel, "
@@ -1109,6 +1650,20 @@ def kernel_lines(record):
          "squeezellm_tpu/ops/decode_attn.py:386", launches[4],
          record["k5_max_abs_err"], k5,
          "LLaMA-2-7B layer, B=1, 128 valid rows of a 2048-row int8 cache"),
+        ("paged_decode_attention", "squeezellm_tpu_torch/csrc/paged_attn.cu",
+         "squeezellm_tpu/ops/paged_attn.py:74", launches[5],
+         record["k6_max_abs_err"], k6, paged_at + "bf16 pool"),
+        ("paged_decode_attention_q8",
+         "squeezellm_tpu_torch/csrc/paged_attn.cu",
+         "squeezellm_tpu/ops/paged_attn.py:202", launches[6],
+         record["k7_max_abs_err"], k7, paged_at + "int8 pool"),
+        ("paged_verify_attention", "squeezellm_tpu_torch/csrc/paged_attn.cu",
+         "squeezellm_tpu/ops/paged_attn.py:589", launches[7],
+         record["k8_max_abs_err"], k8, paged_at + "bf16 pool, W=5"),
+        ("paged_verify_attention_q8",
+         "squeezellm_tpu_torch/csrc/paged_attn.cu",
+         "squeezellm_tpu/ops/paged_attn.py:715", launches[8],
+         record["k9_max_abs_err"], k9, paged_at + "int8 pool, W=5"),
     ]
     return {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -1139,6 +1694,8 @@ def main():
     record = {"card": smi, "torch": torch.__version__,
               "cuda": torch.version.cuda, "k1_detail": [], "k2_detail": [],
               "k3_detail": [], "k4_detail": [], "k5_detail": [],
+              "k6_detail": [], "k7_detail": [], "k8_detail": [],
+              "k9_detail": [],
               "k1_bf16_flips": [], "k1_per_decode_step": [],
               "k4_per_forward": [], "models": [], "paths": [],
               "profile_failed": [], "failed": []}
@@ -1156,9 +1713,13 @@ def main():
               ("K3", lambda: check_k3(torch, timer, record)),
               ("K4", lambda: check_k4(torch, timer, record)),
               ("K5", lambda: check_k5(torch, timer, record))]
+    phases += [(f"K{n}", lambda n=n: check_paged(torch, timer, record, n))
+               for n in (6, 7, 8, 9)]
     phases += [(f"model w{b}", lambda b=b: run_model(torch, config, b, record))
                for b in (4, 3)]
-    phases += [("opt-6.7b w4", lambda: run_opt(torch, record)),
+    phases += [("paged serving",
+                lambda: run_paged(torch, config, record, smi)),
+               ("opt-6.7b w4", lambda: run_opt(torch, record)),
                ("dense bf16", lambda: run_dense(torch, config, record))]
     for name, fn in phases:
         t0 = time.perf_counter()

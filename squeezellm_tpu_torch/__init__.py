@@ -11,10 +11,15 @@ Layer map:
   checkpoint    reads the shared checkpoint format
   carry         JAX parameter tree -> the port's model
   ops           K1 lut_matmul, K2/K5 decode_attn (bf16 and int8 cache), K3
-                flash_attn, K4 dequant_dense (each a CUDA kernel with its
-                plain PyTorch version), kv_quant, plain_ops, quant_linear
+                flash_attn, K4 dequant_dense, K6-K9 paged_attn (decode and
+                verify window through a page table, bf16 and int8 pool;
+                each a CUDA kernel with its plain PyTorch version),
+                kv_quant, plain_ops, quant_linear
   models        LLaMA-family and OPT decoders, decode-time fusion, registry
   engine        prefill + greedy decode, decode benchmark
+  serving       paged continuous batching: page pool, prefix sharing,
+                decode windows, prompt-lookup speculation
+  sampling      per-request temperature / top-k / top-p on the device
   eval          perplexity (GPTQ stride protocol)
   cli           ``python -m squeezellm_tpu_torch eval|benchmark|generate``
   synthetic     random flagship models made on the device

@@ -5,6 +5,8 @@ One code path for the checkpoint loader and the tests. The COO sparse
 sidecar becomes CSR: entries with ``vals == 0`` are dropped (the padding
 points at row 0 at the end of the array), the rest sorted stably by row.
 SpMV slot plans and other TPU-side derived arrays in the tree are not read.
+``pools_from_jax`` carries a JAX ``PagedKVPool``'s page pools across the
+same way.
 """
 
 from __future__ import annotations
@@ -152,3 +154,20 @@ def from_tree(model_type: str, config_dict: Dict[str, Any],
                        norm(params_np["final_norm"]), lm_head)
     return mod.Llama(config, embed, layers,
                      to_tensor(params_np["final_norm"], device), lm_head)
+
+
+def pools_from_jax(pools_np, n_kv_heads: int, device="cuda"):
+    """A JAX ``PagedKVPool.pools`` list (numpy arrays: per layer 'pk'/'pv'
+    (P, ps, Hkv*hd) and, for an int8 pool, the scale sidecars 'sk'/'sv'
+    (P, HkvP, ps) with the head rows padded to 8) -> the port's pool
+    tensors: the same pages, the sidecars cut to their ``n_kv_heads`` live
+    rows."""
+    out = []
+    for layer in pools_np:
+        d = {name: to_tensor(layer[name], device) for name in ("pk", "pv")}
+        for name in ("sk", "sv"):
+            if name in layer:
+                d[name] = to_tensor(
+                    np.asarray(layer[name])[:, :n_kv_heads], device)
+        out.append(d)
+    return out

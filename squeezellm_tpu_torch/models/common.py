@@ -217,15 +217,42 @@ def decode_mask(max_seq: int, pos: torch.Tensor,
 
 
 def write_kv_rows(cache: Dict[str, torch.Tensor], k: torch.Tensor,
-                  v: torch.Tensor) -> None:
-    """Prefill: write k/v (B, s, H_kv, D) into rows [0, s), in place, cast
-    to the cache dtype; an int8 cache quantizes each row at insert."""
+                  v: torch.Tensor, start: int = 0) -> None:
+    """Prefill: write k/v (B, s, H_kv, D) into rows [start, start + s), in
+    place, cast to the cache dtype; an int8 cache quantizes each row at
+    insert."""
     b, s = k.shape[:2]
     for name, new in (("k", k), ("v", v)):
         if "ks" in cache:
             new, scale = kv_quant.quantize_rows(new)
-            cache[name + "s"][:, :, :s] = scale[..., 0].transpose(1, 2)
-        cache[name][:, :s] = new.reshape(b, s, -1)
+            cache[name + "s"][:, :, start: start + s] = (
+                scale[..., 0].transpose(1, 2))
+        cache[name][:, start: start + s] = new.reshape(b, s, -1)
+
+
+def init_paged_pool(n_layers: int, n_pages: int, page_size: int,
+                    n_kv_heads: int, head_dim: int, dtype=torch.bfloat16,
+                    device="cuda") -> List[Dict[str, torch.Tensor]]:
+    """Per-layer list of page pools {'pk', 'pv'} of shape
+    (n_pages, page_size, H_kv * D): TOKEN-major pages, one page id spanning
+    all layers. A model call reads the page table (B, maxp) int32 from the
+    key 'pt' that the caller adds to each layer's dict.
+
+    dtype "int8" (or torch.int8): int8 codes plus the sidecars 'sk'/'sv',
+    one f32 scale per (page, kv head, token), stored
+    (n_pages, H_kv, page_size). (The JAX package pads the head axis to 8
+    rows for the TPU's f32 tile; the port stores exactly H_kv.)"""
+    shape = (n_pages, page_size, n_kv_heads * head_dim)
+    if is_int8(dtype):
+        side = (n_pages, n_kv_heads, page_size)
+        return [{"pk": torch.zeros(shape, dtype=torch.int8, device=device),
+                 "pv": torch.zeros(shape, dtype=torch.int8, device=device),
+                 "sk": torch.zeros(side, dtype=torch.float32, device=device),
+                 "sv": torch.zeros(side, dtype=torch.float32, device=device)}
+                for _ in range(n_layers)]
+    return [{"pk": torch.zeros(shape, dtype=dtype, device=device),
+             "pv": torch.zeros(shape, dtype=dtype, device=device)}
+            for _ in range(n_layers)]
 
 
 def update_kv_cache(cache: Dict[str, torch.Tensor], k_new: torch.Tensor,

@@ -1,12 +1,14 @@
 """LLaMA-family decoder (LLaMA 1/2, Vicuna, Mistral, XGen) in PyTorch.
 
 The counterpart of the JAX package's ``models/llama.py`` for one device:
-GQA, optional sliding window, a token-major KV cache (f32, bf16 or int8).
-Decode attention goes through K2, or K5 over an int8 cache
-(``ops/decode_attn``); prefill and full-sequence attention through K3
-(``ops/flash_attn``) for every prompt length; every quantized linear
-through K1 (``ops/lut_matmul``) below 1024 rows and K4
-(``ops/dequant_dense``) from there. ``plain=True`` runs each kernel's
+GQA, optional sliding window, a token-major KV cache (f32, bf16 or int8),
+dense or a shared page pool. Decode attention goes through K2, or K5 over
+an int8 cache (``ops/decode_attn``); over a page pool decode goes through
+K6/K7 and a speculative verify window through K8/K9 (``ops/paged_attn``);
+prefill and full-sequence attention through K3 (``ops/flash_attn``) for
+every prompt length; every quantized linear through K1
+(``ops/lut_matmul``) below 1024 rows and K4 (``ops/dequant_dense``) from
+there. ``plain=True`` runs each kernel's
 plain PyTorch version instead, whatever the device: the reference the
 kernels are held against on the card.
 """
@@ -21,7 +23,7 @@ from torch import nn
 
 from squeezellm_tpu_torch.models import common
 from squeezellm_tpu_torch.models.common import Linear
-from squeezellm_tpu_torch.ops import decode_attn, flash_attn
+from squeezellm_tpu_torch.ops import decode_attn, flash_attn, paged_attn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,10 +86,28 @@ class Step:
     plain: bool
     cos: Optional[torch.Tensor] = None  # (S, hd) in dtype
     sin: Optional[torch.Tensor] = None
-    # decode (one token per slot, with a cache): K2/K5 operands
+    start: int = 0  # prefill: position of the first token
+    # decode (one token per slot, with a cache): K2/K5/K6/K7 operands
     lengths: Optional[torch.Tensor] = None  # (B,) int32
-    rope_cos: Optional[torch.Tensor] = None  # (B, hd) f32
-    rope_sin: Optional[torch.Tensor] = None
+    rope_cos: Optional[torch.Tensor] = None  # (B, hd) f32; (B, W, hd)
+    rope_sin: Optional[torch.Tensor] = None  # for a verify window
+    # a verify window per slot over a page pool: K8/K9 operand
+    starts: Optional[torch.Tensor] = None  # (B,) int32, < 0: inactive
+    # a page pool's table, shared by every layer
+    page_table: Optional[torch.Tensor] = None  # (B, maxp) int32
+
+
+# (one token per slot, int8 pool) -> (kernel wrapper, plain version)
+_PAGED_ATTN = {
+    (True, False): (paged_attn.paged_decode_attention,
+                    paged_attn.paged_decode_attention_plain),
+    (True, True): (paged_attn.paged_decode_attention_q8,
+                   paged_attn.paged_decode_attention_q8_plain),
+    (False, False): (paged_attn.paged_verify_attention,
+                     paged_attn.paged_verify_attention_plain),
+    (False, True): (paged_attn.paged_verify_attention_q8,
+                    paged_attn.paged_verify_attention_q8_plain),
+}
 
 
 class AttnBlock(nn.Module):
@@ -119,7 +139,26 @@ class AttnBlock(nn.Module):
         k = k.reshape(b, s, nkv, hd)
         v = v.reshape(b, s, nkv, hd)
 
-        if step.lengths is not None:
+        if cache is not None and "pk" in cache:
+            # a page pool: rope + pool write + attention through the page
+            # table in one launch. One token per slot: K6, K7 over an int8
+            # pool; a window per slot: K8, K9. q, k and v go in head-major
+            # (views of the projection, no copy) and pre-rope.
+            q8, decode = "sk" in cache, step.starts is None
+            attend = _PAGED_ATTN[decode, q8][step.plain]
+            names = ("pk", "pv", "sk", "sv") if q8 else ("pk", "pv")
+            qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+            if decode:
+                qh, kh, vh = qh[:, :, 0], kh[:, :, 0], vh[:, :, 0]
+            out = attend(
+                qh, kh, vh, *(cache[n] for n in names), step.page_table,
+                step.lengths if decode else step.starts,
+                sliding_window=cfg.sliding_window, rope_cos=step.rope_cos,
+                rope_sin=step.rope_sin)
+            if not decode:
+                out = out.transpose(1, 2)  # (B, W, H, hd)
+            out = out.to(step.dtype).reshape(b, s, nh * hd)
+        elif step.lengths is not None:
             # decode: rope + cache write + attention in one launch, K5
             # over an int8 cache and K2 otherwise
             if "ks" in cache:
@@ -140,10 +179,11 @@ class AttnBlock(nn.Module):
                 q = common.apply_rope_tm(q, step.cos, step.sin)
                 k = common.apply_rope_tm(k, step.cos, step.sin)
             if cache is not None:
-                # prefill writes rows [0, s) (an int8 cache quantizes them
-                # at insert), then attends the cache as it holds them: the
-                # history decode will read
-                common.write_kv_rows(cache, k, v)
+                # prefill writes rows [start, start + s) (an int8 cache
+                # quantizes them at insert), then attends the cache as it
+                # holds them, the rows before start included: the history
+                # decode will read
+                common.write_kv_rows(cache, k, v, step.start)
                 kh, vh = common.read_kv(cache, step.dtype, nkv)
             else:
                 if k.stride() != v.stride():
@@ -154,7 +194,7 @@ class AttnBlock(nn.Module):
                 kh, vh = k.transpose(1, 2), v.transpose(1, 2)
             attend = (flash_attn.flash_attention_plain if step.plain
                       else flash_attn.flash_attention)
-            out = attend(q.transpose(1, 2), kh, vh, 0,
+            out = attend(q.transpose(1, 2), kh, vh, step.start,
                          sliding_window=cfg.sliding_window)
             out = out.to(step.dtype).transpose(1, 2).reshape(b, s, nh * hd)
         return self.proj["o"](out, y0=residual, **lin)
@@ -233,23 +273,33 @@ class Llama(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
-    def _step(self, dtype, mode, plain, *, positions=None,
-              decode_pos=None) -> Step:
-        """Per-call state: rope cos/sin at ``positions``, or for a decode
-        step at ``decode_pos`` (B,) K2's operands, shared by every layer:
+    def _step(self, dtype, mode, plain, *, positions=None, start: int = 0,
+              decode_pos=None, window_pos=None, cache=None) -> Step:
+        """Per-call state, shared by every layer: rope cos/sin at
+        ``positions`` (``start + arange(s)`` for a prefill); or for a decode
+        step at ``decode_pos`` (B,) the attention kernel's operands:
         lengths and the rope rows (the rope_cos_sin values in dtype, as
-        f32)."""
+        f32); or for a W-token window from ``window_pos`` (B,) the starts
+        and the (B, W, hd) rope rows. A page pool's table is read from the
+        first layer's cache."""
         cfg = self.config
         step = Step(dtype=dtype, mode=mode, plain=plain)
-        if decode_pos is not None:
-            cos, sin = common.rope_cos_sin(decode_pos, cfg.head_dim,
-                                           cfg.rope_theta, dtype)
-            step.lengths = (decode_pos + 1).to(torch.int32)
+        if cache is not None and "pk" in cache[0]:
+            step.page_table = cache[0]["pt"]
+        if decode_pos is not None or window_pos is not None:
+            at = decode_pos if window_pos is None else window_pos
+            cos, sin = common.rope_cos_sin(at, cfg.head_dim, cfg.rope_theta,
+                                           dtype)
+            if window_pos is None:
+                step.lengths = (decode_pos + 1).to(torch.int32)
+            else:
+                step.starts = window_pos[:, 0].to(torch.int32)
             step.rope_cos = cos.float().contiguous()
             step.rope_sin = sin.float().contiguous()
         else:
             step.cos, step.sin = common.rope_cos_sin(
                 positions, cfg.head_dim, cfg.rope_theta, dtype)
+            step.start = start
         return step
 
     def _finish(self, x, step: Step):
@@ -268,34 +318,64 @@ class Llama(nn.Module):
         return self._finish(x, step)
 
     def prefill(self, tokens: torch.Tensor, cache, *, dtype=torch.float32,
-                mode: str = "exact", plain: bool = False) -> torch.Tensor:
-        """Process the prompt from position 0 and fill the cache (in
-        place); returns the last token's logits (B, 1, V) f32."""
+                mode: str = "exact", plain: bool = False, start: int = 0,
+                all_logits: bool = False) -> torch.Tensor:
+        """Process the prompt and fill the cache (in place); returns the
+        last token's logits (B, 1, V) f32, or every position's (B, S, V)
+        with ``all_logits``.
+
+        start: position of ``tokens[:, 0]``. A continuation prefill (the
+        cache already holds rows [0, start)) attends the cached prefix
+        through the offset causal mask."""
         b, s = tokens.shape
         x = self.embed[tokens].to(dtype)
         if s == 1:
-            # a one-token prompt is a decode step at position 0
+            # a one-token prompt is a decode step at position start
             step = self._step(dtype, mode, plain,
-                              decode_pos=torch.zeros(b, dtype=torch.long,
-                                                     device=self.device))
+                              decode_pos=torch.full((b,), start,
+                                                    dtype=torch.long,
+                                                    device=self.device))
         else:
-            step = self._step(dtype, mode, plain,
-                              positions=torch.arange(s, device=self.device))
+            step = self._step(
+                dtype, mode, plain, start=start,
+                positions=start + torch.arange(s, device=self.device))
         for layer, layer_cache in zip(self.layers, cache):
             x = layer(x, step, layer_cache)
-        return self._finish(x[:, -1:], step)
+        return self._finish(x if all_logits else x[:, -1:], step)
+
+    def verify_window(self, tokens: torch.Tensor, pos: torch.Tensor, cache,
+                      *, dtype=torch.float32, mode: str = "exact",
+                      plain: bool = False) -> torch.Tensor:
+        """A speculative verify window per slot over a page pool: tokens
+        (B, W), slot b's window starting at its own position pos[b] (< 0:
+        an inactive slot, which writes nothing). Writes the W rows through
+        the page table and returns the logits of every window position
+        (B, W, V) f32."""
+        if "pk" not in cache[0]:
+            raise NotImplementedError(
+                "verify_window over a dense cache comes with the dense-slot "
+                "serving slice of the port; this one takes a page pool")
+        w = tokens.shape[1]
+        positions = pos.reshape(-1, 1) + torch.arange(w, device=self.device)
+        x = self.embed[tokens].to(dtype)
+        step = self._step(dtype, mode, plain, window_pos=positions,
+                          cache=cache)
+        for layer, layer_cache in zip(self.layers, cache):
+            x = layer(x, step, layer_cache)
+        return self._finish(x, step)
 
     def decode_step(self, token: torch.Tensor, pos, cache, *,
                     dtype=torch.float32, mode: str = "exact",
                     plain: bool = False) -> torch.Tensor:
         """One decode step. token (B, 1); pos: int or (B,) tensor, the
-        0-based position of this token. Updates the cache in place and
-        returns logits (B, 1, V) f32."""
+        0-based position of this token (over a page pool -1 marks an
+        inactive slot, which writes nothing). Updates the cache in place
+        and returns logits (B, 1, V) f32."""
         b = token.shape[0]
         pos_t = (torch.full((b,), pos, device=self.device)
                  if isinstance(pos, int) else pos.reshape(-1))
         x = self.embed[token].to(dtype)
-        step = self._step(dtype, mode, plain, decode_pos=pos_t)
+        step = self._step(dtype, mode, plain, decode_pos=pos_t, cache=cache)
         for layer, layer_cache in zip(self.layers, cache):
             x = layer(x, step, layer_cache)
         return self._finish(x, step)

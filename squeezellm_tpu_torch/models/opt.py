@@ -4,8 +4,9 @@ The counterpart of the JAX package's ``models/opt.py`` for one device:
 pre-LN layers, learned positional embeddings (HF offset +2), a ReLU MLP,
 biases on all six linears, none on the lm_head. No rope, no GQA, no
 sliding window: the attention block is the LLaMA one with no rope rows,
-so decode runs K2 (K5 over an int8 cache) with ``rope_cos=None``, prefill
-and full-sequence attention K3, and every quantized linear K1 or K4.
+so decode runs K2 (K5 over an int8 cache) with ``rope_cos=None``, over a
+page pool K6/K7 and a verify window K8/K9 likewise, prefill and
+full-sequence attention K3, and every quantized linear K1 or K4.
 Unlike LLaMA, the residual is added after each block, not folded into a
 linear's output init, as in the JAX package.
 """
@@ -144,33 +145,66 @@ class OPT(nn.Module):
             x = layer(x, step)
         return self._finish(x, step)
 
+    def _cache_step(self, dtype, mode, plain, cache, **fields) -> Step:
+        """A step over a cache; a page pool's table is read from the first
+        layer's cache."""
+        step = Step(dtype=dtype, mode=mode, plain=plain, **fields)
+        if "pk" in cache[0]:
+            step.page_table = cache[0]["pt"]
+        return step
+
     def prefill(self, tokens: torch.Tensor, cache, *, dtype=torch.float32,
-                mode: str = "exact", plain: bool = False) -> torch.Tensor:
-        """Process the prompt from position 0 and fill the cache (in
-        place); returns the last token's logits (B, 1, V) f32."""
+                mode: str = "exact", plain: bool = False, start: int = 0,
+                all_logits: bool = False) -> torch.Tensor:
+        """Process the prompt and fill the cache (in place); returns the
+        last token's logits (B, 1, V) f32, or every position's (B, S, V)
+        with ``all_logits``. start: position of ``tokens[:, 0]`` (a
+        continuation prefill attends the rows the cache already holds)."""
         b, s = tokens.shape
-        x = self._embed(tokens, torch.arange(s, device=self.device), dtype)
-        step = Step(dtype=dtype, mode=mode, plain=plain)
+        x = self._embed(tokens, start + torch.arange(s, device=self.device),
+                        dtype)
+        step = Step(dtype=dtype, mode=mode, plain=plain, start=start)
         if s == 1:
-            # a one-token prompt is a decode step at position 0
-            step.lengths = torch.ones(b, dtype=torch.int32,
+            # a one-token prompt is a decode step at position start
+            step.lengths = torch.full((b,), start + 1, dtype=torch.int32,
                                       device=self.device)
         for layer, layer_cache in zip(self.layers, cache):
             x = layer(x, step, layer_cache)
-        return self._finish(x[:, -1:], step)
+        return self._finish(x if all_logits else x[:, -1:], step)
+
+    def verify_window(self, tokens: torch.Tensor, pos: torch.Tensor, cache,
+                      *, dtype=torch.float32, mode: str = "exact",
+                      plain: bool = False) -> torch.Tensor:
+        """A speculative verify window per slot over a page pool: tokens
+        (B, W) from each slot's own position pos[b] (< 0: inactive).
+        Returns the logits of every window position (B, W, V) f32."""
+        if "pk" not in cache[0]:
+            raise NotImplementedError(
+                "verify_window over a dense cache comes with the dense-slot "
+                "serving slice of the port; this one takes a page pool")
+        w = tokens.shape[1]
+        pos = pos.reshape(-1)
+        positions = pos[:, None] + torch.arange(w, device=self.device)
+        x = self._embed(tokens, positions, dtype)
+        step = self._cache_step(dtype, mode, plain, cache,
+                                starts=pos.to(torch.int32))
+        for layer, layer_cache in zip(self.layers, cache):
+            x = layer(x, step, layer_cache)
+        return self._finish(x, step)
 
     def decode_step(self, token: torch.Tensor, pos, cache, *,
                     dtype=torch.float32, mode: str = "exact",
                     plain: bool = False) -> torch.Tensor:
         """One decode step. token (B, 1); pos: int or (B,) tensor, the
-        0-based position of this token. Updates the cache in place and
-        returns logits (B, 1, V) f32."""
+        0-based position of this token (over a page pool -1 marks an
+        inactive slot, which writes nothing). Updates the cache in place
+        and returns logits (B, 1, V) f32."""
         b = token.shape[0]
         pos_t = (torch.full((b,), pos, device=self.device)
                  if isinstance(pos, int) else pos.reshape(-1))
         x = self._embed(token, pos_t[:, None], dtype)
-        step = Step(dtype=dtype, mode=mode, plain=plain,
-                    lengths=(pos_t + 1).to(torch.int32))
+        step = self._cache_step(dtype, mode, plain, cache,
+                                lengths=(pos_t + 1).to(torch.int32))
         for layer, layer_cache in zip(self.layers, cache):
             x = layer(x, step, layer_cache)
         return self._finish(x, step)

@@ -1,0 +1,755 @@
+"""Paged continuous-batching serving loop.
+
+The counterpart of the JAX package's ``serving.py``
+``PagedContinuousBatchEngine``: a fixed pool of decode slots stepped by one
+batched decode per token over a shared KV page pool, with requests joining
+(a prefill on a dense temporary cache, scattered into the slot's pages) and
+leaving independently; prompts that share full-page prefixes reuse the
+pages and skip recomputing them; per-request sampling; prompt-lookup
+speculation verified through the page table. Decode attention runs K6/K7,
+a speculative verify window K8/K9 (``ops/paged_attn``), the admission
+prefill K3.
+
+Pools are updated in place. A decode window enqueues its steps with token
+and position advanced on the device and waits for the host once, for the
+window's tokens.
+
+What the JAX engine does only to keep XLA from recompiling is not carried
+over, since eager PyTorch has no trace to protect: the 16-token bucket
+padding of a prompt's suffix, and the power-of-two padding of page-id lists
+and of a cohort. Rows of a prompt's last page beyond its length therefore
+hold zeros here (the JAX pool holds the padding tokens' k/v there); they
+are masked until decode overwrites them. The temporary cache spans the
+prompt's pages, not ``max_seq``. A cohort's single batched prefill of
+same-length prompts stays: the weights stream once.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from squeezellm_tpu_torch import sampling as sampling_mod
+from squeezellm_tpu_torch.models import common
+from squeezellm_tpu_torch.ops import kv_quant, paged_attn
+from squeezellm_tpu_torch.sampling import SamplingParams
+
+
+@dataclasses.dataclass
+class _Slot:
+    active: bool = False
+    request_id: int = -1
+    pos: int = 0  # position of the NEXT token to be written
+    max_new: int = 0
+    generated: int = 0
+    tokens: Optional[List[int]] = None
+    stop: Tuple[int, ...] = ()  # stop-token ids (host-side truncation)
+    # chunked prefill in flight: the slot occupies the pool but is not
+    # decoding yet; step() advances its staging prefill one chunk at a time
+    prefilling: bool = False
+
+
+def _init_sampler_state(eng, slots: int, seed: int) -> None:
+    """Per-slot sampling parameter arrays; greedy defaults."""
+    eng.seed = seed
+    eng._temp = np.zeros(slots, np.float32)
+    eng._topk = np.zeros(slots, np.int64)
+    eng._topp = np.ones(slots, np.float32)
+    eng._rids = np.zeros(slots, np.int64)
+
+
+def _set_slot_sampling(eng, idx: int, rid: int,
+                       sampling: Optional[SamplingParams]) -> None:
+    sp = sampling or sampling_mod.GREEDY
+    eng._temp[idx] = sp.temperature
+    eng._topk[idx] = sp.top_k
+    eng._topp[idx] = sp.top_p
+    eng._rids[idx] = rid
+
+
+def _clear_slot_sampling(eng, idx: int) -> None:
+    eng._temp[idx] = 0.0
+    eng._topk[idx] = 0
+    eng._topp[idx] = 1.0
+    eng._rids[idx] = 0
+
+
+def _sampler_args(eng):
+    return tuple(torch.as_tensor(a, device=eng.device)
+                 for a in (eng._temp, eng._topk, eng._topp, eng._rids))
+
+
+def _prompt_lookup_draft(ctx: torch.Tensor, pos: torch.Tensor, K: int,
+                         ngram: int) -> torch.Tensor:
+    """Per-slot prompt-lookup drafts: find the latest earlier occurrence of
+    each slot's trailing ``ngram`` in its device context buffer ctx
+    (B, max_ctx) and propose the K tokens that followed it. Garbage drafts
+    are safe: acceptance is greedy-exact (see _accept_drafts)."""
+    max_ctx = ctx.shape[1]
+    iota = torch.arange(max_ctx, device=ctx.device)
+    j = torch.arange(ngram, device=ctx.device)
+    kstart = (pos - ngram + 1).clamp(0, max_ctx - ngram)
+    key = torch.gather(ctx, 1, kstart[:, None] + j)  # (B, ngram)
+    # stacked[b, i, j] = ctx[b, (i + j) % max_ctx]
+    stacked = ctx[:, (iota[:, None] + j) % max_ctx]  # (B, max_ctx, ngram)
+    hits = (stacked == key[:, None, :]).all(dim=2) & (
+        iota[None, :] <= (pos - ngram)[:, None])
+    istar = torch.where(hits, iota[None, :], torch.full_like(iota, -1)[None]
+                        ).amax(dim=1)
+    dstart = (istar + ngram).clamp(0, max_ctx - K)
+    return torch.gather(
+        ctx, 1, dstart[:, None] + torch.arange(K, device=ctx.device))
+
+
+def _accept_drafts(logits: torch.Tensor, draft: torch.Tensor,
+                   ctx: torch.Tensor, pos: torch.Tensor):
+    """Greedy acceptance over a verify window's logits (B, K+1, V): keep
+    draft tokens while they EQUAL the greedy token, append the greedy bonus
+    token, write the emitted run into the context buffer (in place).
+    Returns (emit (B, K+1), n_acc (B,), cur2 (B, 1), ctx)."""
+    K, max_ctx = draft.shape[1], ctx.shape[1]
+    greedy = torch.argmax(logits, dim=-1)
+    match = (draft == greedy[:, :K]).long()
+    n_acc = torch.cumprod(match, dim=1).sum(dim=1)  # (B,)
+    cand = torch.cat([draft, torch.zeros_like(draft[:, :1])], dim=1)
+    bonus = torch.gather(greedy, 1, n_acc[:, None])
+    ar = torch.arange(K + 1, device=draft.device)
+    emit = torch.where(ar[None, :] < n_acc[:, None], cand, bonus)
+    wstart = (pos + 1).clamp(0, max_ctx - (K + 1))
+    ctx.scatter_(1, wstart[:, None] + ar, emit)
+    cur2 = torch.gather(emit, 1, n_acc[:, None])
+    return emit, n_acc, cur2, ctx
+
+
+def _emit_tokens(s: _Slot, toks) -> Tuple[List[int], bool]:
+    """Append a window's candidate tokens to an active slot, stopping at a
+    stop token or the max_new budget. Returns (emitted, done)."""
+    new: List[int] = []
+    done = False
+    for tok in toks:
+        tok = int(tok)
+        s.tokens.append(tok)
+        new.append(tok)
+        s.generated += 1
+        s.pos += 1
+        done = _slot_finished(s, tok)
+        if done:
+            break
+    return new, done
+
+
+def _slot_finished(s: _Slot, tok: int) -> bool:
+    return s.generated >= s.max_new or tok in s.stop
+
+
+def _admit_cohort(eng, requests, max_new_tokens, sampling, stop_tokens):
+    """The add_requests core: validate every prompt, then partition the
+    cohort into batched same-length admission groups and single-request
+    admissions, assigning request ids in input order.
+
+    Every prompt is validated before any id is reserved or any page
+    allocated, so a bad prompt leaves the engine as it was.
+    eng._cohort_key(prompt) returns a hashable group key, or None to route
+    the prompt through eng.add_request (chunked admissions, prefix-sharing
+    hits). Groups of >= 2 admit via eng._admit_group in one batched
+    prefill."""
+    prompts = [np.asarray(p, np.int64).reshape(-1) for p in requests]
+    if len(prompts) > eng.free_slots():
+        raise RuntimeError("cohort exceeds free slots")
+    for prompt in prompts:
+        eng._validate(len(prompt), max_new_tokens)
+    groups: Dict[Any, List[int]] = {}
+    single: List[int] = []
+    for j, prompt in enumerate(prompts):
+        key = eng._cohort_key(prompt)
+        if key is None:
+            single.append(j)
+        else:
+            groups.setdefault(key, []).append(j)
+    for key in [k for k, js in groups.items() if len(js) < 2]:
+        single.extend(groups.pop(key))
+    base = eng._next_id
+    eng._next_id += len(prompts)
+    rids = [base + j for j in range(len(prompts))]
+    for j in sorted(single):
+        eng.add_request(prompts[j], max_new_tokens, sampling=sampling,
+                        stop_tokens=stop_tokens, _rid=rids[j])
+    for key, js in groups.items():
+        eng._admit_group([prompts[j] for j in js], [rids[j] for j in js],
+                         max_new_tokens, sampling, stop_tokens)
+    return rids
+
+
+# ---------------------------------------------------------------------------
+# Shared KV page pool + prefix sharing
+# ---------------------------------------------------------------------------
+
+
+def _prime_dense_impl(pools, dense, pids: List[int], *, ps: int,
+                      n_kv_heads: int) -> None:
+    """Prime a fresh dense temp cache (batch 1) with the shared pages of
+    every layer: rows [0, len(pids) * ps), in place. An int8 pool
+    dequantizes into the dense cache."""
+    idx = torch.as_tensor(pids, dtype=torch.long, device=dense[0]["k"].device)
+    rows = len(pids) * ps
+    for pool_kv, d in zip(pools, dense):
+        for name in ("k", "v"):
+            pages = pool_kv["p" + name][idx]  # (m, ps, Hkv*hd)
+            if "sk" in pool_kv:
+                sc = kv_quant.pool_unpack_scales(pool_kv["s" + name][idx])
+                pages = kv_quant.dequantize_rows(
+                    pages.view(len(pids), ps, n_kv_heads, -1), sc)
+            d[name][0, :rows] = pages.reshape(rows, -1).to(d[name].dtype)
+
+
+def _scatter_all_impl(pools, dense, slot: int, pids: List[int],
+                      first_page: int, *, ps: int, n_kv_heads: int) -> None:
+    """Write the new (non-shared) prompt pages of every layer from row
+    ``slot`` of the dense temp cache back into the pool, in place: dense
+    rows [first_page * ps, (first_page + len(pids)) * ps) to pages ``pids``.
+    An int8 pool quantizes the dense rows with ``quantize_rows``."""
+    if not pids:
+        return
+    idx = torch.as_tensor(pids, dtype=torch.long, device=dense[0]["k"].device)
+    lo, hi = first_page * ps, (first_page + len(pids)) * ps
+    for pool_kv, d in zip(pools, dense):
+        for name in ("k", "v"):
+            src = d[name][slot, lo:hi].view(len(pids), ps, -1)
+            if "sk" in pool_kv:
+                codes, sc = kv_quant.quantize_rows(
+                    src.view(len(pids), ps, n_kv_heads, -1))
+                pool_kv["p" + name][idx] = codes.view(len(pids), ps, -1)
+                pool_kv["s" + name][idx] = kv_quant.pool_pack_scales(sc)
+            else:
+                pool_kv["p" + name][idx] = src.to(pool_kv["p" + name].dtype)
+
+
+class PagedKVPool:
+    """Host-side page allocator + device page pools (one pid spans all
+    layers: layer L's page data lives at pools[L]['pk'][pid]).
+
+    Prefix sharing: full prompt pages are registered by their token-chunk
+    chain; a later prompt with the same chain reuses the pages (refcount)
+    and only prefill-computes its suffix. Zero-refcount shared pages stay
+    cached until allocation pressure evicts them (LRU)."""
+
+    def __init__(self, n_layers: int, n_pages: int, n_kv_heads: int,
+                 page_size: int, head_dim: int, dtype=torch.bfloat16,
+                 device="cuda"):
+        self.ps = page_size
+        self.n_pages = n_pages
+        self.n_kv_heads = n_kv_heads
+        # dtype "int8": pages store int8 codes plus one f32 scale per
+        # (token row, kv head), (P, Hkv, ps) sidecars (ops/kv_quant.py);
+        # the paged kernels quantize at the in-kernel pool write
+        self.quantized = common.is_int8(dtype)
+        self.pools = common.init_paged_pool(n_layers, n_pages, page_size,
+                                            n_kv_heads, head_dim, dtype,
+                                            device)
+        self._free = list(range(n_pages - 1, -1, -1))
+        self.allocated = 0  # pages handed out so far (a statistic)
+        self._ref: Dict[int, int] = {}
+        # chain key (parent_key, chunk tokens) -> page id; LRU order
+        self._registry: Dict[tuple, int] = {}
+        self._lru: List[tuple] = []
+
+    def alloc(self) -> int:
+        if not self._free:
+            self._evict_one()
+        pid = self._free.pop()
+        self._ref[pid] = 1
+        self.allocated += 1
+        return pid
+
+    def _evict_one(self) -> None:
+        for key in list(self._lru):
+            pid = self._registry[key]
+            if self._ref.get(pid, 0) == 0:
+                del self._registry[key]
+                self._lru.remove(key)
+                self._ref.pop(pid, None)
+                self._free.append(pid)
+                return
+        raise RuntimeError("page pool exhausted (all pages referenced)")
+
+    def retain(self, pid: int) -> None:
+        self._ref[pid] = self._ref.get(pid, 0) + 1
+
+    def release(self, pid: int, registered: bool) -> None:
+        self._ref[pid] -= 1
+        if self._ref[pid] == 0 and not registered:
+            del self._ref[pid]
+            self._free.append(pid)
+        # registered pages linger for reuse (evicted under pressure)
+
+    def release_all(self, pids: Sequence[int]) -> None:
+        """Release one reference of each page; those a prefix chain
+        registers stay cached."""
+        registered = set(self._registry.values())
+        for pid in pids:
+            self.release(pid, registered=pid in registered)
+
+    def pages_in_use(self) -> int:
+        """Pages that some slot references."""
+        return sum(1 for n in self._ref.values() if n > 0)
+
+    def lookup_chain(self, prompt) -> Tuple[List[int], tuple]:
+        """Longest registered full-page prefix (never the final page:
+        decode rewrites the last prompt position in place, which must not
+        touch shared storage). Returns (page ids, last chain key)."""
+        shared: List[int] = []
+        key: tuple = ()
+        max_full = max(0, (len(prompt) - 1) // self.ps)
+        for p in range(max_full):
+            chunk = tuple(prompt[p * self.ps:(p + 1) * self.ps])
+            nkey = (key, chunk)
+            pid = self._registry.get(nkey)
+            if pid is None:
+                break
+            shared.append(pid)
+            self._lru.remove(nkey)
+            self._lru.append(nkey)
+            key = nkey
+        return shared, key
+
+    def register_chain(self, key: tuple, prompt, start_page: int,
+                       end_page: int, pids: List[int]) -> None:
+        for p in range(start_page, end_page):
+            chunk = tuple(prompt[p * self.ps:(p + 1) * self.ps])
+            key = (key, chunk)
+            if key not in self._registry:
+                self._registry[key] = pids[p]
+                self._lru.append(key)
+            else:
+                self._lru.remove(key)
+                self._lru.append(key)
+
+
+class PagedContinuousBatchEngine:
+    """Continuous batching over a shared KV page pool. Prompts sharing
+    full-page prefixes reuse pages AND skip recomputing them: admission
+    runs a continuation prefill on the suffix only.
+
+    model: the port's Llama or OPT; the engine runs on the model's device.
+    dtype: activation dtype; cache_dtype: the pool's dtype, or "int8";
+    mode: 'exact' or 'bf16' (the quantized linears' regime); plain: run
+    each kernel's plain PyTorch version whatever the device.
+    speculative: (draft_len, ngram) turns on prompt-lookup speculation;
+    prefill_chunk: admit a long suffix that many tokens per engine step."""
+
+    def __init__(self, model, *, slots: int = 8, n_pages: int = 256,
+                 page_size: int = 128, dtype=torch.float32,
+                 cache_dtype=torch.bfloat16, mode: str = "exact",
+                 max_seq: Optional[int] = None, seed: int = 0,
+                 speculative: Optional[Tuple[int, int]] = None,
+                 prefill_chunk: Optional[int] = None, plain: bool = False):
+        config = model.config
+        self.model = model
+        self.config = config
+        self.device = model.device
+        self.n_slots = slots
+        self.max_seq = max_seq or config.max_seq
+        self.dtype = dtype
+        self.mode = mode
+        self.plain = plain
+        # chunked admission: the non-shared suffix prefills prefill_chunk
+        # tokens per engine step interleaved with decode windows (the
+        # staging dense cache scatters into the pool only when complete)
+        self.prefill_chunk = prefill_chunk
+        self._staging: Dict[int, list] = {}
+        if speculative and speculative[0] + 1 > paged_attn.MAX_WINDOW_TOKENS:
+            raise ValueError(
+                f"speculative draft_len {speculative[0]} exceeds the verify "
+                f"kernels' window of {paged_attn.MAX_WINDOW_TOKENS} tokens")
+        self.speculative = speculative
+        _init_sampler_state(self, slots, seed)
+        self.ps = page_size
+        self.maxp = -(-self.max_seq // page_size)
+        self.pool = PagedKVPool(config.n_layers, n_pages, config.n_kv_heads,
+                                page_size, config.head_dim, cache_dtype,
+                                self.device)
+        # an int8 pool's prefill temp cache stays full precision; rows
+        # quantize at the pool scatter
+        self._dense_dtype = (torch.bfloat16 if self.pool.quantized
+                             else self.pool.pools[0]["pk"].dtype)
+        self._slots = [_Slot() for _ in range(slots)]
+        self._slot_pages: List[List[int]] = [[] for _ in range(slots)]
+        self._slot_shared: List[int] = [0] * slots
+        self._next_id = 0
+        self._cur = torch.zeros((slots, 1), dtype=torch.long,
+                                device=self.device)
+        # inactive slots carry pos = -1 -> kernel length 0: no page reads
+        # AND no pool write. A stale pos would write through the freed page
+        # table into pages that may already belong to another slot.
+        self._pos = np.full(slots, -1, np.int64)
+        self._pt = np.zeros((slots, self.maxp), np.int32)
+        # device token history for speculative drafting (stale rows only
+        # lower the accept rate)
+        self._ctx = (torch.zeros((slots, self.max_seq), dtype=torch.long,
+                                 device=self.device)
+                     if speculative else None)
+        # what the engine has run so far: model calls by kind, and the
+        # speculation's drafts proposed and accepted
+        self.stats = {"prefills": 0, "decode_steps": 0, "spec_windows": 0,
+                      "drafted": 0, "accepted": 0}
+
+    def _run(self):
+        return dict(dtype=self.dtype, mode=self.mode, plain=self.plain)
+
+    def free_slots(self) -> int:
+        return sum(not s.active for s in self._slots)
+
+    def _layer_caches(self):
+        """The pools with the page table, as the model reads them."""
+        pt = torch.as_tensor(self._pt, device=self.device)
+        return [dict(c, pt=pt) for c in self.pool.pools]
+
+    def _reserve(self) -> int:
+        # speculative verify windows write draft_len+1 rows past the last
+        # real token: those rows must stay inside the slot's own pages
+        return (self.speculative[0] + 1) if self.speculative else 0
+
+    def _validate(self, plen: int, max_new_tokens: int) -> None:
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        if plen < 1:
+            raise ValueError("empty prompt")
+        reserve = self._reserve()
+        if plen + max_new_tokens + reserve > self.max_seq:
+            raise ValueError("prompt + max_new_tokens exceeds max_seq"
+                             + (" (incl. speculative window reserve)"
+                                if reserve else ""))
+
+    def _alloc_pages(self, n: int, held: List[int]) -> List[int]:
+        """Allocate n pages one at a time. If the pool runs out, the pages
+        allocated so far and every page in ``held`` are released before the
+        error goes on."""
+        new_pids: List[int] = []
+        try:
+            for _ in range(n):
+                new_pids.append(self.pool.alloc())
+        except RuntimeError:
+            self.pool.release_all(new_pids + held)
+            raise
+        return new_pids
+
+    def _prefill(self, tokens, dense, start: int) -> None:
+        self.model.prefill(tokens, dense, start=start, **self._run())
+        self.stats["prefills"] += 1
+
+    def _fresh_dense(self, batch: int, pages: int):
+        return common.init_kv_cache(
+            batch, pages * self.ps, self.config.n_layers,
+            self.config.n_kv_heads, self.config.head_dim, self._dense_dtype,
+            self.device)
+
+    @torch.no_grad()
+    def add_request(self, prompt_tokens, max_new_tokens: int,
+                    sampling: Optional[SamplingParams] = None,
+                    stop_tokens: Sequence[int] = (),
+                    _rid: Optional[int] = None) -> int:
+        prompt = [int(t) for t in np.asarray(prompt_tokens).reshape(-1)]
+        plen = len(prompt)
+        self._validate(plen, max_new_tokens)
+        idx = next((i for i, s in enumerate(self._slots) if not s.active),
+                   None)
+        if idx is None:
+            raise RuntimeError("no free slot")
+
+        shared_pids, chain_key = self.pool.lookup_chain(prompt)
+        n_shared = len(shared_pids)
+        start = n_shared * self.ps
+        for pid in shared_pids:
+            self.pool.retain(pid)
+        # pages covering [start, plen + max_new_tokens + reserve); every
+        # refcount rolls back if the pool runs out mid-allocation
+        total_pages = -(-(plen + max_new_tokens + self._reserve()) // self.ps)
+        new_pids = self._alloc_pages(total_pages - n_shared, shared_pids)
+        pids = shared_pids + new_pids
+        self._slot_pages[idx] = pids
+        self._slot_shared[idx] = n_shared
+
+        # continuation prefill of the suffix on a dense temp cache primed
+        # with the shared pages
+        suffix = prompt[start:]
+        covered = -(-plen // self.ps)  # pages with any prompt content
+        dense = self._fresh_dense(1, covered)
+        if n_shared:
+            _prime_dense_impl(self.pool.pools, dense, shared_pids, ps=self.ps,
+                              n_kv_heads=self.config.n_kv_heads)
+        if _rid is None:
+            rid = self._next_id
+            self._next_id += 1
+        else:
+            rid = _rid
+        _set_slot_sampling(self, idx, rid, sampling)
+        chunked = bool(self.prefill_chunk
+                       and len(suffix) > self.prefill_chunk)
+        if chunked:
+            # the page table stays zeroed and pos -1 (inactive to every
+            # kernel) until the staging cache is complete and scattered;
+            # page REGISTRATION also waits: registering now would let
+            # another request share pages that hold no content yet
+            self._staging[idx] = [dense, prompt, start, pids, n_shared,
+                                  chain_key]
+            self._pt[idx] = 0
+            self._pos[idx] = -1
+        else:
+            tokens = torch.as_tensor([suffix], dtype=torch.long,
+                                     device=self.device)
+            self._prefill(tokens, dense, start)
+            self._finish_admission(idx, prompt, dense, 0, pids, n_shared,
+                                   chain_key)
+        self._slots[idx] = _Slot(active=True, request_id=rid, pos=plen - 1,
+                                 max_new=max_new_tokens, generated=0,
+                                 tokens=[], stop=tuple(stop_tokens),
+                                 prefilling=chunked)
+        return rid
+
+    def add_requests(self, requests, max_new_tokens: int,
+                     sampling: Optional[SamplingParams] = None,
+                     stop_tokens: Sequence[int] = ()) -> List[int]:
+        """Admit a cohort; returns request ids in input order. Prompts of
+        one length with no shared-prefix hit admit through ONE batched
+        prefill; chunked admissions, prefix-sharing hits and singleton
+        groups go through add_request. Every prompt is validated before
+        anything is admitted."""
+        return _admit_cohort(self, requests, max_new_tokens, sampling,
+                             stop_tokens)
+
+    def _cohort_key(self, prompt):
+        plen = len(prompt)
+        if self.prefill_chunk and plen > self.prefill_chunk:
+            return None
+        shared, _ = self.pool.lookup_chain([int(t) for t in prompt])
+        if shared:  # prefix hit: the single path primes + suffix-prefills
+            return None
+        return plen
+
+    @torch.no_grad()
+    def _admit_group(self, prompts, rids, max_new_tokens: int, sampling,
+                     stop_tokens) -> None:
+        """Admit same-length prompts through one batched prefill."""
+        plen = len(prompts[0])
+        idxs = [i for i, s in enumerate(self._slots) if not s.active]
+        idxs = idxs[:len(prompts)]
+        total = -(-(plen + max_new_tokens + self._reserve()) // self.ps)
+        allocs: List[List[int]] = []
+        for _ in prompts:
+            # page by page into a list the rollback sees: a request that
+            # the pool cannot finish leaks nothing
+            held = [pid for pids in allocs for pid in pids]
+            allocs.append(self._alloc_pages(total, held))
+        covered = -(-plen // self.ps)
+        dense = self._fresh_dense(len(prompts), covered)
+        tokens = torch.as_tensor(np.stack(prompts), dtype=torch.long,
+                                 device=self.device)
+        self._prefill(tokens, dense, 0)
+        for r, p in enumerate(prompts):
+            idx = idxs[r]
+            self._slot_pages[idx] = allocs[r]
+            self._slot_shared[idx] = 0
+            _set_slot_sampling(self, idx, rids[r], sampling)
+            self._finish_admission(idx, [int(t) for t in p], dense, r,
+                                   allocs[r], 0, ())
+            self._slots[idx] = _Slot(active=True, request_id=rids[r],
+                                     pos=plen - 1, max_new=max_new_tokens,
+                                     generated=0, tokens=[],
+                                     stop=tuple(stop_tokens))
+
+    def _finish_admission(self, idx, prompt, dense, row, pids, n_shared,
+                          chain_key) -> None:
+        """Scatter row ``row`` of the prefilled dense temp cache into the
+        pool, register the prompt's shareable pages, and seed the slot for
+        decode: the admission tail shared by whole-suffix, cohort and
+        chunked prefill."""
+        plen = len(prompt)
+        covered = -(-plen // self.ps)
+        _scatter_all_impl(self.pool.pools, dense, row,
+                          pids[n_shared:covered], n_shared, ps=self.ps,
+                          n_kv_heads=self.config.n_kv_heads)
+        # register the prompt's full pages (excl. the final page) for reuse
+        self.pool.register_chain(chain_key, prompt, n_shared,
+                                 max(n_shared, (plen - 1) // self.ps), pids)
+        self._pt[idx] = 0
+        self._pt[idx, : len(pids)] = pids
+        self._cur[idx, 0] = int(prompt[-1])
+        if self._ctx is not None:
+            row_t = torch.zeros(self.max_seq, dtype=torch.long)
+            row_t[:plen] = torch.as_tensor(prompt, dtype=torch.long)
+            self._ctx[idx] = row_t.to(self.device)
+        self._pos[idx] = plen - 1
+
+    @torch.no_grad()
+    def _advance_prefill(self) -> None:
+        """One suffix chunk per mid-prefill slot into its staging dense
+        cache; the final chunk triggers the pool scatter + page
+        registration + slot seeding (_finish_admission)."""
+        if not self._staging:
+            return
+        for i, s in enumerate(self._slots):
+            if not (s.active and s.prefilling):
+                continue
+            dense, prompt, off, pids, n_shared, chain_key = self._staging[i]
+            plen = len(prompt)
+            r = min(self.prefill_chunk, plen - off)
+            tokens = torch.as_tensor([prompt[off:off + r]], dtype=torch.long,
+                                     device=self.device)
+            self._prefill(tokens, dense, off)
+            off += r
+            if off < plen:
+                self._staging[i][2] = off
+                continue
+            self._finish_admission(i, prompt, dense, 0, pids, n_shared,
+                                   chain_key)
+            s.prefilling = False
+            del self._staging[i]
+
+    def _decoding(self) -> List[_Slot]:
+        return [s for s in self._slots if s.active and not s.prefilling]
+
+    def _next_tokens(self, logits, pos, sargs, sampled: bool):
+        """The next token of every slot from (B, V) logits, on the device."""
+        if sampled:
+            return sampling_mod.sample_tokens(
+                logits.float(), *sargs, pos.clamp(min=0), self.seed)
+        return torch.argmax(logits, dim=-1)
+
+    def _collect(self, toks_of) -> Dict[int, Any]:
+        """Host bookkeeping after a window: ``toks_of(i)`` are slot i's
+        candidate tokens."""
+        out: Dict[int, Any] = {}
+        for i, s in enumerate(self._slots):
+            if not s.active or s.prefilling:
+                continue
+            new, done = _emit_tokens(s, toks_of(i))
+            self._pos[i] = s.pos
+            out[s.request_id] = {"token": new[-1], "new_tokens": new,
+                                 "done": done}
+            if done:
+                out[s.request_id]["tokens"] = s.tokens
+                self._release(i)
+        return out
+
+    def step(self) -> Dict[int, Any]:
+        """One decode step of every decoding slot (after advancing chunked
+        prefills by one chunk)."""
+        self._advance_prefill()
+        return self._decode_window(1)
+
+    def step_window(self, max_window: int = 8) -> Dict[int, Any]:
+        """Up to max_window decode steps with ONE host sync: the window
+        enqueues its steps back to back, token and positions advance on the
+        device, the pools are written in place, and only the stacked window
+        tokens are fetched. Page tables are static for the whole window:
+        admission allocates pages through max_new_tokens up front."""
+        self._advance_prefill()
+        active = self._decoding()
+        if not active:
+            return {}
+        remaining = min(s.max_new - s.generated for s in active)
+        return self._decode_window(min(max_window, remaining))
+
+    @torch.no_grad()
+    def _decode_window(self, k: int) -> Dict[int, Any]:
+        if not self._decoding():
+            return {}
+        pos = torch.as_tensor(self._pos, device=self.device)
+        caches = self._layer_caches()
+        sampled = bool((self._temp > 0).any())
+        sargs = _sampler_args(self) if sampled else None
+        cur = self._cur
+        toks = []
+        for _ in range(k):
+            logits = self.model.decode_step(cur, pos, caches, **self._run())
+            self.stats["decode_steps"] += 1
+            nxt = self._next_tokens(logits[:, -1], pos, sargs, sampled)
+            # inactive slots (pos < 0) must NOT advance: at pos 0 they
+            # would write through their zeroed page table into page 0,
+            # which likely belongs to an active slot
+            pos = torch.where(pos < 0, pos, pos + 1)
+            cur = nxt[:, None]
+            toks.append(nxt)
+        self._cur = cur
+        toks_host = torch.stack(toks).cpu().numpy()  # the window's one sync
+        return self._collect(lambda i: toks_host[:, i])
+
+    @torch.no_grad()
+    def step_spec_window(self) -> Dict[int, Any]:
+        """One slot-batched speculative window over the paged pool (engine
+        constructed with ``speculative=(draft_len, ngram)``): prompt-lookup
+        drafts, one W = draft_len + 1 verify forward through the paged
+        verify kernel (page-table pool writes + causal window attention in
+        one launch per layer), greedy-exact acceptance. Greedy only: run()
+        falls back to step_window() while any active slot samples.
+        Inactive slots (pos < 0) write nothing in the kernel; their emitted
+        rows are skipped on the host."""
+        if not self.speculative:
+            raise RuntimeError("engine not constructed with speculative=")
+        self._advance_prefill()
+        if not self._decoding():
+            return {}
+        draft_len, ngram = self.speculative
+        pos = torch.as_tensor(self._pos, device=self.device)
+        draft = _prompt_lookup_draft(self._ctx, pos, draft_len, ngram)
+        window = torch.cat([self._cur, draft], dim=1)  # (B, K+1)
+        logits = self.model.verify_window(window, pos, self._layer_caches(),
+                                          **self._run())
+        self.stats["spec_windows"] += 1
+        emit, n_acc, self._cur, self._ctx = _accept_drafts(
+            logits, draft, self._ctx, pos)
+        emit_h = emit.cpu().numpy()
+        nacc_h = n_acc.cpu().numpy()
+        for i, s in enumerate(self._slots):
+            if s.active and not s.prefilling:
+                self.stats["drafted"] += draft_len
+                self.stats["accepted"] += int(nacc_h[i])
+        return self._collect(lambda i: emit_h[i, : int(nacc_h[i]) + 1])
+
+    def cancel(self, request_id: int) -> bool:
+        """Abort an in-flight request: frees its slot AND its pages
+        (refcounts released; registered prefix pages stay cached)."""
+        for i, s in enumerate(self._slots):
+            if s.active and s.request_id == request_id:
+                self._release(i)
+                return True
+        return False
+
+    def _release(self, idx: int) -> None:
+        self._staging.pop(idx, None)
+        self.pool.release_all(self._slot_pages[idx])
+        self._slot_pages[idx] = []
+        self._slots[idx] = _Slot()
+        _clear_slot_sampling(self, idx)
+        self._pos[idx] = -1  # length 0: the freed page ids must never be
+        self._pt[idx] = 0    # written again through this slot
+
+    def run(self, requests, max_new_tokens: int = 16, window: int = 1,
+            sampling: Optional[SamplingParams] = None,
+            stop_tokens: Sequence[int] = (),
+            on_token=None) -> Dict[int, List[int]]:
+        """Serve ``requests`` (token lists) to completion: admit as slots
+        free up, step until every request is done. Returns the generated
+        tokens by request id."""
+        pending = list(requests)
+        results: Dict[int, List[int]] = {}
+        while pending or any(s.active for s in self._slots):
+            n = min(len(pending), self.free_slots())
+            if n:  # cohort admission: one batched prefill per length group
+                self.add_requests(pending[:n], max_new_tokens,
+                                  sampling=sampling, stop_tokens=stop_tokens)
+                del pending[:n]
+            if self.speculative and not bool((self._temp > 0).any()):
+                res = self.step_spec_window()
+            else:
+                res = (self.step_window(window) if window > 1
+                       else self.step())
+            for rid, r in res.items():
+                if on_token is not None:
+                    on_token(rid, r["new_tokens"], r["done"])
+                if r["done"]:
+                    results[rid] = r["tokens"]
+        return results

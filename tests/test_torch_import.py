@@ -1,9 +1,11 @@
 """The port stands alone: importing every module of squeezellm_tpu_torch
-(eval, data, cli, models.opt and ops.kv_quant among them) and running a CPU
-forward, greedy generation, the decode benchmark, an int8-cache OPT
-request, a perplexity through the dequantize-then-matmul route and the
-command line loads neither JAX nor the JAX package (matched as the exact module
-`squeezellm_tpu` or its submodules, not as a prefix of the port's name)."""
+(eval, data, cli, serving, sampling, models.opt, ops.kv_quant and
+ops.paged_attn among them) and running a CPU forward, greedy generation,
+the decode benchmark, an int8-cache OPT request, a perplexity through the
+dequantize-then-matmul route, a paged serving run (int8 pool, speculation,
+then sampling) and the command line loads neither JAX nor the JAX package
+(matched as the exact module `squeezellm_tpu` or its submodules, not as a
+prefix of the port's name)."""
 
 import json
 import os
@@ -39,11 +41,22 @@ oout = engine.Engine(omodel, cache_dtype="int8").generate(
 quant_linear.BIG_BATCH = 16
 ppl = eval_mod.perplexity(omodel, data.synthetic_tokens(64, 48), seqlen=16,
                           group=2)
+from squeezellm_tpu_torch import sampling, serving
+from squeezellm_tpu_torch.ops import paged_attn
+served = serving.PagedContinuousBatchEngine(
+    model, slots=2, n_pages=12, page_size=8, cache_dtype="int8",
+    speculative=(2, 2)).run([[1, 2, 3], [4, 5, 4, 5, 4]], max_new_tokens=3)
+sampled = serving.PagedContinuousBatchEngine(
+    omodel, slots=2, n_pages=12, page_size=8,
+    cache_dtype=__import__("torch").float32).run(
+        [[1, 2, 3]], max_new_tokens=3, window=2,
+        sampling=sampling.SamplingParams(temperature=0.8, top_k=8))
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "squeezellm_tpu"
              or m.startswith("squeezellm_tpu."))
 print(json.dumps({"bad": bad, "shape": list(out.shape),
                   "logits": list(logits.shape), "opt": list(oout.shape),
+                  "served": [len(served[0]), len(served[1]), len(sampled[0])],
                   "finite": bool(np.isfinite(stats["check_ppl"])
                                  and np.isfinite(ppl))}))
 """
@@ -58,4 +71,5 @@ def test_port_imports_no_jax():
     assert got["bad"] == []
     assert got["shape"] == [1, 7] and got["logits"] == [1, 3, 64]
     assert got["opt"] == [1, 7]
+    assert got["served"] == [3, 3, 3]
     assert got["finite"]

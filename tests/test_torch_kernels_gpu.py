@@ -1,8 +1,9 @@
-"""K1-K5 on the card against their plain PyTorch versions, at ragged small
+"""K1-K9 on the card against their plain PyTorch versions, at ragged small
 shapes the full-width smoke run does not reach (column and row tails,
 partial packed words, GQA groups, head dims 32/64/128, strided inputs,
-unaligned int8 caches), and tiny models' kernel paths against their plain
-paths (LLaMA and OPT, f32 and int8 caches, the eval forward).
+unaligned int8 caches, small pages, shared and shuffled page tables), and
+tiny models' kernel paths against their plain paths (LLaMA and OPT, f32
+and int8 caches, the eval forward, the paged serving engine).
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere. On the card:
 ``python -m pytest tests/test_torch_kernels_gpu.py -m gpu``."""
@@ -11,11 +12,13 @@ import numpy as np
 import pytest
 import torch
 
-from squeezellm_tpu_torch import data, engine, synthetic
+from squeezellm_tpu_torch import data, engine, serving, synthetic
 from squeezellm_tpu_torch import eval as eval_mod
 from squeezellm_tpu_torch.models import common, fuse, llama, opt
 from squeezellm_tpu_torch.ops import (decode_attn, dequant_dense, flash_attn,
-                                      kv_quant, lut_matmul, quant_linear)
+                                      kv_quant, lut_matmul, paged_attn,
+                                      quant_linear)
+from squeezellm_tpu_torch.sampling import SamplingParams
 
 pytestmark = pytest.mark.gpu
 
@@ -215,3 +218,171 @@ def test_tiny_models_int8_and_eval_paths_match_plain(dev, family,
                                plain=plain) for plain in (False, True)]
     assert dequant_dense.dequant_dense.launches > before
     assert abs(ppl[0] - ppl[1]) <= 1e-4 * ppl[1]
+
+
+def _paged_case(dev, gen, *, B, Hkv, g, hd, ps, maxp, W, q8, in_dtype,
+                pool_dtype, index, rope, shared_pages=1):
+    """Pools of random history, a shuffled page table whose first
+    ``shared_pages`` pages are shared by every slot that writes beyond
+    them (a shared page is read by several blocks and written by none),
+    and a window's q/k/v as head-major views of one fused token-major
+    projection."""
+    H = g * Hkv
+    P = B * maxp + 3
+    perm = torch.randperm(P, generator=gen, device=dev).to(torch.int32)
+    pt = perm[: B * maxp].view(B, maxp).clone()
+    first_written = torch.tensor(index, device=dev) - (1 if W is None else 0)
+    sharers = (first_written >= shared_pages * ps).nonzero()[:, 0]
+    pt[sharers, :shared_pages] = pt[sharers[0], :shared_pages]
+    pt[first_written < 0] = 0
+    w = W or 1
+    qkv = torch.randn(B, w, (H + 2 * Hkv) * hd, generator=gen,
+                      device=dev).to(in_dtype)
+    q = qkv[..., : H * hd].view(B, w, H, hd).transpose(1, 2)
+    k = qkv[..., H * hd: (H + Hkv) * hd].view(B, w, Hkv, hd).transpose(1, 2)
+    v = qkv[..., (H + Hkv) * hd:].view(B, w, Hkv, hd).transpose(1, 2)
+    hist = torch.randn(2, P, ps, Hkv, hd, generator=gen, device=dev)
+    if q8:
+        codes, sc = kv_quant.quantize_rows(hist)
+        pools = [codes[0].reshape(P, ps, -1), codes[1].reshape(P, ps, -1),
+                 kv_quant.pool_pack_scales(sc[0]).contiguous(),
+                 kv_quant.pool_pack_scales(sc[1]).contiguous()]
+    else:
+        pools = [hist[0].reshape(P, ps, -1).to(pool_dtype),
+                 hist[1].reshape(P, ps, -1).to(pool_dtype)]
+    idx = torch.tensor(index, dtype=torch.int32, device=dev)
+    kw = {}
+    if rope:
+        first = (idx.long() - (1 if W is None else 0)).clamp(min=0)
+        at = first[:, None] + torch.arange(w, device=dev)
+        cos, sin = common.rope_cos_sin(at if W else at[:, 0], hd, 10000.0)
+        kw = dict(rope_cos=cos.contiguous(), rope_sin=sin.contiguous())
+    if W is None:
+        q, k, v = q[:, :, 0], k[:, :, 0], v[:, :, 0]
+    return q, k, v, pools, pt, idx, kw
+
+
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("in_dtype,pool_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float32, torch.bfloat16)])
+@pytest.mark.parametrize("hd,g,ps,window,rope", [
+    (32, 2, 16, None, True), (64, 4, 8, 21, True), (128, 1, 16, None, False),
+    (128, 8, 32, 40, True)])
+def test_paged_decode_kernels_match_plain(dev, hd, g, ps, window, rope,
+                                          in_dtype, pool_dtype, q8):
+    """K6 and K7: output within 1e-4 of max |out|, the pools after the
+    write equal to the plain version's (int8 codes and scales included),
+    an inactive slot untouched, lengths at a page's first and last row."""
+    gen = torch.Generator(device=dev).manual_seed(hd + g + ps)
+    maxp = 6
+    lengths = [1, ps, ps + 1, 0, 3 * ps + 5, maxp * ps]
+    q, k, v, pools, pt, idx, kw = _paged_case(
+        dev, gen, B=6, Hkv=2, g=g, hd=hd, ps=ps, maxp=maxp, W=None, q8=q8,
+        in_dtype=in_dtype, pool_dtype=pool_dtype, index=lengths, rope=rope)
+    kw["sliding_window"] = window
+    got_p = [t.clone() for t in pools]
+    want_p = [t.clone() for t in pools]
+    fn = "paged_decode_attention" + ("_q8" if q8 else "")
+    before = getattr(paged_attn, fn).launches
+    got = getattr(paged_attn, fn)(q, k, v, *got_p, pt, idx, **kw)
+    want = getattr(paged_attn, fn + "_plain")(q, k, v, *want_p, pt, idx, **kw)
+    torch.cuda.synchronize()
+    assert getattr(paged_attn, fn).launches == before + 1
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    assert not got[3].any()
+    for a, b_ in zip(got_p, want_p):
+        assert torch.equal(a, b_)
+    assert not torch.equal(got_p[0], pools[0])
+
+
+@pytest.mark.parametrize("q8", [False, True])
+@pytest.mark.parametrize("in_dtype,pool_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16)])
+@pytest.mark.parametrize("hd,g,ps,W,window,rope", [
+    (32, 2, 16, 2, None, True), (64, 4, 8, 5, 21, True),
+    (128, 1, 16, 8, None, False), (128, 8, 32, 8, 40, True),
+    (128, 3, 16, 3, None, True)])
+def test_paged_verify_kernels_match_plain(dev, hd, g, ps, W, window, rope,
+                                          in_dtype, pool_dtype, q8):
+    """K8 and K9: every window row's output within 1e-4 of max |out|, all
+    W rows written as the plain version writes them, windows that start at
+    a page's last rows and cross into the next page, an inactive slot."""
+    gen = torch.Generator(device=dev).manual_seed(hd + g + ps + W)
+    maxp = 6
+    starts = [0, ps - 1, 2 * ps - W + 1, -1, 3 * ps + 5, maxp * ps - W]
+    q, k, v, pools, pt, idx, kw = _paged_case(
+        dev, gen, B=6, Hkv=2, g=g, hd=hd, ps=ps, maxp=maxp, W=W, q8=q8,
+        in_dtype=in_dtype, pool_dtype=pool_dtype, index=starts, rope=rope)
+    kw["sliding_window"] = window
+    got_p = [t.clone() for t in pools]
+    want_p = [t.clone() for t in pools]
+    fn = "paged_verify_attention" + ("_q8" if q8 else "")
+    before = getattr(paged_attn, fn).launches
+    got = getattr(paged_attn, fn)(q, k, v, *got_p, pt, idx, **kw)
+    want = getattr(paged_attn, fn + "_plain")(q, k, v, *want_p, pt, idx, **kw)
+    torch.cuda.synchronize()
+    assert getattr(paged_attn, fn).launches == before + 1
+    assert got.shape == want.shape == (6, 2 * g, W, hd)
+    assert (got - want).abs().max() <= 1e-4 * want.abs().max()
+    assert not got[3].any()
+    for a, b_ in zip(got_p, want_p):
+        assert torch.equal(a, b_)
+    assert not torch.equal(got_p[0], pools[0])
+
+
+@pytest.mark.parametrize("family,cache_dtype", [
+    ("llama", torch.float32), ("llama", "int8"), ("opt", torch.float32)])
+def test_tiny_model_paged_serving_matches_plain(dev, family, cache_dtype):
+    """The paged engine on a tiny model: step, step_window, the speculative
+    window and chunked admission token-identical to each other and (f32
+    pool) to the plain path; the sampled run repeats; every page is free
+    afterwards."""
+    if family == "llama":
+        cfg = llama.LlamaConfig(vocab_size=512, hidden_size=256,
+                                intermediate_size=384, n_layers=2, n_heads=4,
+                                n_kv_heads=2, max_seq=128)
+        make = synthetic.quantized_llama
+    else:
+        cfg = opt.OPTConfig(vocab_size=512, hidden_size=256, ffn_dim=384,
+                            n_layers=2, n_heads=4, max_seq=128)
+        make = synthetic.quantized_opt
+    model = fuse.fuse_for_decode(make(cfg, 4, sparsity=0.01, topx=3, seed=5,
+                                      device=dev))
+    rng = np.random.default_rng(2)
+    base = rng.integers(0, 512, 37).tolist()
+    prompts = [base + [7], base + [9, 11], rng.integers(0, 512, 5).tolist(),
+               [3, 1, 4] * 6, rng.integers(0, 512, 5).tolist()]
+
+    def run(window=1, **kw):
+        eng = serving.PagedContinuousBatchEngine(
+            model, slots=3, n_pages=40, page_size=16, cache_dtype=cache_dtype,
+            **kw)
+        out = eng.run(prompts, max_new_tokens=10, window=window)
+        assert eng.pool.pages_in_use() == 0
+        return out
+
+    before = [paged_attn.paged_decode_attention.launches,
+              paged_attn.paged_decode_attention_q8.launches,
+              paged_attn.paged_verify_attention.launches,
+              paged_attn.paged_verify_attention_q8.launches]
+    ref = run()
+    assert run(window=4) == ref
+    assert run(speculative=(3, 2)) == ref
+    assert run(prefill_chunk=8) == ref  # chunks of 8, 8, ... and a tail of 1
+    after = [paged_attn.paged_decode_attention.launches,
+             paged_attn.paged_decode_attention_q8.launches,
+             paged_attn.paged_verify_attention.launches,
+             paged_attn.paged_verify_attention_q8.launches]
+    moved = [a > b for a, b in zip(after, before)]
+    assert moved == ([False, True, False, True] if cache_dtype == "int8"
+                     else [True, False, True, False])
+    if cache_dtype != "int8":
+        assert run(plain=True) == ref
+    sp = SamplingParams(temperature=0.8, top_k=40, top_p=0.95)
+    eng = [serving.PagedContinuousBatchEngine(
+        model, slots=3, n_pages=40, page_size=16, cache_dtype=cache_dtype,
+        seed=3) for _ in range(2)]
+    a = eng[0].run(prompts, max_new_tokens=10, sampling=sp)
+    b = eng[1].run(prompts, max_new_tokens=10, window=4, sampling=sp)
+    assert a == b and a != ref
