@@ -6,7 +6,7 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from csrc/ with nvcc, holds each kernel
-(K1-K9) against its plain PyTorch version at the main path's shapes, and
+(K1-K12) against its plain PyTorch version at the main path's shapes, and
 drives the port's paths on random full-width models made from a seed,
 checking after each that it went through its kernels:
 
@@ -22,7 +22,14 @@ checking after each that it went through its kernels:
   of 160 pages of 128 rows: 16 requests with a shared 256-token prefix
   through run() by single steps, decode windows, prompt-lookup speculation
   and sampling (K6, K8, K3 with a start), then the bf16 and int8 pools
-  (K7, K9).
+  (K7, K9);
+* offline quantization on the card: a dense LLaMA-2-7B at full width
+  (QUANT_LAYERS deep), Fisher gradients, quantize_model w4 structured and
+  w3 free with a 0.45% sidecar and a quantized lm_head, save_quantized,
+  load_quantized, fuse, one request each against the plain path (K10, K1);
+* a structured w4 LLaMA-2-7B at full depth: a request and the bf16 decode
+  benchmark through K10, the benchmark again with the structured table
+  withheld (K1), then with transposed words attached (K11 and K12).
 
 The last line is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``; the line before it
@@ -59,6 +66,14 @@ K1_SHAPES = (("qkv", 12288, 4096, 32), ("o", 4096, 4096, 32),
              ("gateup", 22016, 4096, 32), ("down", 4096, 11008, 32),
              ("lm_head", 32000, 4096, 1))  # (name, out, in, per step)
 PROMPT_LENS = (7, 16, 100)
+K10_ROWS = (1, 8, 16, 100)  # decode, 8 slots, a verify window, a prompt
+K11_ROWS = (1, 8)  # the transposed route takes at most 8 rows
+K12_ROWS = (1, 8, 40, 100)
+# offline quantization: a dense LLaMA-2-7B at full width and depth (Fisher
+# keeps the f32 weights and the grad^2 sums of every layer on the card, ~54
+# GB), calibrated on FISHER_SAMPLES synthetic windows of FISHER_SEQLEN
+# tokens
+QUANT_LAYERS, FISHER_SAMPLES, FISHER_SEQLEN = 32, 4, 512
 NEW_TOKENS = 32
 BENCH_TOKENS = 128
 # K4: W against the plain version's. Exact mode: equal. bf16 mode: equal,
@@ -588,10 +603,218 @@ def check_k5(torch, timer, record):
           f"{worst_rel:.3g} within {TOL_ATTN}, max abs err {worst:.3g}")
 
 
+def _structured(torch, t):
+    """A structured random linear's table as K10 takes it, on the card."""
+    from squeezellm_tpu_torch.quantize import kmeans
+
+    a, d = kmeans.structured_decomposition(t["lut"])
+    return (torch.from_numpy(a).cuda(), torch.from_numpy(d).cuda())
+
+
+def _lut_case(timer, record, key, name, bits, M, mode, per_step, got, want,
+              tol, timed, nbytes, ops, library):
+    """Hold one K10/K11 case to its plain version, time it, keep the row."""
+    err = rel_err(got, want)
+    if err > tol:
+        raise AssertionError(f"{key} {name} M={M} {mode}: rel err {err}")
+    b, by = bound_ms(nbytes, ops)
+    kernel, plain = timed
+    row = dict(shape=name, bits=bits, M=M, mode=mode,
+               launches_per_step=per_step, rel_err=err,
+               abs_err=abs_err(got, want), ms=timer.ms(kernel),
+               plain_ms=timer.ms(plain, iters=5),
+               library_ms=timer.ms(library), bound_ms=b,
+               bound_by=by, bytes=nbytes)
+    row["gb_s"] = nbytes / row["ms"] / 1e6
+    record[f"{key}_detail"].append(row)
+    record[f"{key}_max_abs_err"] = max(record.get(f"{key}_max_abs_err", 0.0),
+                                       row["abs_err"])
+    return row
+
+
+def _print_lut_rows(record, key, label):
+    print(f"  {label} ms (bound by b=bytes/o=operations, plain, library "
+          f"matmul)")
+    for r in record[f"{key}_detail"]:
+        if r["mode"] == "exact":
+            continue
+        e = next(q for q in record[f"{key}_detail"] if q["mode"] == "exact"
+                 and all(q[k] == r[k] for k in ("shape", "M")))
+        print(f"  {label} {r['shape']:8s} M={r['M']:3d} " + "  ".join(
+            f"{q['mode']} {q['ms']:.4f} ({q['bound_ms']:.4f}"
+            f"{q['bound_by'][0]}, {q['plain_ms']:.3f}, {q['library_ms']:.4f})"
+            for q in (r, e)))
+    for mode in ("bf16", "exact"):
+        rows = [r for r in record[f"{key}_detail"] if r["M"] == 1
+                and r["mode"] == mode]
+        step = {k: sum(r[k] * r["launches_per_step"] for r in rows)
+                for k in ("ms", "bound_ms", "library_ms")}
+        record[f"{key}_per_decode_step"].append(dict(mode=mode, **step))
+        print(f"  {label} per decode step {mode}: {step['ms']:.3f} ms (bound "
+              f"{step['bound_ms']:.3f}, library {step['library_ms']:.3f})")
+
+
+def check_k10(torch, timer, record):
+    """K10 (structured LUT matmul) against its plain version at the decode
+    and prefill shapes of a structured w4 LLaMA-2-7B."""
+    from squeezellm_tpu_torch import synthetic
+    from squeezellm_tpu_torch.ops import lut_matmul, plain_ops
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(16)
+    for name, out_f, in_f, per_step in K1_SHAPES:
+        sp = 0.0 if name == "lm_head" else 0.0045
+        t = synthetic.random_quant_linear(gen, dev, out_f, in_f, 4, sp, 0,
+                                          structured=True).tensors()
+        a, d = _structured(torch, t)
+        kw = {}
+        if "sp_rowptr" in t:
+            kw = dict(rowptr=t["sp_rowptr"], cols=t["sp_cols"],
+                      vals=t["sp_vals"])
+        nnz = t["sp_vals"].numel() if kw else 0
+        w32 = plain_ops.dequantize(t["qweight"],
+                                   lut_matmul.struct_lut(a, d), 4, in_f)
+        lib_w = {"exact": w32, "bf16": w32.to(torch.bfloat16)}
+        for M in K10_ROWS:
+            for mode in ("exact", "bf16"):
+                dt = torch.bfloat16 if mode == "bf16" else torch.float32
+                x = torch.randn(M, in_f, generator=gen, device=dev).to(dt)
+                y0 = torch.randn(M, out_f, generator=gen, device=dev).to(dt)
+                args = (x, t["qweight"], a, d)
+
+                def kernel():
+                    return lut_matmul.lut_matmul_struct(*args, y0=y0,
+                                                        mode=mode, **kw)
+
+                def plain():
+                    return lut_matmul.lut_matmul_struct_plain(
+                        *args, y0=y0, mode=mode, **kw)
+
+                got, want = kernel(), plain()
+                torch.cuda.synchronize()
+                nbytes = (t["qweight"].numel() * 4 + out_f * 9 * 4
+                          + x.numel() * x.element_size()
+                          + y0.numel() * y0.element_size() + got.numel() * 4
+                          + (nnz * 8 + (out_f + 1) * 4 if kw else 0))
+                ops = [(2 * M * in_f * out_f,
+                        "bf16" if mode == "bf16" else "f32"),
+                       (2 * M * nnz, "f32")]
+                w = lib_w[mode]
+                _lut_case(timer, record, "k10", name, 4, M, mode, per_step,
+                          got, want, TOL_K1[mode], (kernel, plain), nbytes,
+                          ops, lambda: torch.matmul(x, w))
+        del t, w32, lib_w
+    _print_lut_rows(record, "k10", "K10")
+    print(f"K10 ok: {len(record['k10_detail'])} cases (5 shapes, rows "
+          f"{K10_ROWS}, exact and bf16), max abs err "
+          f"{record['k10_max_abs_err']:.3g}, within {TOL_K1} of max |y|")
+
+
+def check_k11(torch, timer, record):
+    """K11 (transposed 4-bit GEMV) against its plain version at the decode
+    shapes of LLaMA-2-7B, 1 and 8 rows."""
+    from squeezellm_tpu_torch import synthetic
+    from squeezellm_tpu_torch.ops import lut_matmul_t, plain_ops
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(17)
+    for name, out_f, in_f, per_step in K1_SHAPES:
+        t = synthetic.random_quant_linear(gen, dev, out_f, in_f, 4, 0.0,
+                                          0).tensors()
+        qwt = t["qweight"].t().contiguous()
+        w32 = plain_ops.dequantize(t["qweight"], t["lut"], 4, in_f)
+        lib_w = {"exact": w32, "bf16": w32.to(torch.bfloat16)}
+        del t["qweight"]
+        for M in K11_ROWS:
+            for mode in ("exact", "bf16"):
+                dt = torch.bfloat16 if mode == "bf16" else torch.float32
+                x = torch.randn(M, in_f, generator=gen, device=dev).to(dt)
+
+                def kernel():
+                    return lut_matmul_t.lut_matmul_t(x, qwt, t["lut"],
+                                                     mode=mode)
+
+                def plain():
+                    return lut_matmul_t.lut_matmul_t_plain(x, qwt, t["lut"],
+                                                           mode=mode)
+
+                got, want = kernel(), plain()
+                torch.cuda.synchronize()
+                nbytes = (qwt.numel() * 4 + t["lut"].numel() * 4
+                          + x.numel() * x.element_size() + got.numel() * 4)
+                ops = [(2 * M * in_f * out_f,
+                        "bf16" if mode == "bf16" else "f32")]
+                w = lib_w[mode]
+                _lut_case(timer, record, "k11", name, 4, M, mode, per_step,
+                          got, want, TOL_K1[mode], (kernel, plain), nbytes,
+                          ops, lambda: torch.matmul(x, w))
+        del t, qwt, w32, lib_w
+    _print_lut_rows(record, "k11", "K11")
+    print(f"K11 ok: {len(record['k11_detail'])} cases (5 shapes, rows "
+          f"{K11_ROWS}, exact and bf16), max abs err "
+          f"{record['k11_max_abs_err']:.3g}, within {TOL_K1} of max |y|")
+
+
+def check_k12(torch, timer, record):
+    """K12 (CSR sparse sum) against its plain version on the 0.45% sidecars
+    of LLaMA-2-7B's fused linears, x in f32 (exact regime) and bf16."""
+    from squeezellm_tpu_torch import synthetic
+    from squeezellm_tpu_torch.ops import spmv
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(18)
+    for name, out_f, in_f, per_step in K1_SHAPES[:4]:
+        t = synthetic.random_quant_linear(gen, dev, out_f, in_f, 4, 0.0045,
+                                          0).tensors()
+        csr = (t["sp_rowptr"], t["sp_cols"], t["sp_vals"])
+        nnz = csr[2].numel()
+        lib = torch.sparse_csr_tensor(*csr, size=(out_f, in_f))
+        for M in K12_ROWS:
+            for mode in ("exact", "bf16"):
+                dt = torch.bfloat16 if mode == "bf16" else torch.float32
+                x = torch.randn(M, in_f, generator=gen, device=dev).to(dt)
+                xt = x.float().t().contiguous()
+
+                def kernel():
+                    return spmv.spmv(x, *csr, out_f)
+
+                def plain():
+                    return spmv.spmv_plain(x, *csr, out_f)
+
+                got, want = kernel(), plain()
+                torch.cuda.synchronize()
+                nbytes = ((out_f + 1) * 4 + nnz * 8
+                          + x.numel() * x.element_size() + got.numel() * 4)
+                _lut_case(timer, record, "k12", name, 4, M, mode, per_step,
+                          got, want, TOL_K1["exact"], (kernel, plain),
+                          nbytes, [(2 * M * nnz, "f32")],
+                          lambda: torch.sparse.mm(lib, xt))
+        del t, csr, lib
+    print("  K12 ms (bound by b=bytes/o=operations, plain, library "
+          "torch.sparse.mm on a CSR tensor)")
+    for r in record["k12_detail"]:
+        print(f"  K12 {r['shape']:8s} M={r['M']:3d} x {r['mode']:5s} "
+              f"{r['ms']:.4f} ({r['bound_ms']:.4f}{r['bound_by'][0]}, "
+              f"{r['plain_ms']:.3f}, {r['library_ms']:.4f})")
+    for mode in ("bf16", "exact"):
+        rows = [r for r in record["k12_detail"] if r["M"] == 1
+                and r["mode"] == mode]
+        step = {k: sum(r[k] * r["launches_per_step"] for r in rows)
+                for k in ("ms", "bound_ms", "library_ms")}
+        record["k12_per_decode_step"].append(dict(mode=mode, **step))
+        print(f"  K12 per decode step, x {mode}: {step['ms']:.3f} ms (bound "
+              f"{step['bound_ms']:.4f}, library {step['library_ms']:.3f})")
+    print(f"K12 ok: {len(record['k12_detail'])} cases (4 sidecars, rows "
+          f"{K12_ROWS}, x f32 and bf16), max abs err "
+          f"{record['k12_max_abs_err']:.3g}, within {TOL_K1['exact']} of "
+          f"max |y|")
+
+
 def counters():
-    """The nine wrappers, K1 to K9."""
+    """The twelve wrappers, K1 to K12."""
     from squeezellm_tpu_torch.ops import (decode_attn, dequant_dense,
-                                          flash_attn, lut_matmul, paged_attn)
+                                          flash_attn, lut_matmul,
+                                          lut_matmul_t, paged_attn, spmv)
 
     return (lut_matmul.lut_matmul, decode_attn.decode_attention,
             flash_attn.flash_attention, dequant_dense.dequant_dense,
@@ -599,7 +822,9 @@ def counters():
             paged_attn.paged_decode_attention,
             paged_attn.paged_decode_attention_q8,
             paged_attn.paged_verify_attention,
-            paged_attn.paged_verify_attention_q8)
+            paged_attn.paged_verify_attention_q8,
+            lut_matmul.lut_matmul_struct, lut_matmul_t.lut_matmul_t,
+            spmv.spmv)
 
 
 def reset_counts():
@@ -614,7 +839,7 @@ def expect_counts(record, path, want):
     got = read_counts()
     want = list(want) + [0] * (len(got) - len(want))
     if got != want:
-        raise AssertionError(f"{path}: launches K1..K9 {got} != {want}")
+        raise AssertionError(f"{path}: launches K1..K12 {got} != {want}")
     record["paths"].append({"path": path, "launches": got})
     return got
 
@@ -810,7 +1035,7 @@ def run_model(torch, config, bits, record):
         raise AssertionError(f"w{bits} f32 logits: {res['tf_exact_rel_err']}")
     print(f"w{bits} (i) 3 requests (prompts {PROMPT_LENS}, {NEW_TOKENS} new "
           f"tokens) in {res['requests_s']:.2f} s, tokens identical to the "
-          f"plain path; launches K1..K9 {res['launches']}; f32 "
+          f"plain path; launches K1..K12 {res['launches']}; f32 "
           f"teacher-forced logits rel err {res['tf_exact_rel_err']:.3g}")
 
     # (ii) the bf16 flagship benchmark
@@ -847,7 +1072,7 @@ def run_model(torch, config, bits, record):
                          cache, dtype=torch.bfloat16, mode="bf16")
     stats["launches_per_decode_step"] = read_counts()
     if stats["launches_per_decode_step"] != [4 * config.n_layers + 1,
-                                             config.n_layers] + [0] * 7:
+                                             config.n_layers] + [0] * 10:
         raise AssertionError(f"per-step launches {read_counts()}")
     res["bench"] = stats
     print(f"w{bits} (ii) bf16 decode: {stats['tokens_per_s']:.2f} tok/s, "
@@ -861,7 +1086,7 @@ def run_model(torch, config, bits, record):
           f"not held): kernels vs plain {stats['tf_bf16_rel_err']:.3g}, "
           f"argmax agree {stats['tf_bf16_argmax_agree']:.3f}, plain bf16 vs "
           f"plain f32 {stats['tf_bf16_plain_vs_f32']:.3g}")
-    print(f"w{bits} (iii) launches per decode step K1..K9: "
+    print(f"w{bits} (iii) launches per decode step K1..K12: "
           f"{stats['launches_per_decode_step']}")
     print_profile(f"w{bits}", stats, record)
     record["models"].append(res)
@@ -919,7 +1144,7 @@ def run_eval(torch, model, label, record, modes=("exact", "bf16"),
               f"{ppl_plain:.6g} plain, rel {rel:.3g} ({held}); "
               f"{secs / strides:.3f} s a stride (host clock, {strides} "
               f"strides, {EVAL_GROUP} a forward; card meanwhile "
-              f"{card.stats}); launches K1..K9 {launches}")
+              f"{card.stats}); launches K1..K12 {launches}")
         if prof["profile_failed"]:
             record["profile_failed"].append(f"{label} eval {mode}")
             print(f"{label} eval {mode} PROFILE FAILED, device time not "
@@ -991,7 +1216,7 @@ def run_int8(torch, model, ids, bf16_stats, record):
                          dtype=torch.bfloat16, mode="bf16")
     stats["launches_per_decode_step"] = read_counts()
     if stats["launches_per_decode_step"] != [4 * cfg.n_layers + 1, 0, 0, 0,
-                                             cfg.n_layers, 0, 0, 0, 0]:
+                                             cfg.n_layers] + [0] * 7:
         raise AssertionError(f"int8 per-step launches {read_counts()}")
     if not math.isfinite(stats["check_ppl"]):
         raise AssertionError(f"int8 bf16 benchmark: {stats}")
@@ -999,7 +1224,7 @@ def run_int8(torch, model, ids, bf16_stats, record):
           f"new tokens); at full depth (reported, not held) the logits that "
           f"choose its tokens lie {rel:.3g} of max |logit| from the plain "
           f"path's, {flips} argmax flips, {same} of {NEW_TOKENS} leading "
-          f"tokens identical; launches K1..K9 {launches}; per decode step "
+          f"tokens identical; launches K1..K12 {launches}; per decode step "
           f"{stats['launches_per_decode_step']}")
     print_layer_check("w4 f32, int8 cache", lc, TOL_LAYER_INT8, "int8 cache")
     for name, st in (("int8 cache", stats), ("bf16 cache", bf16_stats)):
@@ -1373,7 +1598,7 @@ def run_paged(torch, config, record, smi):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         st = eng.stats
-        want = [0] * 9
+        want = [0] * 12
         if not eng.plain:
             want[0] = k1_call * (st["prefills"] + st["decode_steps"]
                                  + st["spec_windows"])
@@ -1403,7 +1628,7 @@ def run_paged(torch, config, record, smi):
               f"{n_new / secs:.1f} generated tok/s{acc}; {st['prefills']} "
               f"prefills, {st['decode_steps']} decode steps; pages "
               f"allocated {pool.allocated} (unshared {unshared}), all free "
-              f"or cached again; launches K1..K9 {launches} [{smi}]")
+              f"or cached again; launches K1..K12 {launches} [{smi}]")
         return out
 
     def run(eng, **kw):
@@ -1575,7 +1800,7 @@ def run_opt(torch, record):
                              f"tokens {ref}")
     res["tokens"] = got[0, OPT_PROMPT:].tolist()
     print(f"opt-6.7b w4 request (prompt {OPT_PROMPT}, {NEW_TOKENS} new "
-          f"tokens, f32) identical to the plain path; launches K1..K9 "
+          f"tokens, f32) identical to the plain path; launches K1..K12 "
           f"{res['launches']}, all {ropeless} K2 launches without rope")
     record["opt"] = res
 
@@ -1597,6 +1822,285 @@ def run_dense(torch, config, record):
           f"{stats['achieved_gb_s']:.1f} GB/s, peak "
           f"{stats['peak_memory_mib']:.0f} MiB")
     print_profile("bf16 dense", stats, record)
+
+
+def dense_tree(torch, config, seed):
+    """A random dense LLaMA tree at the config's widths and depth, made on
+    the card from a seed one tensor at a time and kept on the host in bf16
+    (an HF checkpoint's precision): the input of Fisher and quantize."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    h = config.hidden_size
+
+    def w(o, i, scale):
+        return (torch.randn(o, i, generator=gen, device="cuda")
+                * scale).to(torch.bfloat16).cpu()
+
+    layers = []
+    for _ in range(config.n_layers):
+        layer = {name: {"w": w(o, i, 0.5 / math.sqrt(i))}
+                 for name, (o, i) in config.linear_shapes().items()}
+        layer["input_norm"] = torch.ones(h, dtype=torch.bfloat16)
+        layer["post_norm"] = torch.ones(h, dtype=torch.bfloat16)
+        layers.append(layer)
+    return {"embed": w(config.vocab_size, h, 0.02), "layers": layers,
+            "final_norm": torch.ones(h, dtype=torch.bfloat16),
+            "lm_head": {"w": w(config.vocab_size, h, 0.02)}}
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+
+
+def run_quantize(torch, config, record):
+    """Offline quantization on the card, from a random dense LLaMA-2-7B at
+    full width and QUANT_LAYERS layers: Fisher on synthetic calibration
+    tokens, then quantize_model twice (w4 with a 0.45% sensitivity sidecar
+    and structured codebooks; w3 free with the same sidecar), both with a
+    quantized lm_head; save_quantized, load_quantized, fuse; one f32
+    request against the plain path (K10 for w4, K1 for w3)."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+
+    from squeezellm_tpu_torch import checkpoint, data, engine
+    from squeezellm_tpu_torch.models import fuse
+    from squeezellm_tpu_torch.quantize import gradients, pipeline
+
+    cfg = dataclasses.replace(config, n_layers=QUANT_LAYERS)
+    L = cfg.n_layers
+    res = {"layers": L, "calib": [FISHER_SAMPLES, FISHER_SEQLEN],
+           "seconds": {}}
+    secs = res["seconds"]
+    t0 = time.perf_counter()
+    tree = dense_tree(torch, cfg, seed=21)
+    secs["make dense tree"] = time.perf_counter() - t0
+    calib, _ = data.get_loaders("synthetic", nsamples=FISHER_SAMPLES,
+                                seed=0, seqlen=FISHER_SEQLEN,
+                                vocab_size=cfg.vocab_size)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    grads = gradients.compute_fisher("llama", cfg, tree, calib)
+    torch.cuda.synchronize()
+    secs["fisher"] = time.perf_counter() - t0
+    res["fisher_peak_mib"] = torch.cuda.max_memory_allocated() / 2**20
+    finite = all(bool(torch.isfinite(g).all()) and float(g.max()) > 0
+                 for layer in grads for g in layer.values())
+    if not finite:
+        raise AssertionError("Fisher: grad^2 not finite or all zero")
+    print(f"quantize: dense LLaMA-2-7B widths, {L} layers, made in "
+          f"{secs['make dense tree']:.1f} s; Fisher over {FISHER_SAMPLES} x "
+          f"{FISHER_SEQLEN} synthetic tokens in {secs['fisher']:.1f} s (peak "
+          f"{res['fisher_peak_mib']:.0f} MiB)")
+    rng = np.random.default_rng(22)
+    prompt = rng.integers(0, cfg.vocab_size, (1, PROMPT_LENS[-1]))
+    runs = ((4, True), (3, False))
+    for bits, structured in runs:
+        label = f"w{bits}" + (" structured" if structured else "")
+        stats = {}
+        t0 = time.perf_counter()
+        specs, params = pipeline.quantize_model(
+            "llama", cfg, tree, bits, gradients_per_layer=grads,
+            sensitivity=0.45, quantize_lm_head=True, structured=structured,
+            stats=stats)
+        total = time.perf_counter() - t0
+        path = os.path.join(HERE, "build", f"quantized_w{bits}")
+        shutil.rmtree(path, ignore_errors=True)
+        t0 = time.perf_counter()
+        checkpoint.save_quantized(path, "llama", cfg, specs, params)
+        res[label] = dict(
+            total_s=total, stages_s=stats, per_layer_s=total / (L + 1),
+            save_s=time.perf_counter() - t0,
+            checkpoint_bytes=_dir_bytes(path),
+            widest_sidecar_row=max(
+                int(np.bincount(p["sp_rows"][p["sp_vals"] != 0],
+                                minlength=1).max())
+                for layer in params["layers"] for p in layer.values()
+                if isinstance(p, dict) and "sp_rows" in p))
+        del specs, params
+    # the dense tree and the grad^2 sums (27 GB on the card) are done with
+    del grads, tree
+    torch.cuda.empty_cache()
+    for bits, structured in runs:
+        label = f"w{bits}" + (" structured" if structured else "")
+        path = os.path.join(HERE, "build", f"quantized_w{bits}")
+        t0 = time.perf_counter()
+        _, model = checkpoint.load_quantized(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        shutil.rmtree(path)
+        fuse.fuse_for_decode(model)
+        lins = fuse.quant_linears(model)
+        with_struct = sum("struct_a" in m.tensors() for m in lins)
+        if with_struct != (len(lins) if structured else 0):
+            raise AssertionError(f"{label}: {with_struct} of {len(lins)} "
+                                 "linears got the structured table")
+        tf = tf_logits(torch, model)
+        reset_counts()
+        got = engine.Engine(model).generate(prompt, NEW_TOKENS)
+        k = 9 if structured else 0  # K10 or K1
+        want = [0] * 12
+        want[k] = NEW_TOKENS * (4 * L + 1)
+        want[1], want[2] = (NEW_TOKENS - 1) * L, L
+        launches = expect_counts(record, f"quantized {label} request", want)
+        ref = engine.Engine(model, plain=True).generate(prompt, NEW_TOKENS)
+        if not np.array_equal(got, ref):
+            raise AssertionError(f"{label} request: kernel tokens {got} != "
+                                 f"plain tokens {ref}")
+        r = res[label]
+        r.update(load_s=load_s, launches=launches,
+                 structured_linears=with_struct, tokens=got[0].tolist(),
+                 tf_exact_rel_err=tf)
+        print(f"quantize {label}: {r['total_s']:.1f} s for {L} layers and "
+              f"the lm_head ({r['per_layer_s']:.2f} s each); stages "
+              + ", ".join(f"{n} {v:.1f}" for n, v in r["stages_s"].items())
+              + f"; save {r['save_s']:.1f} s "
+              f"({r['checkpoint_bytes'] / 2**20:.0f} MiB; widest sidecar row "
+              f"{r['widest_sidecar_row']}), load {load_s:.1f} s; "
+              f"{with_struct} of {len(lins)} linears structured; f32 request "
+              f"({PROMPT_LENS[-1]}-token prompt, {NEW_TOKENS} new) "
+              f"token-identical to the plain path, launches K1..K12 "
+              f"{launches}; f32 teacher-forced logits rel err {tf:.3g}")
+        del model
+    record["quantize"] = res
+
+
+def tf_logits(torch, model):
+    """f32 teacher-forced logits of 16 tokens through the kernels against
+    the plain path: finite and within TOL_TF_EXACT of max |logit|."""
+    import numpy as np
+
+    from squeezellm_tpu_torch import engine
+
+    ids = (np.arange(16, dtype=np.int64)[None] * 7919) % model.config.vocab_size
+    got = engine.Engine(model).teacher_forced_logits(ids, max_seq=BENCH_TOKENS)
+    want = engine.Engine(model, plain=True).teacher_forced_logits(
+        ids, max_seq=BENCH_TOKENS)
+    err = rel_err(got, want)
+    if not (torch.isfinite(got).all() and err <= TOL_TF_EXACT):
+        raise AssertionError(f"f32 teacher-forced logits: finite "
+                             f"{bool(torch.isfinite(got).all())}, rel err {err}")
+    return err
+
+
+def _bench(torch, model, ids, label, smi):
+    """The bf16 decode benchmark and its device time per step."""
+    from squeezellm_tpu_torch import engine
+
+    bf = engine.Engine(model, dtype=torch.bfloat16,
+                       cache_dtype=torch.bfloat16, mode="bf16")
+    torch.cuda.reset_peak_memory_stats()
+    stats = bf.benchmark(ids, max_seq=BENCH_TOKENS)
+    stats["profile"] = profile_decode(torch, bf, ids)
+    if not math.isfinite(stats["check_ppl"]):
+        raise AssertionError(f"{label} bf16 benchmark: {stats}")
+    prof = stats["profile"]
+    busy = ("not measured" if prof["profile_failed"]
+            else f"{prof['device_ms_per_step']:.3f} ms")
+    print(f"{label} bf16 decode: {stats['tokens_per_s']:.2f} tok/s, "
+          f"{stats['median_latency_s'] * 1e3:.3f} ms/token, device time a "
+          f"step {busy}, peak {stats['peak_memory_mib']:.0f} MiB [{smi}]")
+    return bf, stats
+
+
+def _one_step(torch, bf, record, path, want):
+    """Launches of one bf16 decode step after a prompt, held to `want`."""
+    cache = bf.new_cache(1, BENCH_TOKENS)
+    kw = dict(dtype=torch.bfloat16, mode="bf16")
+    bf.model.prefill(torch.arange(1, 17, device="cuda")[None], cache, **kw)
+    reset_counts()
+    bf.model.decode_step(torch.tensor([[1]], device="cuda"), 16, cache, **kw)
+    return expect_counts(record, path, want)
+
+
+def run_structured(torch, config, record, smi):
+    """A structured w4 LLaMA-2-7B at full width and depth (bench.py's
+    structured statistics), fused: its 129 linears take K10; then the same
+    model with the structured table withheld (K1 on the expanded LUT), and
+    with transposed words attached (K11 and K12 at decode)."""
+    import numpy as np
+
+    from squeezellm_tpu_torch import engine, synthetic
+    from squeezellm_tpu_torch.models import fuse
+
+    L = config.n_layers
+    per_step = 4 * L + 1
+    model = fuse.fuse_for_decode(synthetic.quantized_llama(
+        config, 4, seed=10, structured=True))
+    lins = fuse.quant_linears(model)
+    if not all("struct_a" in m.tensors() for m in lins):
+        raise AssertionError("structured model: a linear lacks its table")
+    prompt = np.random.default_rng(10).integers(0, config.vocab_size,
+                                                (1, PROMPT_LENS[-1]))
+    ids = ((np.arange(BENCH_TOKENS, dtype=np.int64)[None] * 7919)
+           % config.vocab_size)
+    res = {}
+
+    def request(label, want):
+        tf = tf_logits(torch, model)
+        reset_counts()
+        got = engine.Engine(model).generate(prompt, NEW_TOKENS)
+        launches = expect_counts(record, f"{label} request", want)
+        ref = engine.Engine(model, plain=True).generate(prompt, NEW_TOKENS)
+        if not np.array_equal(got, ref):
+            raise AssertionError(f"{label} request: kernel tokens {got} != "
+                                 f"plain tokens {ref}")
+        print(f"{label}: f32 request ({PROMPT_LENS[-1]}-token prompt, "
+              f"{NEW_TOKENS} new) token-identical to the plain path; "
+              f"launches K1..K12 {launches}; f32 teacher-forced logits rel "
+              f"err {tf:.3g}")
+        return dict(launches=launches, tokens=got[0].tolist(),
+                    tf_exact_rel_err=tf)
+
+    # K10: the prompt (100 rows) and every decode step
+    want = [0] * 12
+    want[9] = NEW_TOKENS * per_step
+    want[1], want[2] = (NEW_TOKENS - 1) * L, L
+    res["structured"] = request("structured w4", want)
+    bf, res["structured"]["bench"] = _bench(torch, model, ids,
+                                            "structured w4 (K10)", smi)
+    step = [0] * 12
+    step[9], step[1] = per_step, L
+    res["structured"]["launches_per_decode_step"] = _one_step(
+        torch, bf, record, "structured w4 decode step", step)
+    del bf
+    # the same model without its structured table: K1 on the expanded LUT
+    for m in lins:
+        m.drop_tensors("struct_a", "struct_d")
+    bf, res["withheld"] = _bench(torch, model, ids,
+                                 "structured w4, table withheld (K1)", smi)
+    step = [0] * 12
+    step[0], step[1] = per_step, L
+    res["withheld"]["launches_per_decode_step"] = _one_step(
+        torch, bf, record, "structured w4 withheld decode step", step)
+    del bf
+    fuse.attach_decode_luts(model, transposed=True)
+    # transposed: the 100-row prompt takes K10 but for the lm_head, which
+    # reads the last row only (K11); every decode step takes K11 for the
+    # 129 linears and K12 for the 128 sidecars
+    want = [0] * 12
+    want[9] = 4 * L
+    want[10] = (NEW_TOKENS - 1) * per_step + 1
+    want[11] = (NEW_TOKENS - 1) * 4 * L
+    want[1], want[2] = (NEW_TOKENS - 1) * L, L
+    res["transposed"] = request("transposed w4", want)
+    bf, res["transposed"]["bench"] = _bench(torch, model, ids,
+                                            "transposed w4 (K11 + K12)", smi)
+    step = [0] * 12
+    step[10], step[11], step[1] = per_step, 4 * L, L
+    res["transposed"]["launches_per_decode_step"] = _one_step(
+        torch, bf, record, "transposed w4 decode step", step)
+    del bf
+    dev = {}
+    for k in ("structured", "withheld", "transposed"):
+        prof = res[k].get("bench", res[k])["profile"]
+        dev[k] = ("not measured" if prof["profile_failed"]
+                  else f"{prof['device_ms_per_step']:.3f}")
+        if prof["profile_failed"]:
+            record["profile_failed"].append(f"{k} w4")
+    print("structured w4 device ms a bf16 decode step: "
+          + ", ".join(f"{k} {v}" for k, v in dev.items()) + f" [{smi}]")
+    record["structured"] = res
 
 
 def print_profile(label, stats, record):
@@ -1626,7 +2130,7 @@ def kernel_lines(record):
     k6, k7, k8, k9 = (record[f"k{n}_detail"][0] for n in (6, 7, 8, 9))
     # every path's run: counts set to 0 just before it, read just after
     launches = [sum(p["launches"][i] for p in record["paths"])
-                for i in range(9)]
+                for i in range(len(counters()))]
     paged_at = (f"LLaMA-2-7B layer, {PAGED_SLOTS} slots x {PAGED_AT_ROWS} "
                 f"valid rows, {PAGE_SIZE}-row pages, ")
     rows = [
@@ -1665,6 +2169,28 @@ def kernel_lines(record):
          "squeezellm_tpu/ops/paged_attn.py:715", launches[8],
          record["k9_max_abs_err"], k9, paged_at + "int8 pool, W=5"),
     ]
+    k10 = next(r for r in record["k10_detail"] if r["shape"] == "gateup"
+               and r["M"] == 1 and r["mode"] == "bf16")
+    k11 = next(r for r in record["k11_detail"] if r["shape"] == "gateup"
+               and r["M"] == 1 and r["mode"] == "bf16")
+    k12 = next(r for r in record["k12_detail"] if r["shape"] == "gateup"
+               and r["M"] == 1 and r["mode"] == "bf16")
+    rows += [
+        ("lut_matmul_struct", "squeezellm_tpu_torch/csrc/lut_matmul.cu",
+         "squeezellm_tpu/ops/pallas_ops.py:190 (_dequant_plane_struct_sel, "
+         "through _lut_matmul_body :307)", launches[9],
+         record["k10_max_abs_err"], k10,
+         "fused gate|up 22016x4096 w4 structured, 1 row, bf16 mode, 0.45% "
+         "sidecar"),
+        ("lut_matmul_t", "squeezellm_tpu_torch/csrc/lut_matmul_t.cu",
+         "squeezellm_tpu/ops/pallas_ops.py:613", launches[10],
+         record["k11_max_abs_err"], k11,
+         "fused gate|up 22016x4096 w4, transposed words, 1 row, bf16 mode"),
+        ("spmv", "squeezellm_tpu_torch/csrc/spmv.cu",
+         "squeezellm_tpu/ops/pallas_ops.py:462 (_spmv_kernel_grouped; and "
+         ":427 _spmv_kernel)", launches[11], record["k12_max_abs_err"], k12,
+         "0.45% CSR sidecar of fused gate|up 22016x4096, 1 row of bf16 x"),
+    ]
     return {"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": n, "max_abs_err": err, "ms": r["ms"],
@@ -1695,7 +2221,9 @@ def main():
               "cuda": torch.version.cuda, "k1_detail": [], "k2_detail": [],
               "k3_detail": [], "k4_detail": [], "k5_detail": [],
               "k6_detail": [], "k7_detail": [], "k8_detail": [],
-              "k9_detail": [],
+              "k9_detail": [], "k10_detail": [], "k11_detail": [],
+              "k12_detail": [], "k10_per_decode_step": [],
+              "k11_per_decode_step": [], "k12_per_decode_step": [],
               "k1_bf16_flips": [], "k1_per_decode_step": [],
               "k4_per_forward": [], "models": [], "paths": [],
               "profile_failed": [], "failed": []}
@@ -1715,12 +2243,19 @@ def main():
               ("K5", lambda: check_k5(torch, timer, record))]
     phases += [(f"K{n}", lambda n=n: check_paged(torch, timer, record, n))
                for n in (6, 7, 8, 9)]
+    phases += [("K10", lambda: check_k10(torch, timer, record)),
+               ("K11", lambda: check_k11(torch, timer, record)),
+               ("K12", lambda: check_k12(torch, timer, record))]
     phases += [(f"model w{b}", lambda b=b: run_model(torch, config, b, record))
                for b in (4, 3)]
     phases += [("paged serving",
                 lambda: run_paged(torch, config, record, smi)),
                ("opt-6.7b w4", lambda: run_opt(torch, record)),
-               ("dense bf16", lambda: run_dense(torch, config, record))]
+               ("dense bf16", lambda: run_dense(torch, config, record)),
+               ("quantize on the card",
+                lambda: run_quantize(torch, config, record)),
+               ("structured and transposed w4",
+                lambda: run_structured(torch, config, record, smi))]
     for name, fn in phases:
         t0 = time.perf_counter()
         try:

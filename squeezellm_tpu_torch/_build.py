@@ -48,6 +48,14 @@ SIGNATURES = {
                       + [_F, _P],
     # qweight, lut, rowptr, cols, vals, w, in, out, bits, w_bf16, stream
     "slt_dequant_dense": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, x_bf16, qweight, A, d, rowptr, cols, vals, y0, y0_bf16, y, M, in,
+    # out, bf16_mode, stream
+    "slt_lut_matmul_struct": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P,
+                              _I, _I, _I, _I, _P],
+    # x, x_bf16, qweight_t, lut, y, M, in, out, bf16_mode, stream
+    "slt_lut_matmul_t": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, x_bf16, rowptr, cols, vals, y, B, in, out, stream
+    "slt_spmv": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
     # slt_decode_attn's, with the scale sidecars sk, sv after ck, cv and no
     # cache_bf16
     "slt_decode_attn_q8": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,

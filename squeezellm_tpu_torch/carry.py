@@ -23,7 +23,10 @@ from squeezellm_tpu_torch.ops.quant_linear import QuantLinearSpec
 
 
 def to_tensor(a, device) -> torch.Tensor:
-    """numpy (or array-like, bf16 included) -> torch tensor on device."""
+    """numpy (or array-like, bf16 included) or a tensor -> torch tensor on
+    device."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":
         t = torch.from_numpy(np.ascontiguousarray(a).view(np.int16).copy())
@@ -105,6 +108,17 @@ def linear_from_tree(in_f: int, meta: Dict[str, Any], p,
                         has_bias=has_bias, nnz=nnz, topx=topx)
     return Linear(LinearSpec(in_features=in_f, out_features=out_f,
                              has_bias=has_bias, quant=q), tensors)
+
+
+def dense_module_meta(model_type: str, config) -> Dict[str, Dict[str, Any]]:
+    """The ``module_meta`` of an all-dense tree (``utils.hf``): every layer
+    linear and the lm_head dense, the layer linears with a bias on OPT."""
+    bias = model_type == "opt"
+    meta = {f"{li}.{name}": {"quant": False, "has_bias": bias}
+            for li in range(config.n_layers)
+            for name in config.linear_shapes()}
+    meta["lm_head"] = {"quant": False}
+    return meta
 
 
 def from_tree(model_type: str, config_dict: Dict[str, Any],

@@ -1,19 +1,25 @@
 """Command line of the port: ``python -m squeezellm_tpu_torch <command>``.
 
+  quantize   dense HF checkpoint (+ optional grad^2 chunks) -> quantized
+             checkpoint (outliers -> k-means -> pack, one layer at a time)
+  fisher     grad^2 sensitivity chunks of a dense HF checkpoint
   eval       perplexity (GPTQ stride protocol) on ``synthetic`` tokens or a
              ``.npy`` token file
   benchmark  batch-1 decode latency, tok/s, peak memory
   generate   greedy generation from comma-separated prompt token ids
 
-Each takes ``--model DIR`` (a checkpoint directory that
-``checkpoint.save_quantized`` of the JAX package wrote) or ``--synthetic
-CONFIG --wbits N`` (a random Dense-and-Sparse model of an HF
-``config.json``, e.g. ``models/llama-2-7b/config.json``), and ``--device``
-(default ``cuda``). ``--mode exact`` runs f32 throughout; ``--mode bf16``
-the flagship regime (bf16 activations and cache, bf16-rounded LUT and x
-with f32 accumulation). The counterpart of ``cmd_eval``, ``cmd_benchmark``
-and ``cmd_generate`` of the JAX package's ``cli.py``; its other commands'
-modules are not ported yet.
+``quantize`` and ``fisher`` take the JAX package's arguments (``--model``
+an HF directory with ``config.json`` and its weights). ``eval``,
+``benchmark`` and ``generate`` take ``--model DIR`` (a quantized checkpoint
+directory, which either package's ``save_quantized`` writes) or
+``--synthetic CONFIG --wbits N`` (a random Dense-and-Sparse model of an HF
+``config.json``, e.g. ``models/llama-2-7b/config.json``). Every command
+takes ``--device`` (default ``cuda``). ``--mode exact`` runs f32
+throughout; ``--mode bf16`` the flagship regime (bf16 activations and
+cache, bf16-rounded LUT and x with f32 accumulation). The counterpart of
+the JAX package's ``cli.py`` commands of the same names; its staged
+commands (chunk, outlier-config, nuq, pack) and ``convert`` are not
+ported.
 """
 
 from __future__ import annotations
@@ -64,6 +70,59 @@ def _engine(args, model):
              "int8": "int8"}[args.kv_dtype]
     return engine.Engine(model, dtype=dtype, cache_dtype=cache,
                          mode=args.mode)
+
+
+def cmd_quantize(args):
+    from squeezellm_tpu_torch import checkpoint
+    from squeezellm_tpu_torch.quantize import outlier_config as oc_mod
+    from squeezellm_tpu_torch.quantize import pipeline
+    from squeezellm_tpu_torch.utils import hf
+
+    model_type, config, params = hf.load_dense_model(args.model)
+    names = list(config.linear_shapes())
+    grads = None
+    if args.gradient:
+        grads = []
+        for li in range(config.n_layers):
+            pt = os.path.join(args.gradient, f"layer_{li}.pt")
+            if os.path.exists(pt):  # the reference's SqueezeLLM-gradients
+                g = torch.load(pt, map_location="cpu", weights_only=True)
+                grads.append({n: g[n].float() for n in names})
+            else:  # the `fisher` command's chunks
+                with np.load(os.path.join(args.gradient,
+                                          f"layer_{li}.npz")) as g:
+                    grads.append({n: g[n] for n in names})
+    outlier_cfg = None
+    if args.outlier_range:
+        cfg = oc_mod.make_outlier_config(
+            ({n: lp[n]["w"] for n in names} for lp in params["layers"]),
+            args.outlier_range, verbose=True)
+        outlier_cfg = cfg["outlier_config"]
+        print(f"measured outlier %: {cfg['outlier_threshold']}")
+    specs, qparams = pipeline.quantize_model(
+        model_type, config, params, args.bits, gradients_per_layer=grads,
+        sensitivity=args.sensitivity, outlier_config=outlier_cfg,
+        method=args.method, quantize_lm_head=args.quantize_lm_head,
+        verbose=True, device=args.device)
+    checkpoint.save_quantized(args.output, model_type, config, specs, qparams)
+    print(f"saved quantized checkpoint to {args.output}")
+
+
+def cmd_fisher(args):
+    from squeezellm_tpu_torch import data
+    from squeezellm_tpu_torch.quantize import gradients
+    from squeezellm_tpu_torch.utils import hf
+
+    model_type, config, params = hf.load_dense_model(args.model)
+    calib, _ = data.get_loaders(args.dataset, nsamples=args.nsamples,
+                                seed=args.seed, seqlen=args.seqlen,
+                                vocab_size=config.vocab_size)
+    grads = gradients.compute_fisher(model_type, config, params, calib,
+                                     batch_size=args.batch_size,
+                                     verbose=True, device=args.device)
+    gradients.save_gradient_chunks(grads, args.output, model_type,
+                                   args.model)
+    print(f"grad^2 chunks -> {args.output}")
 
 
 def cmd_eval(args):
@@ -122,6 +181,38 @@ def main(argv=None):
                         choices=["bf16", "f32", "int8"],
                         help="KV cache storage; int8 stores codes and "
                              "per-row f32 scales")
+
+    q = sub.add_parser("quantize", help="quantize a dense HF checkpoint")
+    q.add_argument("--model", required=True,
+                   help="HF model dir (config + weights)")
+    q.add_argument("--gradient", default=None,
+                   help="dir of grad^2 chunks (layer_{i}.npz from `fisher`, "
+                        "or the reference's layer_{i}.pt)")
+    q.add_argument("--bits", type=int, default=4, choices=[3, 4])
+    q.add_argument("--sensitivity", type=float, default=0.0,
+                   help="top-%% of weights by grad^2 moved to sparse")
+    q.add_argument("--outlier-range", type=float, default=None,
+                   help="IQR multiplier for threshold outliers (e.g. 1.8)")
+    q.add_argument("--method", default="auto", choices=["auto", "batched"],
+                   help="k-means solver; the port has the batched one")
+    q.add_argument("--quantize-lm-head", action="store_true",
+                   help="also quantize lm_head (the reference keeps it "
+                        "fp16)")
+    q.add_argument("--output", required=True)
+    q.add_argument("--device", default="cuda")
+    q.set_defaults(fn=cmd_quantize)
+
+    fi = sub.add_parser("fisher", help="compute grad^2 sensitivity chunks")
+    fi.add_argument("--model", required=True)
+    fi.add_argument("--dataset", default="synthetic",
+                    help="'synthetic' or a .npy file of token ids")
+    fi.add_argument("--nsamples", type=int, default=128)
+    fi.add_argument("--seqlen", type=int, default=2048)
+    fi.add_argument("--seed", type=int, default=0)
+    fi.add_argument("--batch-size", type=int, default=1)
+    fi.add_argument("--output", required=True)
+    fi.add_argument("--device", default="cuda")
+    fi.set_defaults(fn=cmd_fisher)
 
     e = sub.add_parser("eval", help="perplexity evaluation")
     common(e)

@@ -32,6 +32,19 @@
 //    depend on the run.
 // mode bf16 rounds x and the LUT to bf16 before the products (f32
 // accumulation); the sparse fold always reads x unrounded.
+//
+// K10 (slt_lut_matmul_struct) is the same template with a second table
+// form, for 4-bit STRUCTURED codebooks lut[c] = A[c & 7] + (c >> 3) * d
+// (quantize/kmeans.fit_structured_luts). It replaces the structured bodies
+// of the TPU kernels (`_dequant_plane_struct_sel` and the structured branch
+// of `_lut_matmul_body`, squeezellm_tpu/ops/pallas_ops.py:190-205,
+// 311-342), which dequantize with one 8-entry gather plus a bit-3 select.
+// Here the block builds its 16-entry shared table from A (out, 8) and d
+// (out,) once, W = A[c & 7] + (c & 8 ? d : 0) in f32 (rounded to bf16 in
+// bf16 mode, as the TPU's one-pass MXU rounds the dequantized operand), and
+// the k loop is K1's. It reads 36 bytes of table a column instead of 64,
+// which at the byte bound of the packed words changes nothing measurable:
+// the structure saves VPU operations on a TPU, not bytes.
 #include "common.cuh"
 
 namespace {
@@ -53,6 +66,7 @@ __global__ void __launch_bounds__(kThreads)
     lut_matmul_kernel(const void* __restrict__ x, int x_bf16,
                       const uint32_t* __restrict__ qw,
                       const float* __restrict__ lut,
+                      const float* __restrict__ sd,
                       const int* __restrict__ rowptr,
                       const int* __restrict__ cols,
                       const float* __restrict__ vals,
@@ -74,10 +88,19 @@ __global__ void __launch_bounds__(kThreads)
   const int m0 = blockIdx.y * MT;
   const int nw = (in_f + CPW - 1) / CPW;
 
-  // the block's LUT rows are kCols * K contiguous floats of lut (out, K)
+  // the block's LUT rows are kCols * K contiguous floats of lut (out, K);
+  // a structured table (sd set, 4-bit) is A (out, 8) and d (out,)
   for (int t = threadIdx.x; t < kCols * K; t += kThreads) {
     const int c = t / K, k = t % K;
-    const float v = (col0 + c < out_f) ? lut[(size_t)(col0 + c) * K + k] : 0.f;
+    float v = 0.f;
+    if (col0 + c < out_f) {
+      if (sd) {
+        v = lut[(size_t)(col0 + c) * 8 + (k & 7)];
+        if (k & 8) v += sd[col0 + c];
+      } else {
+        v = lut[(size_t)(col0 + c) * K + k];
+      }
+    }
     lut_s[k][c] = bf16_mode ? slt::round_bf16(v) : v;
   }
 
@@ -166,14 +189,15 @@ __global__ void __launch_bounds__(kThreads)
 
 template <int BITS>
 void launch(int mt, dim3 grid, cudaStream_t s, const void* x, int x_bf16,
-            const uint32_t* qw, const float* lut, const int* rowptr,
-            const int* cols, const float* vals, const void* y0, int y0_bf16,
+            const uint32_t* qw, const float* lut, const float* sd,
+            const int* rowptr, const int* cols, const float* vals,
+            const void* y0, int y0_bf16,
             float* y, int M, int in_f, int out_f, int bf16_mode) {
 #define SLT_LUT_CASE(MT_)                                                   \
   case MT_:                                                                 \
     lut_matmul_kernel<BITS, MT_><<<grid, kThreads, 0, s>>>(                 \
-        x, x_bf16, qw, lut, rowptr, cols, vals, y0, y0_bf16, y, M, in_f,    \
-        out_f, bf16_mode);                                                  \
+        x, x_bf16, qw, lut, sd, rowptr, cols, vals, y0, y0_bf16, y, M,      \
+        in_f, out_f, bf16_mode);                                            \
     break;
   switch (mt) {
     SLT_LUT_CASE(1)
@@ -208,14 +232,36 @@ extern "C" int slt_lut_matmul(const void* x, int x_bf16, const void* qweight,
   const auto* vl = static_cast<const float*>(vals);
   auto* yy = static_cast<float*>(y);
   if (bits == 4) {
-    launch<4>(mt, grid, s, x, x_bf16, qw, lt, rp, cl, vl, y0, y0_bf16, yy, M,
-              in_f, out_f, bf16_mode);
+    launch<4>(mt, grid, s, x, x_bf16, qw, lt, nullptr, rp, cl, vl, y0,
+              y0_bf16, yy, M, in_f, out_f, bf16_mode);
   } else if (bits == 3) {
-    launch<3>(mt, grid, s, x, x_bf16, qw, lt, rp, cl, vl, y0, y0_bf16, yy, M,
-              in_f, out_f, bf16_mode);
+    launch<3>(mt, grid, s, x, x_bf16, qw, lt, nullptr, rp, cl, vl, y0,
+              y0_bf16, yy, M, in_f, out_f, bf16_mode);
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// K10: slt_lut_matmul's arguments with the structured table A (out, 8) f32
+// and d (out,) f32 in place of lut, at 4 bits.
+extern "C" int slt_lut_matmul_struct(const void* x, int x_bf16,
+                                     const void* qweight, const void* a,
+                                     const void* d, const void* rowptr,
+                                     const void* cols, const void* vals,
+                                     const void* y0, int y0_bf16, void* y,
+                                     int M, int in_f, int out_f,
+                                     int bf16_mode, void* stream) {
+  if (M <= 0 || out_f <= 0) return (int)cudaSuccess;
+  int mt = 1;
+  while (mt < M && mt < 16) mt *= 2;
+  const dim3 grid((out_f + kCols - 1) / kCols, (M + mt - 1) / mt);
+  launch<4>(mt, grid, static_cast<cudaStream_t>(stream), x, x_bf16,
+            static_cast<const uint32_t*>(qweight),
+            static_cast<const float*>(a), static_cast<const float*>(d),
+            static_cast<const int*>(rowptr), static_cast<const int*>(cols),
+            static_cast<const float*>(vals), y0, y0_bf16,
+            static_cast<float*>(y), M, in_f, out_f, bf16_mode);
   return (int)cudaGetLastError();
 }
 

@@ -1,4 +1,4 @@
-"""Packed-weight, LUT and sparse-outlier formats, read in PyTorch.
+"""Packed-weight, LUT and sparse-outlier formats, in PyTorch.
 
 The port's own copy of the shared checkpoint packing (the JAX package's
 ``squeezellm_tpu/formats.py`` defines it; the two must stay identical):
@@ -11,12 +11,24 @@ The port's own copy of the shared checkpoint packing (the JAX package's
 * ``lut`` is float32 ``(out, 2**bits)``: one codebook per output channel.
 * The sparse sidecar stores ``w - centroid_nearest_zero(channel)`` at each
   outlier slot: it is a correction added on top of the dequantized slot.
+  On disk it is a flat COO list sorted by row then column and zero-padded
+  to a multiple of ``pad_multiple`` entries (:class:`SparseCOO`); in memory
+  the port keeps it as CSR (``carry.csr_from_coo``).
+
+Packing runs on the tensors' own device (the offline pipeline packs on the
+card); :class:`SparseCOO` hands its arrays back to the host as numpy, the
+form a checkpoint stores.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional
+
+import numpy as np
 import torch
 
+SUPPORTED_BITS = (2, 3, 4, 8)
 # Codes packed per int32 word.
 CODES_PER_WORD = {2: 16, 3: 10, 4: 8, 8: 4}
 
@@ -25,6 +37,29 @@ def n_words(in_features: int, bits: int) -> int:
     """Number of packed int32 words along the input dim."""
     cpw = CODES_PER_WORD[bits]
     return (in_features + cpw - 1) // cpw
+
+
+def pack_codes(codes: torch.Tensor, bits: int) -> torch.Tensor:
+    """Integer codes ``(in, out)`` in ``[0, 2**bits)`` -> int32
+    ``(n_words(in, bits), out)``; the slots past ``in`` in the last word
+    hold 0."""
+    if bits not in SUPPORTED_BITS:
+        raise ValueError(f"bits must be one of {SUPPORTED_BITS}, got {bits}")
+    if codes.dim() != 2:
+        raise ValueError(f"codes must be (in, out), got shape "
+                         f"{tuple(codes.shape)}")
+    in_features, out_features = codes.shape
+    cpw = CODES_PER_WORD[bits]
+    nw = n_words(in_features, bits)
+    padded = torch.zeros(nw * cpw, out_features, dtype=torch.int64,
+                         device=codes.device)
+    padded[:in_features] = codes.to(torch.int64) & ((1 << bits) - 1)
+    padded = padded.view(nw, cpw, out_features)
+    shifts = torch.arange(0, bits * cpw, bits, device=codes.device,
+                          dtype=torch.int64)
+    words = (padded << shifts[None, :, None]).sum(1)  # < 2**32, no overlap
+    # the unsigned 32-bit word as the int32 of the same bits
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
 
 
 def unpack_codes(qweight: torch.Tensor, bits: int,
@@ -45,3 +80,66 @@ def unpack_codes(qweight: torch.Tensor, bits: int,
                           dtype=torch.int64)
     codes = (words[:, None, :] >> shifts[None, :, None]) & ((1 << bits) - 1)
     return codes.reshape(nw * cpw, out_features)[:in_features]
+
+
+def assign_codes(weight: torch.Tensor, lut: torch.Tensor) -> torch.Tensor:
+    """Nearest-centroid codes: weight ``(out, in)``, lut ``(out, K)`` ->
+    uint8 ``(out, in)``, argmin of ``|w - c|`` with the first index taking
+    a tie (the reference's ``round_to_nearest_pole_sim``). Walks the K
+    centroids instead of materializing ``(out, in, K)``."""
+    best = (weight - lut[:, :1]).abs()
+    codes = torch.zeros(weight.shape, dtype=torch.uint8, device=weight.device)
+    for k in range(1, lut.shape[1]):
+        d = (weight - lut[:, k: k + 1]).abs()
+        closer = d < best
+        best = torch.where(closer, d, best)
+        codes[closer] = k
+    return codes
+
+
+def nearest_to_zero(lut: torch.Tensor) -> torch.Tensor:
+    """Per channel, the centroid nearest zero (first one on a tie): the
+    value the dense path dequantizes a zeroed outlier slot to. lut
+    ``(out, K)`` -> ``(out,)``."""
+    idx = lut.abs().argmin(dim=1, keepdim=True)
+    return lut.gather(1, idx)[:, 0]
+
+
+@dataclasses.dataclass
+class SparseCOO:
+    """Flat COO over output rows, padded to a static nnz, as numpy arrays
+    (the checkpoint's ``sp_rows``, ``sp_cols``, ``sp_vals``).
+
+    rows/cols index (out, in) of the torch-orientation W. Padding entries
+    have ``vals == 0`` (rows/cols 0)."""
+
+    rows: np.ndarray  # int32 (nnz_pad,)
+    cols: np.ndarray  # int32 (nnz_pad,)
+    vals: np.ndarray  # float32 (nnz_pad,)
+    nnz: int
+    out_features: int
+    in_features: int
+
+    @staticmethod
+    def from_dense(outlier_matrix: torch.Tensor, pad_to: Optional[int] = None,
+                   pad_multiple: int = 512) -> "SparseCOO":
+        """From a dense (out, in) matrix of outlier values (0 = absent):
+        the nonzeros in row-major order (sorted by row, then column),
+        padded to ``pad_to`` or to the next multiple of ``pad_multiple``
+        (at least one multiple)."""
+        out_features, in_features = outlier_matrix.shape
+        idx = torch.nonzero(outlier_matrix)  # row-major order
+        vals = outlier_matrix[idx[:, 0], idx[:, 1]].float()
+        nnz = idx.shape[0]
+        if pad_to is None:
+            pad_to = max(pad_multiple,
+                         -(-nnz // pad_multiple) * pad_multiple)
+        if pad_to < nnz:
+            raise ValueError(f"pad_to={pad_to} < nnz={nnz}")
+        pr = np.zeros(pad_to, np.int32)
+        pc = np.zeros(pad_to, np.int32)
+        pv = np.zeros(pad_to, np.float32)
+        idx = idx.cpu().numpy()
+        pr[:nnz], pc[:nnz] = idx[:, 0], idx[:, 1]
+        pv[:nnz] = vals.cpu().numpy()
+        return SparseCOO(pr, pc, pv, nnz, out_features, in_features)

@@ -67,6 +67,18 @@ class Linear(nn.Module):
     def tensors(self) -> Dict[str, torch.Tensor]:
         return {name: getattr(self, name) for name in self._names}
 
+    def add_tensors(self, **tensors: torch.Tensor) -> None:
+        """Attach derived tensors (decode-time tables) as buffers."""
+        for name, t in tensors.items():
+            self.register_buffer(name, t)
+        self._names += tuple(n for n in tensors if n not in self._names)
+
+    def drop_tensors(self, *names: str) -> None:
+        """Detach tensors that ``add_tensors`` attached."""
+        for name in names:
+            delattr(self, name)
+        self._names = tuple(n for n in self._names if n not in names)
+
     def forward(self, x: torch.Tensor, *, mode: str = "exact",
                 y0: Optional[torch.Tensor] = None,
                 plain: bool = False) -> torch.Tensor:

@@ -1,11 +1,11 @@
 """Decode-time module fusion: concatenate q|k|v and gate|up (LLaMA) or
 q|k|v (OPT) along output channels into single quantized linears.
 
-The counterpart of the JAX package's ``models/fuse.py`` (``_fuse_linears``
-and ``fuse_for_decode``). The inputs are shared, so packed words and LUTs
-concatenate along the output axis, the CSR sidecars stack row blocks, and
-top-X indices move to the fused output space. No SpMV slot plans are
-built: K1 folds the CSR sidecar itself.
+The counterpart of the JAX package's ``models/fuse.py`` (``_fuse_linears``,
+``fuse_for_decode`` and ``attach_decode_luts``). The inputs are shared, so
+packed words and LUTs concatenate along the output axis, the CSR sidecars
+stack row blocks, and top-X indices move to the fused output space. No
+SpMV slot plans are built: K1 folds the CSR sidecar itself.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ import torch
 
 from squeezellm_tpu_torch.models.common import Linear, LinearSpec
 from squeezellm_tpu_torch.ops.quant_linear import QuantLinearSpec
+from squeezellm_tpu_torch.quantize.kmeans import structured_decomposition
 
 FUSE_GROUPS = (("qkv", ("q", "k", "v")), ("gateup", ("gate", "up")))
 
@@ -81,8 +82,9 @@ def fuse_linears(linears: List[Linear]) -> Linear:
 def fuse_for_decode(model):
     """Fuse every fusable q|k|v and gate|up group of a Llama or OPT model
     in place (one layer at a time, so the old tensors are freed as it
-    goes); returns the model. Unfusable groups stay as they are; OPT has
-    no gate|up group (its MLP is up, ReLU, down)."""
+    goes), then ``attach_decode_luts``; returns the model. Unfusable
+    groups stay as they are; OPT has no gate|up group (its MLP is up,
+    ReLU, down)."""
     for layer in model.layers:
         for block in (layer.attn, getattr(layer, "mlp", None)):
             if block is None:
@@ -96,4 +98,41 @@ def fuse_for_decode(model):
                 for n in names:
                     del block.proj[n]
                 block.proj[fused_name] = fused
+    return attach_decode_luts(model)
+
+
+def quant_linears(model):
+    """Every quantized linear of the model, the lm_head's included."""
+    return [m for m in model.modules()
+            if isinstance(m, Linear) and m.spec.is_quant]
+
+
+def attach_decode_luts(model, transposed: bool = False):
+    """Attach decode-path tables to every 4-bit quantized linear, in place
+    (idempotent); returns the model.
+
+    * ``struct_a`` (out, 8) and ``struct_d`` (out,) f32 where the LUT is a
+      STRUCTURED codebook ``lut[c] = A[c & 7] + (c >> 3) * d``
+      (``quantize.kmeans.fit_structured_luts``; detected with the JAX
+      package's ``structured_decomposition``): ``quant_linear`` then sends
+      calls under 1024 rows through K10. The JAX package attaches the same
+      A and d as its TPU table (16, out) with d / 8 in row 8.
+    * with ``transposed=True``, ``qweight_t`` (out, n_words) int32, the
+      packed words transposed: calls of at most 8 rows go through K11 and
+      the sidecar through K12. The TPU's period-16 wide table is not
+      attached; K11 reads the LUT.
+
+    Unlike the JAX package, the lm_head gets them too."""
+    for lin in quant_linears(model):
+        if lin.spec.quant.bits != 4:
+            continue
+        t = lin.tensors()
+        if "struct_a" not in t:
+            dec = structured_decomposition(t["lut"])
+            if dec is not None:
+                lin.add_tensors(**{
+                    name: torch.from_numpy(a).to(t["lut"].device)
+                    for name, a in zip(("struct_a", "struct_d"), dec)})
+        if transposed and "qweight_t" not in t:
+            lin.add_tensors(qweight_t=t["qweight"].t().contiguous())
     return model

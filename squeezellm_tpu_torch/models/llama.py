@@ -20,6 +20,7 @@ from typing import Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from squeezellm_tpu_torch.models import common
 from squeezellm_tpu_torch.models.common import Linear
@@ -74,6 +75,36 @@ class LlamaConfig:
             sliding_window=d.get("sliding_window"),
             tie_embeddings=d.get("tie_word_embeddings", False),
         )
+
+
+def _state_dict_getter(sd, dtype):
+    def g(name):
+        return sd[name].detach().to("cpu", dtype)
+    return g
+
+
+def from_torch_state_dict(config: LlamaConfig, sd, dtype=torch.float32):
+    """An HF LlamaForCausalLM / MistralForCausalLM state dict -> the dense
+    params tree of the JAX package's ``from_torch_state_dict`` ({'embed',
+    'layers': [{q..down: {'w'}, 'input_norm', 'post_norm'}], 'final_norm',
+    'lm_head': {'w'}}), tensors in ``dtype`` on the CPU."""
+    g = _state_dict_getter(sd, dtype)
+    hf_names = {"q": "self_attn.q_proj", "k": "self_attn.k_proj",
+                "v": "self_attn.v_proj", "o": "self_attn.o_proj",
+                "gate": "mlp.gate_proj", "up": "mlp.up_proj",
+                "down": "mlp.down_proj"}
+    layers = []
+    for i in range(config.n_layers):
+        p = f"model.layers.{i}."
+        d = {n: {"w": g(p + hf + ".weight")} for n, hf in hf_names.items()}
+        d["input_norm"] = g(p + "input_layernorm.weight")
+        d["post_norm"] = g(p + "post_attention_layernorm.weight")
+        layers.append(d)
+    head = ("model.embed_tokens.weight"
+            if config.tie_embeddings or "lm_head.weight" not in sd
+            else "lm_head.weight")
+    return {"embed": g("model.embed_tokens.weight"), "layers": layers,
+            "final_norm": g("model.norm.weight"), "lm_head": {"w": g(head)}}
 
 
 @dataclasses.dataclass
@@ -307,14 +338,18 @@ class Llama(nn.Module):
         return self.lm_head(x, step)
 
     def forward(self, tokens: torch.Tensor, *, dtype=torch.float32,
-                mode: str = "exact", plain: bool = False) -> torch.Tensor:
-        """Full-sequence causal forward -> logits (B, S, V) f32."""
+                mode: str = "exact", plain: bool = False,
+                remat: bool = False) -> torch.Tensor:
+        """Full-sequence causal forward -> logits (B, S, V) f32. remat:
+        keep only each layer's input for the backward pass and recompute
+        the rest (``torch.utils.checkpoint``, for Fisher gradients)."""
         s = tokens.shape[1]
         x = self.embed[tokens].to(dtype)
         step = self._step(dtype, mode, plain,
                           positions=torch.arange(s, device=self.device))
         for layer in self.layers:
-            x = layer(x, step)
+            x = (checkpoint(layer, x, step, use_reentrant=False) if remat
+                 else layer(x, step))
         return self._finish(x, step)
 
     def prefill(self, tokens: torch.Tensor, cache, *, dtype=torch.float32,

@@ -18,10 +18,12 @@ from typing import Dict, List, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from squeezellm_tpu_torch.models import common
 from squeezellm_tpu_torch.models.common import Linear
-from squeezellm_tpu_torch.models.llama import AttnBlock, LMHead, Step
+from squeezellm_tpu_torch.models.llama import (AttnBlock, LMHead, Step,
+                                               _state_dict_getter)
 
 MODULE_NAMES = ("q", "k", "v", "o", "up", "down")
 POS_OFFSET = 2  # HF OPTLearnedPositionalEmbedding offset
@@ -75,6 +77,35 @@ class OPTConfig:
             max_seq=d.get("max_position_embeddings", 2048),
             ln_eps=1e-5,
         )
+
+
+def from_torch_state_dict(config: OPTConfig, sd, dtype=torch.float32):
+    """An HF OPTForCausalLM state dict -> the dense params tree of the JAX
+    package's ``from_torch_state_dict`` (linears and layer norms as {'w',
+    'b'}, 'embed_pos' beside 'embed', the lm_head tied to the embedding
+    when the dict has none), tensors in ``dtype`` on the CPU."""
+    g = _state_dict_getter(sd, dtype)
+    hf_names = {"q": "self_attn.q_proj", "k": "self_attn.k_proj",
+                "v": "self_attn.v_proj", "o": "self_attn.out_proj",
+                "up": "fc1", "down": "fc2"}
+
+    def wb(prefix):
+        return {"w": g(prefix + ".weight"), "b": g(prefix + ".bias")}
+
+    layers = []
+    for i in range(config.n_layers):
+        p = f"model.decoder.layers.{i}."
+        d = {n: wb(p + hf) for n, hf in hf_names.items()}
+        d["attn_norm"] = wb(p + "self_attn_layer_norm")
+        d["ffn_norm"] = wb(p + "final_layer_norm")
+        layers.append(d)
+    embed = g("model.decoder.embed_tokens.weight")
+    return {"embed": embed,
+            "embed_pos": g("model.decoder.embed_positions.weight"),
+            "layers": layers,
+            "final_norm": wb("model.decoder.final_layer_norm"),
+            "lm_head": {"w": g("lm_head.weight") if "lm_head.weight" in sd
+                        else embed}}
 
 
 class DecoderLayer(nn.Module):
@@ -136,13 +167,17 @@ class OPT(nn.Module):
         return self.lm_head(x, step)
 
     def forward(self, tokens: torch.Tensor, *, dtype=torch.float32,
-                mode: str = "exact", plain: bool = False) -> torch.Tensor:
-        """Full-sequence causal forward -> logits (B, S, V) f32."""
+                mode: str = "exact", plain: bool = False,
+                remat: bool = False) -> torch.Tensor:
+        """Full-sequence causal forward -> logits (B, S, V) f32. remat:
+        keep only each layer's input for the backward pass and recompute
+        the rest (``torch.utils.checkpoint``, for Fisher gradients)."""
         s = tokens.shape[1]
         x = self._embed(tokens, torch.arange(s, device=self.device), dtype)
         step = Step(dtype=dtype, mode=mode, plain=plain)
         for layer in self.layers:
-            x = layer(x, step)
+            x = (checkpoint(layer, x, step, use_reentrant=False) if remat
+                 else layer(x, step))
         return self._finish(x, step)
 
     def _cache_step(self, dtype, mode, plain, cache, **fields) -> Step:

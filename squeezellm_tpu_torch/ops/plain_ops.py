@@ -17,6 +17,8 @@ import torch
 
 from squeezellm_tpu_torch import formats
 
+SPARSE_SCRATCH = 2**28  # floats of scratch in sparse_matmul's grid
+
 
 def dequantize(qweight: torch.Tensor, lut: torch.Tensor, bits: int,
                in_features: int) -> torch.Tensor:
@@ -40,18 +42,26 @@ def sparse_matmul(x: torch.Tensor, rowptr: torch.Tensor, cols: torch.Tensor,
 
     Each row's entries are laid out in a zero-padded ``(out, widest row)``
     grid and summed along it, so the result is the same on every run (a
-    scatter such as ``index_add_`` sums with atomics on CUDA). Takes
-    ``M * out * widest row`` floats of scratch."""
+    scatter such as ``index_add_`` sums with atomics on CUDA). The grid is
+    taken a block of rows at a time, so that the scratch stays near
+    ``SPARSE_SCRATCH`` floats however the outliers crowd into a few rows
+    (a sensitivity-ranked sidecar can put half a row's inputs in one)."""
     counts = (rowptr[1:] - rowptr[:-1]).long()
     width = int(counts.max()) if counts.numel() else 0
     if width == 0:
         return torch.zeros(x.shape[:-1] + (out_features,),
                            dtype=torch.float32, device=x.device)
+    xf = x.float()
+    block = max(1, SPARSE_SCRATCH // (xf[..., 0].numel() * width))
     slot = torch.arange(width, device=x.device)
-    valid = slot < counts[:, None]  # (out, width)
-    idx = torch.where(valid, rowptr[:-1, None].long() + slot, 0)
-    v = torch.where(valid, vals.float()[idx], 0.0)
-    return (x.float()[..., cols.long()[idx]] * v).sum(-1)
+    starts = rowptr[:-1].long()
+    parts = []
+    for r0 in range(0, out_features, block):
+        valid = slot < counts[r0: r0 + block, None]  # (rows, width)
+        idx = torch.where(valid, starts[r0: r0 + block, None] + slot, 0)
+        v = torch.where(valid, vals.float()[idx], 0.0)
+        parts.append((xf[..., cols.long()[idx]] * v).sum(-1))
+    return parts[0] if len(parts) == 1 else torch.cat(parts, -1)
 
 
 def hybrid_matmul(x: torch.Tensor, topx_weights: torch.Tensor,

@@ -12,6 +12,15 @@ step from cache and inflate the achieved bandwidth.
 ``dense_llama`` is the speed yardstick: the same config with bf16 dense
 weights (N(0, 1) * 0.5 / sqrt(in), as the JAX ``random_dense_params``).
 
+``structured=True`` (4-bit) gives every LUT ``bench.py``'s structured
+statistics instead, centred: ``lut[c] = A[c & 7] + (c >> 3) * d`` with d =
+|N(0, 0.01)| + 0.005 per channel and A the sorted N(0, 0.02) draws of 8
+entries less d / 2 (the form ``quantize.kmeans.fit_structured_luts`` fits,
+which ``models.fuse`` detects and sends through K10). ``bench.py`` does
+not subtract d / 2: there every weight is biased by d / 2 on average, so
+each linear amplifies the common mode of its input by ~in * d / 2 (~27 at
+4096 inputs) and 32 layers overflow even f32; it only times the model.
+
 ``quantized_opt`` and ``dense_opt`` are the same two for an OPT config:
 every layer linear also has a bias (N(0, 0.02)), the lm_head has none, the
 layer norms are unit with zero bias, and the learned position table has
@@ -30,17 +39,28 @@ from squeezellm_tpu_torch.models.common import Linear, LinearSpec
 from squeezellm_tpu_torch.ops.quant_linear import QuantLinearSpec
 
 
+def _lut(gen, device, out_f: int, bits: int, structured: bool):
+    if structured and bits == 4:
+        a = (torch.randn(out_f, 8, generator=gen, device=device)
+             * 0.02).sort(dim=1).values
+        d = (torch.randn(out_f, 1, generator=gen, device=device).abs()
+             * 0.01 + 0.005)
+        a = a - d / 2
+        return torch.cat([a, a + d], dim=1)
+    return (torch.randn(out_f, 2**bits, generator=gen, device=device)
+            * 0.02).sort(dim=1).values
+
+
 def random_quant_linear(gen, device, out_f: int, in_f: int, bits: int,
-                        sparsity: float, topx: int,
-                        bias: bool = False) -> Linear:
+                        sparsity: float, topx: int, bias: bool = False,
+                        structured: bool = False) -> Linear:
     """One random quantized linear (bench.py's statistics), unfused."""
     nw = formats.n_words(in_f, bits)
     tensors = {
         "qweight": torch.randint(-2**31, 2**31 - 1, (nw, out_f),
                                  generator=gen, device=device,
                                  dtype=torch.int64).to(torch.int32),
-        "lut": (torch.randn(out_f, 2**bits, generator=gen, device=device)
-                * 0.02).sort(dim=1).values,
+        "lut": _lut(gen, device, out_f, bits, structured),
     }
     nnz = 0
     n = int(out_f * in_f * sparsity)
@@ -76,22 +96,26 @@ def _generator(seed: int, device) -> torch.Generator:
 
 def quantized_llama(config: llama.LlamaConfig, bits: int, *,
                     sparsity: float = 0.0045, topx: int = 10,
-                    seed: int = 0, device="cuda") -> llama.Llama:
-    """The random Dense-and-Sparse flagship, unfused."""
+                    seed: int = 0, device="cuda",
+                    structured: bool = False) -> llama.Llama:
+    """The random Dense-and-Sparse flagship, unfused; with ``structured``
+    (4-bit) every LUT, the lm_head's included, is a structured one."""
     device = torch.device(device)
     gen = _generator(seed, device)
     h = config.hidden_size
     layers = []
     for _ in range(config.n_layers):
         linears = {name: random_quant_linear(gen, device, o, i, bits,
-                                             sparsity, topx)
+                                             sparsity, topx,
+                                             structured=structured)
                    for name, (o, i) in config.linear_shapes().items()}
         layers.append(llama.DecoderLayer(
             config, linears, torch.ones(h, device=device),
             torch.ones(h, device=device)))
     embed = (torch.randn(config.vocab_size, h, generator=gen, device=device)
              * 0.02).to(torch.bfloat16)
-    head = random_quant_linear(gen, device, config.vocab_size, h, bits, 0.0, 0)
+    head = random_quant_linear(gen, device, config.vocab_size, h, bits, 0.0, 0,
+                               structured=structured)
     return llama.Llama(config, embed, layers, torch.ones(h, device=device),
                        head)
 

@@ -1,9 +1,12 @@
-"""K1-K9 on the card against their plain PyTorch versions, at ragged small
+"""K1-K12 on the card against their plain PyTorch versions, at ragged small
 shapes the full-width smoke run does not reach (column and row tails,
 partial packed words, GQA groups, head dims 32/64/128, strided inputs,
-unaligned int8 caches, small pages, shared and shuffled page tables), and
-tiny models' kernel paths against their plain paths (LLaMA and OPT, f32
-and int8 caches, the eval forward, the paged serving engine).
+unaligned int8 caches, small pages, shared and shuffled page tables, odd
+row counts of the transposed GEMV and the sparse sum), the routing of
+``quant_linear_apply`` between K1, K4, K10, K11 and K12, and tiny models'
+kernel paths against their plain paths (LLaMA and OPT, f32 and int8
+caches, the eval forward, the paged serving engine, structured and
+transposed decode tables).
 
 Needs an NVIDIA GPU and nvcc; skipped elsewhere. On the card:
 ``python -m pytest tests/test_torch_kernels_gpu.py -m gpu``."""
@@ -16,8 +19,8 @@ from squeezellm_tpu_torch import data, engine, serving, synthetic
 from squeezellm_tpu_torch import eval as eval_mod
 from squeezellm_tpu_torch.models import common, fuse, llama, opt
 from squeezellm_tpu_torch.ops import (decode_attn, dequant_dense, flash_attn,
-                                      kv_quant, lut_matmul, paged_attn,
-                                      quant_linear)
+                                      kv_quant, lut_matmul, lut_matmul_t,
+                                      paged_attn, quant_linear, spmv)
 from squeezellm_tpu_torch.sampling import SamplingParams
 
 pytestmark = pytest.mark.gpu
@@ -386,3 +389,109 @@ def test_tiny_model_paged_serving_matches_plain(dev, family, cache_dtype):
     a = eng[0].run(prompts, max_new_tokens=10, sampling=sp)
     b = eng[1].run(prompts, max_new_tokens=10, window=4, sampling=sp)
     assert a == b and a != ref
+
+
+@pytest.mark.parametrize("mode", ["exact", "bf16"])
+@pytest.mark.parametrize("M", [1, 3, 8, 16, 40, 100])
+def test_lut_matmul_struct_kernel_matches_plain(dev, M, mode):
+    g = torch.Generator(device=dev).manual_seed(M + 7)
+    in_f, out_f = 116, 200
+    t = synthetic.random_quant_linear(g, dev, out_f, in_f, 4, 0.05, 0,
+                                      structured=True).tensors()
+    a = t["lut"][:, :8].contiguous()
+    d = (t["lut"][:, 8] - t["lut"][:, 0]).contiguous()
+    for x_dt, y0_dt, sparse in ((torch.float32, torch.float32, True),
+                                (torch.bfloat16, torch.bfloat16, True),
+                                (torch.float32, None, False)):
+        x = torch.randn(M, in_f, generator=g, device=dev).to(x_dt)
+        y0 = (None if y0_dt is None
+              else torch.randn(M, out_f, generator=g, device=dev).to(y0_dt))
+        kw = dict(rowptr=t["sp_rowptr"], cols=t["sp_cols"],
+                  vals=t["sp_vals"]) if sparse else {}
+        got = lut_matmul.lut_matmul_struct(x, t["qweight"], a, d, y0=y0,
+                                           mode=mode, **kw)
+        want = lut_matmul.lut_matmul_struct_plain(x, t["qweight"], a, d,
+                                                  y0=y0, mode=mode, **kw)
+        torch.cuda.synchronize()
+        assert _rel(got, want) <= 1e-5, (x_dt, sparse, _rel(got, want))
+
+
+@pytest.mark.parametrize("mode", ["exact", "bf16"])
+@pytest.mark.parametrize("M", [1, 2, 3, 5, 8])
+@pytest.mark.parametrize("in_f,out_f", [(116, 200), (2056, 33), (7, 9)])
+def test_lut_matmul_t_kernel_matches_plain(dev, M, in_f, out_f, mode):
+    """Partial last words, inputs over two x chunks, channel tails."""
+    g = torch.Generator(device=dev).manual_seed(M * 100 + in_f)
+    t = synthetic.random_quant_linear(g, dev, out_f, in_f, 4, 0.0,
+                                      0).tensors()
+    qwt = t["qweight"].t().contiguous()
+    for x_dt in (torch.float32, torch.bfloat16):
+        x = torch.randn(M, in_f, generator=g, device=dev).to(x_dt)
+        got = lut_matmul_t.lut_matmul_t(x, qwt, t["lut"], mode=mode)
+        want = lut_matmul_t.lut_matmul_t_plain(x, qwt, t["lut"], mode=mode)
+        torch.cuda.synchronize()
+        assert _rel(got, want) <= 1e-5, (x_dt, _rel(got, want))
+
+
+@pytest.mark.parametrize("B", [1, 3, 8, 40, 100, 1023])
+def test_spmv_kernel_matches_plain(dev, B):
+    g = torch.Generator(device=dev).manual_seed(B)
+    in_f, out_f = 300, 517
+    t = synthetic.random_quant_linear(g, dev, out_f, in_f, 4, 0.02,
+                                      0).tensors()
+    for x_dt in (torch.float32, torch.bfloat16):
+        x = torch.randn(B, in_f, generator=g, device=dev).to(x_dt)
+        args = (x, t["sp_rowptr"], t["sp_cols"], t["sp_vals"], out_f)
+        got = spmv.spmv(*args)
+        want = spmv.spmv_plain(*args)
+        torch.cuda.synchronize()
+        assert _rel(got, want) <= 1e-5, (x_dt, _rel(got, want))
+
+
+@pytest.mark.parametrize("rows,want", [(1, "t"), (8, "t"), (9, "struct"),
+                                       (1023, "struct"), (1024, "dense")])
+def test_quant_linear_routing_on_the_card(dev, rows, want):
+    """The JAX precedence: <= 8 rows with qweight_t: K11 (+ K12 for the
+    sidecar); else a structured table below 1024 rows: K10; 1024 rows and
+    more: K4. Each route agrees with the plain route."""
+    g = torch.Generator(device=dev).manual_seed(rows)
+    lin = synthetic.random_quant_linear(g, dev, 96, 116, 4, 0.05, 2,
+                                        structured=True)
+    model = torch.nn.Module()
+    model.lin = lin
+    fuse.attach_decode_luts(model, transposed=True)
+    assert {"struct_a", "struct_d", "qweight_t"} <= set(lin.tensors())
+    kernels = (lut_matmul.lut_matmul, lut_matmul.lut_matmul_struct,
+               lut_matmul_t.lut_matmul_t, spmv.spmv,
+               dequant_dense.dequant_dense)
+    before = [k.launches for k in kernels]
+    x = torch.randn(rows, 116, generator=g, device=dev)
+    y0 = torch.randn(rows, 96, generator=g, device=dev)
+    got = lin(x, y0=y0)
+    moved = [k.launches - b for k, b in zip(kernels, before)]
+    want_moved = {"t": [0, 0, 1, 1, 0], "struct": [0, 1, 0, 0, 0],
+                  "dense": [0, 0, 0, 0, 1]}[want]
+    assert moved == want_moved
+    ref = lin(x, y0=y0, plain=True)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) <= 1e-5
+
+
+@pytest.mark.parametrize("transposed", [False, True])
+def test_tiny_structured_model_kernel_path_matches_plain(dev, transposed):
+    cfg = llama.LlamaConfig(vocab_size=512, hidden_size=256,
+                            intermediate_size=384, n_layers=2, n_heads=4,
+                            n_kv_heads=2, max_seq=128)
+    prompt = np.array([[5, 9, 200, 31, 7, 77, 101]])
+    model = fuse.attach_decode_luts(fuse.fuse_for_decode(
+        synthetic.quantized_llama(cfg, 4, sparsity=0.01, topx=3, seed=3,
+                                  device=dev, structured=True)),
+        transposed=transposed)
+    counted = (lut_matmul_t.lut_matmul_t if transposed
+               else lut_matmul.lut_matmul_struct)
+    before = (counted.launches, lut_matmul.lut_matmul.launches)
+    got = engine.Engine(model).generate(prompt, 12)
+    assert counted.launches > before[0]
+    assert lut_matmul.lut_matmul.launches == before[1]
+    ref = engine.Engine(model, plain=True).generate(prompt, 12)
+    np.testing.assert_array_equal(got, ref)
