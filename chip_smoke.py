@@ -41,6 +41,7 @@ Details go to build/chip_smoke.json.
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -66,7 +67,13 @@ K1_SHAPES = (("qkv", 12288, 4096, 32), ("o", 4096, 4096, 32),
              ("gateup", 22016, 4096, 32), ("down", 4096, 11008, 32),
              ("lm_head", 32000, 4096, 1))  # (name, out, in, per step)
 PROMPT_LENS = (7, 16, 100)
-K10_ROWS = (1, 8, 16, 100)  # decode, 8 slots, a verify window, a prompt
+K3_LENS = PROMPT_LENS + (2048,)  # and the eval stride
+# decode, 8 slots, 16 rows, a verify window of 5 x 8 slots, a prompt
+K1_ROWS = (1, 8, 16, 40, 100)
+K10_ROWS = K1_ROWS
+# bf16 mode: both K1 kernels (GEMV, tensor cores) are timed at these rows
+# to place the crossover (lut_matmul.GEMV_MAX_ROWS)
+CROSS_ROWS = (8, 12, 16, 17, 24, 32, 40)
 K11_ROWS = (1, 8)  # the transposed route takes at most 8 rows
 K12_ROWS = (1, 8, 40, 100)
 # offline quantization: a dense LLaMA-2-7B at full width and depth (Fisher
@@ -234,7 +241,7 @@ def check_k1(torch, timer, record):
             # weight, in the mode's operand type
             w32 = plain_ops.dequantize(t["qweight"], t["lut"], bits, in_f)
             lib_w = {"exact": w32, "bf16": w32.to(torch.bfloat16)}
-            for M in (1, 16, 100):
+            for M in K1_ROWS:
                 for mode in ("exact", "bf16"):
                     dt = torch.bfloat16 if mode == "bf16" else torch.float32
                     x = torch.randn(M, in_f, generator=gen, device=dev).to(dt)
@@ -242,9 +249,15 @@ def check_k1(torch, timer, record):
                                      device=dev).to(dt)
                     args = (x, t["qweight"], t["lut"], bits)
                     got = lut_matmul.lut_matmul(*args, y0=y0, mode=mode, **kw)
+                    again = lut_matmul.lut_matmul(*args, y0=y0, mode=mode,
+                                                  **kw)
                     want = lut_matmul.lut_matmul_plain(*args, y0=y0,
                                                        mode=mode, **kw)
                     torch.cuda.synchronize()
+                    if not torch.equal(got, again):
+                        raise AssertionError(
+                            f"K1 {name} w{bits} M={M} {mode}: two launches "
+                            f"differ")
                     err = rel_err(got, want)
                     worst = max(worst, abs_err(got, want))
                     worst_rel[mode] = max(worst_rel[mode], err)
@@ -277,8 +290,20 @@ def check_k1(torch, timer, record):
                         plain_ms=timer.ms(lambda: lut_matmul.lut_matmul_plain(
                             *args, y0=y0, mode=mode, **kw), iters=5),
                         library_ms=timer.ms(lambda: torch.matmul(x, w)),
-                        bound_ms=b, bound_by=by, bytes=nbytes)
+                        bound_ms=b, bound_by=by, bytes=nbytes,
+                        variant=lut_matmul.plan(M, in_f, out_f, bits,
+                                                mode).variant)
                     row["gb_s"] = nbytes / row["ms"] / 1e6
+                    if M == 1 and kw:  # the same launch, sidecar withheld
+                        bare = lut_matmul.lut_matmul(*args, y0=y0, mode=mode)
+                        want = lut_matmul.lut_matmul_plain(*args, y0=y0,
+                                                           mode=mode)
+                        if rel_err(bare, want) > TOL_K1[mode]:
+                            raise AssertionError(f"K1 {name} w{bits} {mode} "
+                                                 f"without its sidecar")
+                        row["ms_no_sidecar"] = timer.ms(
+                            lambda: lut_matmul.lut_matmul(*args, y0=y0,
+                                                          mode=mode))
                     record["k1_detail"].append(row)
             del t, w32, lib_w
     print("  K1 ms (bound by b=bytes/o=operations, plain, library matmul)")
@@ -289,26 +314,78 @@ def check_k1(torch, timer, record):
                  and all(q[k] == r[k] for k in ("shape", "bits", "M")))
         print(f"  K1 {r['shape']:8s} w{r['bits']} M={r['M']:3d} " + "  ".join(
             f"{q['mode']} {q['ms']:.4f} ({q['bound_ms']:.4f}"
-            f"{q['bound_by'][0]}, {q['plain_ms']:.3f}, {q['library_ms']:.4f})"
-            for q in (r, e)))
-    for bits in (4, 3):
-        for mode in ("bf16", "exact"):
-            rows = [r for r in record["k1_detail"] if r["M"] == 1
-                    and r["bits"] == bits and r["mode"] == mode]
-            step = {k: sum(r[k] * r["launches_per_step"] for r in rows)
-                    for k in ("ms", "bound_ms", "library_ms")}
-            record["k1_per_decode_step"].append(dict(bits=bits, mode=mode,
-                                                     **step))
-            print(f"  K1 per decode step w{bits} {mode}: {step['ms']:.3f} ms "
-                  f"(bound {step['bound_ms']:.3f}, library "
-                  f"{step['library_ms']:.3f})")
+            f"{q['bound_by'][0]}, {q['plain_ms']:.3f}, {q['library_ms']:.4f}"
+            f", {q['variant']})" for q in (r, e)) + (
+            f"  no sidecar bf16 {r['ms_no_sidecar']:.4f} exact "
+            f"{e['ms_no_sidecar']:.4f}" if "ms_no_sidecar" in r else ""))
+    for M in (1, 8):
+        for bits in (4, 3):
+            for mode in ("bf16", "exact"):
+                rows = [r for r in record["k1_detail"] if r["M"] == M
+                        and r["bits"] == bits and r["mode"] == mode]
+                step = {k: sum(r[k] * r["launches_per_step"] for r in rows)
+                        for k in ("ms", "bound_ms", "library_ms")}
+                record["k1_per_decode_step"].append(dict(bits=bits, mode=mode,
+                                                         M=M, **step))
+                print(f"  K1 per decode step, {M} row(s), w{bits} {mode}: "
+                      f"{step['ms']:.3f} ms (bound {step['bound_ms']:.3f}, "
+                      f"library {step['library_ms']:.3f})")
     record["k1_max_abs_err"] = worst
     flips = sum(f[3] for f in record["k1_bf16_flips"])
     total = sum(f[4] for f in record["k1_bf16_flips"])
-    print(f"K1 ok: 60 cases, max rel err {worst_rel} within {TOL_K1}, "
+    print(f"K1 ok: {len(record['k1_detail'])} cases, each bit-equal across "
+          f"two launches, max rel err {worst_rel} within {TOL_K1}, "
           f"max abs err {worst:.3g}; "
           f"bf16 mode: {flips} of {total} outputs round to another bf16 "
           f"value than the plain version's")
+
+
+def check_k1_cross(torch, timer, record):
+    """Both K1 kernels in bf16 mode (w4, the decode shapes' 0.45% sidecar)
+    at CROSS_ROWS: each held to the plain version, and timed, to place the
+    crossover the wrapper's plan uses (lut_matmul.GEMV_MAX_ROWS)."""
+    from squeezellm_tpu_torch import synthetic
+    from squeezellm_tpu_torch.ops import lut_matmul
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    for name, out_f, in_f, _ in K1_SHAPES:
+        sp = 0.0 if name == "lm_head" else 0.0045
+        t = synthetic.random_quant_linear(gen, dev, out_f, in_f, 4, sp,
+                                          0).tensors()
+        kw = {}
+        if "sp_rowptr" in t:
+            kw = dict(rowptr=t["sp_rowptr"], cols=t["sp_cols"],
+                      vals=t["sp_vals"])
+        for M in CROSS_ROWS:
+            x = torch.randn(M, in_f, generator=gen,
+                            device=dev).to(torch.bfloat16)
+            args = (x, t["qweight"], t["lut"], 4)
+            want = lut_matmul.lut_matmul_plain(*args, mode="bf16", **kw)
+            row = dict(shape=name, M=M,
+                       chosen=lut_matmul.plan(M, in_f, out_f, 4,
+                                              "bf16").variant)
+            for v in lut_matmul.VARIANTS:
+                def run(v=v):
+                    return lut_matmul.lut_matmul(*args, mode="bf16",
+                                                 variant=v, **kw)
+                err = rel_err(run(), want)
+                if err > TOL_K1["bf16"]:
+                    raise AssertionError(f"K1 {v} {name} M={M}: rel err "
+                                         f"{err}")
+                row[f"{v}_ms"] = timer.ms(run)
+            record["k1_cross"].append(row)
+        del t
+    print("  K1 crossover, w4 bf16 (ms: GEMV / tensor cores; * = the plan's "
+          "choice)")
+    for name, *_ in K1_SHAPES:
+        print(f"  K1 {name:8s} " + "  ".join(
+            f"M={r['M']}: " + " / ".join(
+                f"{r[v + '_ms']:.4f}{'*' if r['chosen'] == v else ''}"
+                for v in ("gemv", "mma"))
+            for r in record["k1_cross"] if r["shape"] == name))
+    print(f"K1 crossover ok: {len(record['k1_cross'])} row counts x 2 "
+          f"kernels within {TOL_K1['bf16']} of max |y|")
 
 
 def check_k2(torch, timer, record):
@@ -378,7 +455,7 @@ def check_k3(torch, timer, record):
     gen = torch.Generator(device=dev).manual_seed(13)
     H, Hkv, hd, S = 32, 32, 128, 4096
     worst, worst_rel = 0.0, 0.0
-    for sq in PROMPT_LENS:
+    for sq in K3_LENS:
         q = torch.randn(1, sq, H, hd, generator=gen,
                         device=dev).to(torch.bfloat16).transpose(1, 2)
         cache = {n: torch.randn(1, S, Hkv * hd, generator=gen,
@@ -690,8 +767,11 @@ def check_k10(torch, timer, record):
                     return lut_matmul.lut_matmul_struct_plain(
                         *args, y0=y0, mode=mode, **kw)
 
-                got, want = kernel(), plain()
+                got, again, want = kernel(), kernel(), plain()
                 torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise AssertionError(f"K10 {name} M={M} {mode}: two "
+                                         f"launches differ")
                 nbytes = (t["qweight"].numel() * 4 + out_f * 9 * 4
                           + x.numel() * x.element_size()
                           + y0.numel() * y0.element_size() + got.numel() * 4
@@ -700,13 +780,22 @@ def check_k10(torch, timer, record):
                         "bf16" if mode == "bf16" else "f32"),
                        (2 * M * nnz, "f32")]
                 w = lib_w[mode]
-                _lut_case(timer, record, "k10", name, 4, M, mode, per_step,
-                          got, want, TOL_K1[mode], (kernel, plain), nbytes,
-                          ops, lambda: torch.matmul(x, w))
+                row = _lut_case(timer, record, "k10", name, 4, M, mode,
+                                per_step, got, want, TOL_K1[mode],
+                                (kernel, plain), nbytes, ops,
+                                lambda: torch.matmul(x, w))
+                row["variant"] = lut_matmul.plan(M, in_f, out_f, 4,
+                                                 mode).variant
         del t, w32, lib_w
     _print_lut_rows(record, "k10", "K10")
+    for mode in ("bf16", "exact"):
+        rows = [r for r in record["k10_detail"] if r["M"] == 8
+                and r["mode"] == mode]
+        print(f"  K10 per decode step, 8 rows, {mode}: "
+              f"{sum(r['ms'] * r['launches_per_step'] for r in rows):.3f} ms")
     print(f"K10 ok: {len(record['k10_detail'])} cases (5 shapes, rows "
-          f"{K10_ROWS}, exact and bf16), max abs err "
+          f"{K10_ROWS}, exact and bf16), each bit-equal across two launches, "
+          f"max abs err "
           f"{record['k10_max_abs_err']:.3g}, within {TOL_K1} of max |y|")
 
 
@@ -831,6 +920,8 @@ def reset_counts():
     for fn in counters():
         fn.launches = 0
     counters()[1].ropeless_launches = 0
+    for fn in (counters()[0], counters()[9]):  # K1, K10 by device kernel
+        fn.variant_launches = dict.fromkeys(fn.variant_launches, 0)
 
 
 def expect_counts(record, path, want):
@@ -840,7 +931,9 @@ def expect_counts(record, path, want):
     want = list(want) + [0] * (len(got) - len(want))
     if got != want:
         raise AssertionError(f"{path}: launches K1..K12 {got} != {want}")
-    record["paths"].append({"path": path, "launches": got})
+    record["paths"].append({"path": path, "launches": got, "variants": {
+        "K1": dict(counters()[0].variant_launches),
+        "K10": dict(counters()[9].variant_launches)}})
     return got
 
 
@@ -2199,6 +2292,31 @@ def kernel_lines(record):
         for name, src, rep, n, err, r, at in rows]}
 
 
+def ptxas_lines(source):
+    """One line per kernel of `source` from the build's -Xptxas -v log:
+    name, registers, shared memory and spill bytes."""
+    from squeezellm_tpu_torch import _build
+
+    log = os.path.join(os.path.dirname(_build.build()), "build.log")
+    with open(log) as f:
+        text = f.read().split(f"== {source} ")[1].split("\n== ")[0]
+    out, name, spill = [], None, ""
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            mangled = line.split("'")[1]
+            name = next((k for k in ("gemv_kernel", "mma_kernel")
+                         if k in mangled), mangled)
+            args = re.findall(r"Li(\d+)E", mangled)
+            args.append("bf16" if "bfloat16" in mangled else "f32")
+            name += "<" + ",".join(args) + ">"
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and name:
+            out.append(f"{name}: {line.split(':', 1)[1].strip()}; {spill}")
+            name = None
+    return out
+
+
 def main():
     import torch
 
@@ -2225,18 +2343,23 @@ def main():
               "k12_detail": [], "k10_per_decode_step": [],
               "k11_per_decode_step": [], "k12_per_decode_step": [],
               "k1_bf16_flips": [], "k1_per_decode_step": [],
-              "k4_per_forward": [], "models": [], "paths": [],
+              "k4_per_forward": [], "k1_cross": [], "models": [],
+              "paths": [],
               "profile_failed": [], "failed": []}
     t0 = time.perf_counter()
     _build.build()
     _build.lib()
     record["build_s"] = time.perf_counter() - t0
     print(f"kernels built and loaded in {record['build_s']:.1f} s")
+    record["ptxas"] = ptxas_lines("lut_matmul.cu")
+    for line in record["ptxas"]:
+        print(f"  ptxas {line}")
 
     timer = Timer(torch)
     _, config = registry.load_config(os.path.join(HERE, "models",
                                                   "llama-2-7b"))
     phases = [("K1", lambda: check_k1(torch, timer, record)),
+              ("K1 crossover", lambda: check_k1_cross(torch, timer, record)),
               ("K2", lambda: check_k2(torch, timer, record)),
               ("K3", lambda: check_k3(torch, timer, record)),
               ("K4", lambda: check_k4(torch, timer, record)),

@@ -34,10 +34,11 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # argtypes of every C entry point (csrc/*.cu); all return int (cudaError_t)
 SIGNATURES = {
-    # x, x_bf16, qweight, lut, rowptr, cols, vals, y0, y0_bf16, y,
-    # M, in, out, bits, bf16_mode, stream
-    "slt_lut_matmul": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _P,
-                       _I, _I, _I, _I, _I, _P],
+    # x, x_bf16, xt, qweight, lut, rowptr, cols, vals, y0, y0_bf16, y, ws,
+    # counters, M, in, out, bits, bf16_mode, variant, row_tile, splits,
+    # words_per_split, folds, stream
+    "slt_lut_matmul": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _P,
+                       _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # q, k_new, v_new, q_bstride, kv_bstride, in_bf16, cos, sin, ck, cv,
     # cache_bf16, lengths, out, B, S, Hkv, g, hd, window, scale, stream
     "slt_decode_attn": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P,
@@ -48,10 +49,12 @@ SIGNATURES = {
                       + [_F, _P],
     # qweight, lut, rowptr, cols, vals, w, in, out, bits, w_bf16, stream
     "slt_dequant_dense": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    # x, x_bf16, qweight, A, d, rowptr, cols, vals, y0, y0_bf16, y, M, in,
-    # out, bf16_mode, stream
-    "slt_lut_matmul_struct": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _P,
-                              _I, _I, _I, _I, _P],
+    # x, x_bf16, xt, qweight, A, d, rowptr, cols, vals, y0, y0_bf16, y,
+    # ws, counters, M, in, out, bf16_mode, variant, row_tile, splits,
+    # words_per_split, folds, stream
+    "slt_lut_matmul_struct": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                              _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _I, _P],
     # x, x_bf16, qweight_t, lut, y, M, in, out, bf16_mode, stream
     "slt_lut_matmul_t": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, x_bf16, rowptr, cols, vals, y, B, in, out, stream

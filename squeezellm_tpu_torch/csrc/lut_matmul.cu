@@ -8,52 +8,84 @@
 // 17..1023 rows, the sparse add of `_spmv_kernel` (`gather_spmv`): the CSR
 // fold below serves every row count, so no slot plans are needed.
 //
-// Bound on the H100: at decode (M = 1) the packed words are the bytes that
-// matter (e.g. 25 MB for the fused 4-bit q|k|v of LLaMA-2-7B, ~7.5 us at
-// 3.35 TB/s). The 2*M*in*out products bound it from M ~ 5 in exact mode
-// (f32 operands, 67 TFLOP/s) but only from M ~ 80 in bf16 mode, whose bf16
-// x bf16 products with f32 accumulation the tensor cores do at 989
-// TFLOP/s. This kernel does every product as an f32 FMA on the CUDA
-// cores, so at prefill row counts in bf16 mode it stays far from that
-// bound (a tensor-core version is later work). Design for the byte bound:
-//  * one lane per output column: qweight's `out` axis is contiguous, so a
-//    warp reads 128 contiguous bytes per packed word row (the reference
-//    CUDA kernel's layout);
-//  * 8 warps per block split the packed words (k-slices) of the same 32
-//    columns, so even a 4096-wide output gives 128 blocks x 8 warps; each
-//    warp issues its 8 word loads of a chunk before it waits on any;
-//  * the column's LUT lives in shared memory as lut_s[code][lane] (a
-//    register array cannot be indexed by a run-time code), conflict-free;
-//  * x is staged in shared memory one 64-word chunk at a time ([i][m]
-//    layout, read as broadcast float4), so the 16-row down projection
-//    (11008 inputs, 44 KB a row in f32) never needs the whole row at once;
-//  * the k-slices are summed in a fixed order through shared memory and the
-//    CSR row is walked by one thread: no atomics, so the result does not
-//    depend on the run.
-// mode bf16 rounds x and the LUT to bf16 before the products (f32
-// accumulation); the sparse fold always reads x unrounded.
-//
-// K10 (slt_lut_matmul_struct) is the same template with a second table
+// K10 (slt_lut_matmul_struct) is the same two kernels with a second table
 // form, for 4-bit STRUCTURED codebooks lut[c] = A[c & 7] + (c >> 3) * d
 // (quantize/kmeans.fit_structured_luts). It replaces the structured bodies
 // of the TPU kernels (`_dequant_plane_struct_sel` and the structured branch
-// of `_lut_matmul_body`, squeezellm_tpu/ops/pallas_ops.py:190-205,
-// 311-342), which dequantize with one 8-entry gather plus a bit-3 select.
-// Here the block builds its 16-entry shared table from A (out, 8) and d
-// (out,) once, W = A[c & 7] + (c & 8 ? d : 0) in f32 (rounded to bf16 in
-// bf16 mode, as the TPU's one-pass MXU rounds the dequantized operand), and
-// the k loop is K1's. It reads 36 bytes of table a column instead of 64,
-// which at the byte bound of the packed words changes nothing measurable:
-// the structure saves VPU operations on a TPU, not bytes.
+// of `_lut_matmul_body`, squeezellm_tpu/ops/pallas_ops.py:161-205,
+// 311-342). The block builds its 16-entry shared table from A (out, 8) and
+// d (out,), W = A[c & 7] + (c & 8 ? d : 0) in f32 (rounded to bf16 in bf16
+// mode, as the TPU's one-pass MXU rounds the dequantized operand); the
+// rest is K1's.
+//
+// mode bf16 rounds x and the table to bf16 before the products (f32
+// accumulation); the sparse fold always reads x unrounded, transposed
+// (xt, made by the wrapper; x itself at one row) and from L2.
+//
+// Two kernels, picked per call by the wrapper (ops/lut_matmul.py `plan`, a
+// pure function; GEMV_MAX_ROWS there is the measured crossover):
+//
+// gemv_kernel, 1..8 rows in bf16 mode and every row count in exact mode
+// (16 rows a tile). Bound by the packed words' bytes (25 MB for the fused
+// 4-bit q|k|v of LLaMA-2-7B, 7.5 us at 3.35 TB/s). Design:
+//  * a block owns 128 output columns; a lane owns 4 adjacent ones, so a
+//    warp reads a word row's 512 contiguous bytes;
+//  * the words are split across `splits` blocks of a column tile (the
+//    k-split) as well as the block's 8 warps, so that a 4096-wide output
+//    still fills every SM; the split is the one-row tile's at every row
+//    count, so a row is summed in the same order whatever is batched with
+//    it (exact mode's tokens then do not depend on the batch);
+//  * a 4-stage cp.async ring brings 16-word stages (16-byte copies; 4-byte
+//    ones for a ragged `out` or unaligned words) and the matching x rows,
+//    so 3 stages are in flight while one is multiplied; x is read as
+//    vectors of a word row's codes and converted (rounded in bf16 mode)
+//    in registers;
+//  * the table lives in shared memory as [code][column % 4][lane]: lane
+//    l's entries all lie in bank l, so 32 lookups of any codes never
+//    conflict, and an entry's address is the lane's base OR'd with the
+//    code's bits (one shift, one LOP3, one load);
+//  * the sidecar's fold runs in blocks of its own (`folds` a column tile,
+//    launched first, so that its dependent gathers overlap the word
+//    stream): 8 lanes a column, each an equal part of the column's
+//    entries, summed by a fixed butterfly of shuffles, so no thread walks
+//    a long row alone;
+//  * the warps' partials are summed in a fixed tree through shared memory;
+//    a tile's partials (its folds, then its splits) go to a workspace and
+//    the LAST block of the tile to arrive (an atomic counter decides which
+//    block; no value is summed by an atomic) adds them in order, then y0.
+//    Same inputs, same bits, every launch.
+//
+// mma_kernel, bf16 mode above GEMV_MAX_ROWS rows (prefill chunks, verify
+// windows, serving pools above 8 slots): bound by the products from ~80
+// rows, which are bf16 x bf16 with f32 accumulation, what the tensor cores
+// do at 989 TFLOP/s. A block computes 64 rows x 128 columns:
+//  * a 4-stage cp.async ring brings 8-word tiles of qweight and the
+//    matching bf16 x tile; a k-step ahead of the products, each stage's
+//    words are dequantized through the bf16-rounded shared table into one
+//    of two bf16 B tiles [column][k] (exact: W is the plain version's bit
+//    for bit), so one barrier a k-step orders copies, dequantization and
+//    products;
+//  * 8 warps (2 x 4), each 32 x 32, run mma.sync m16n8k16 bf16 with f32
+//    accumulators from ldmatrix fragments (rows padded by 16 bytes: no
+//    bank conflicts);
+//  * the sidecar's fold block and the k-split end as in the GEMV.
+// f32 x in bf16 mode is rounded on its way into shared memory through
+// registers (not cp.async). Exact mode never takes this kernel: TF32 or
+// bf16 operands would change its numbers.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kCols = 32;        // output columns per block, one per lane
-constexpr int kWarps = 8;        // k-slices per block, one per warp
-constexpr int kThreads = kCols * kWarps;
-constexpr int kChunkWords = 64;  // packed words staged per x chunk
-constexpr int kWordsPerWarp = kChunkWords / kWarps;
+constexpr int kCols = 128;  // output columns per block
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kCsStride = kCols + 4;  // an f32 tile row in shared memory
+
+template <int BITS>
+struct Pack {
+  static constexpr int CPW = BITS == 4 ? 8 : 10;  // codes per int32 word
+  static constexpr int K = 1 << BITS;
+};
 
 __device__ __forceinline__ float load_act(const void* p, int is_bf16,
                                           size_t i) {
@@ -61,35 +93,37 @@ __device__ __forceinline__ float load_act(const void* p, int is_bf16,
                  : static_cast<const float*>(p)[i];
 }
 
-template <int BITS, int MT>
-__global__ void __launch_bounds__(kThreads)
-    lut_matmul_kernel(const void* __restrict__ x, int x_bf16,
-                      const uint32_t* __restrict__ qw,
-                      const float* __restrict__ lut,
-                      const float* __restrict__ sd,
-                      const int* __restrict__ rowptr,
-                      const int* __restrict__ cols,
-                      const float* __restrict__ vals,
-                      const void* __restrict__ y0, int y0_bf16,
-                      float* __restrict__ y, int M, int in_f, int out_f,
-                      int bf16_mode) {
-  constexpr int CPW = BITS == 4 ? 8 : 10;  // codes per int32 word
-  constexpr int K = 1 << BITS;
-  constexpr int CHUNK_IN = kChunkWords * CPW;
-  static_assert(kWarps * kCols <= CHUNK_IN, "reduction reuses x_s");
-  __shared__ float lut_s[K][kCols];
-  // x chunk as [i][m]; after the k loop it holds the k-slice partials
-  __shared__ __align__(16) float x_s[CHUNK_IN * MT];
+// Copies `nbytes` (0..UNIT) from gmem to smem with cp.async, zero-filling
+// the rest of the UNIT (4 or 16) bytes.
+template <int UNIT>
+__device__ __forceinline__ void cp_async_part(void* smem, const void* gmem,
+                                              int nbytes) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  if constexpr (UNIT == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+                 "l"(gmem), "r"(nbytes));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+                 "l"(gmem), "r"(nbytes));
+}
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int col0 = blockIdx.x * kCols;
-  const int col = col0 + lane;
-  const int m0 = blockIdx.y * MT;
-  const int nw = (in_f + CPW - 1) / CPW;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
 
-  // the block's LUT rows are kCols * K contiguous floats of lut (out, K);
-  // a structured table (sd set, 4-bit) is A (out, 8) and d (out,)
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The block's table, shared by both kernels: tab[slot(c, k)] = table value
+// of code k for column col0 + c (0 past out_f), rounded in bf16 mode (the
+// MMA kernel keeps it as bf16, ready for its B tiles). A
+// structured table (sd set, 4-bit) is A (out, 8) and d (out,).
+template <int K, bool LANE_MAJOR, typename T>  // float; uint32_t
+__device__ __forceinline__ void load_table(T* tab, const float* lut,
+                                           const float* sd, int col0,
+                                           int out_f, int bf16_mode) {
   for (int t = threadIdx.x; t < kCols * K; t += kThreads) {
     const int c = t / K, k = t % K;
     float v = 0.f;
@@ -101,168 +135,845 @@ __global__ void __launch_bounds__(kThreads)
         v = lut[(size_t)(col0 + c) * K + k];
       }
     }
-    lut_s[k][c] = bf16_mode ? slt::round_bf16(v) : v;
-  }
-
-  float acc[MT];
-#pragma unroll
-  for (int m = 0; m < MT; ++m) acc[m] = 0.f;
-
-  for (int c0 = 0; c0 < nw; c0 += kChunkWords) {
-    // this warp's words of the chunk: w = c0 + u * kWarps + warp
-    uint32_t q[kWordsPerWarp];
-#pragma unroll
-    for (int u = 0; u < kWordsPerWarp; ++u) {
-      const int w = c0 + u * kWarps + warp;
-      q[u] = (w < nw && col < out_f) ? __ldg(qw + (size_t)w * out_f + col)
-                                     : 0u;
-    }
-    __syncthreads();  // x_s of the previous chunk is no longer read
-    const int i0 = c0 * CPW;
-    const int n_in = min(CHUNK_IN, in_f - i0);
-    for (int t = threadIdx.x; t < MT * CHUNK_IN; t += kThreads) {
-      const int m = t / CHUNK_IN, i = t % CHUNK_IN;
-      float v = 0.f;
-      if (m0 + m < M && i < n_in) {
-        v = load_act(x, x_bf16, (size_t)(m0 + m) * in_f + i0 + i);
-        if (bf16_mode) v = slt::round_bf16(v);
-      }
-      x_s[i * MT + m] = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int u = 0; u < kWordsPerWarp; ++u) {
-      const int wl = u * kWarps + warp;
-      if (c0 + wl >= nw) break;
-      // codes at input index >= in_f (the last word's tail) are skipped
-      const int valid = min(CPW, in_f - (c0 + wl) * CPW);
-      const uint32_t word = q[u];
-#pragma unroll
-      for (int j = 0; j < CPW; ++j) {
-        if (j < valid) {
-          const uint32_t code = (word >> (BITS * j)) & (uint32_t)(K - 1);
-          const float wv = lut_s[code][lane];
-          const float* xp = &x_s[(wl * CPW + j) * MT];
-          if constexpr (MT % 4 == 0) {
-#pragma unroll
-            for (int m = 0; m < MT; m += 4) {
-              const float4 xv = *reinterpret_cast<const float4*>(xp + m);
-              acc[m] = fmaf(xv.x, wv, acc[m]);
-              acc[m + 1] = fmaf(xv.y, wv, acc[m + 1]);
-              acc[m + 2] = fmaf(xv.z, wv, acc[m + 2]);
-              acc[m + 3] = fmaf(xv.w, wv, acc[m + 3]);
-            }
-          } else {
-#pragma unroll
-            for (int m = 0; m < MT; ++m) acc[m] = fmaf(xp[m], wv, acc[m]);
-          }
-        }
-      }
-    }
-  }
-
-  // fixed-order sum of the k-slices, then y0 + sparse + dense per (row, col)
-  __syncthreads();
-  float* red = x_s;  // [warp][m][col]
-#pragma unroll
-  for (int m = 0; m < MT; ++m) red[(warp * MT + m) * kCols + lane] = acc[m];
-  __syncthreads();
-  for (int p = threadIdx.x; p < MT * kCols; p += kThreads) {
-    const int m = p / kCols, c = p % kCols;
-    const int row = m0 + m, oc = col0 + c;
-    if (row >= M || oc >= out_f) continue;
-    float dense = 0.f;
-#pragma unroll
-    for (int k = 0; k < kWarps; ++k) dense += red[(k * MT + m) * kCols + c];
-    const size_t yi = (size_t)row * out_f + oc;
-    float init = y0 ? load_act(y0, y0_bf16, yi) : 0.f;
-    if (rowptr) {
-      float sp = 0.f;
-      const size_t xrow = (size_t)row * in_f;
-      for (int e = rowptr[oc]; e < rowptr[oc + 1]; ++e)
-        sp = fmaf(vals[e], load_act(x, x_bf16, xrow + cols[e]), sp);
-      init += sp;
-    }
-    y[yi] = init + dense;
+    // GEMV: [k][c % 4][c / 4]: lane l's entries (columns 4l..4l+3) all lie
+    // in bank l, so 32 lookups of any codes never conflict, and an entry's
+    // byte offset is the lane's base OR'd with k << 9 (lut_offsets);
+    // MMA: [k][c] as 32-bit words, bf16 in the low half (bank c % 32)
+    const int slot = LANE_MAJOR ? k * kCols + (c & 3) * 32 + (c >> 2)
+                                : k * kCols + c;
+    if constexpr (LANE_MAJOR)
+      tab[slot] = bf16_mode ? slt::round_bf16(v) : v;
+    else
+      tab[slot] = __bfloat16_as_ushort(__float2bfloat16_rn(v));
   }
 }
 
-template <int BITS>
-void launch(int mt, dim3 grid, cudaStream_t s, const void* x, int x_bf16,
-            const uint32_t* qw, const float* lut, const float* sd,
-            const int* rowptr, const int* cols, const float* vals,
-            const void* y0, int y0_bf16,
-            float* y, int M, int in_f, int out_f, int bf16_mode) {
-#define SLT_LUT_CASE(MT_)                                                   \
-  case MT_:                                                                 \
-    lut_matmul_kernel<BITS, MT_><<<grid, kThreads, 0, s>>>(                 \
-        x, x_bf16, qw, lut, sd, rowptr, cols, vals, y0, y0_bf16, y, M,      \
-        in_f, out_f, bf16_mode);                                            \
-    break;
-  switch (mt) {
-    SLT_LUT_CASE(1)
-    SLT_LUT_CASE(2)
-    SLT_LUT_CASE(4)
-    SLT_LUT_CASE(8)
-    SLT_LUT_CASE(16)
+// Byte offsets of a lane's 4 columns in the GEMV's table (load_table's
+// LANE_MAJOR layout): code k of column lane * 4 + q is at b[q] | (k << 9).
+__device__ __forceinline__ void lut_offsets(uint32_t (&b)[4], int lane) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) b[q] = (q * 32 + lane) * 4;
+}
+
+// code j of word wd, shifted to its table row's byte offset (k << 9)
+template <int BITS, int J>
+__device__ __forceinline__ uint32_t code_offset(uint32_t wd) {
+  constexpr int sh = BITS * J - 9;
+  uint32_t v;
+  if constexpr (sh >= 0)
+    v = wd >> sh;
+  else
+    v = wd << -sh;
+  return v & (((1u << BITS) - 1) << 9);
+}
+
+// The sidecar fold of a block's tile: Cs [rows][kCsStride] (f32, zeroed by
+// the caller) += sparse(x) for rows m0.. and columns col0.. Warp w takes
+// columns w * 16 .. + 15, 8 lanes a column (lane l: columns w * 16 + 4 cg
+// + l / 8), each lane one of 8 equal parts of fold block f's share (f of
+// `folds`) of the column's entries; the 8 parts are summed by a fixed
+// butterfly of shuffles, R rows a pass. A lane
+// fetches 2 entries of each of its 4 columns before it gathers x for any,
+// so a round costs two memory latencies, a row of n entries n / (16 folds)
+// rounds,
+// and no value is summed by an atomic. Products are f32 on the unrounded
+// x, read transposed, xt (in, M), so that an entry's rows share a sector.
+template <int R>
+__device__ __forceinline__ void fold_tile(float* Cs, int rows, const void* xt,
+                                          int x_bf16,
+                                          const int* __restrict__ rowptr,
+                                          const int* __restrict__ cols,
+                                          const float* __restrict__ vals,
+                                          int M, int out_f, int m0,
+                                          int col0, int f, int folds) {
+  constexpr int E = 2;  // entries a column a round
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int p = lane & 7;
+  int e0[4], e1[4];
+#pragma unroll
+  for (int cg = 0; cg < 4; ++cg) {
+    const int col = col0 + warp * 16 + cg * 4 + (lane >> 3);
+    e0[cg] = e1[cg] = 0;
+    if (col < out_f) {
+      const int lo = rowptr[col], n = rowptr[col + 1] - lo;
+      const int part = f * 8 + p, parts = folds * 8;
+      e0[cg] = lo + (int)((long long)n * part / parts);
+      e1[cg] = lo + (int)((long long)n * (part + 1) / parts);
+    }
   }
-#undef SLT_LUT_CASE
+  int most = 0;  // the lane's longest part: rounds of E entries
+#pragma unroll
+  for (int cg = 0; cg < 4; ++cg) most = max(most, e1[cg] - e0[cg]);
+  for (int r0 = 0; r0 < rows && m0 + r0 < M; r0 += R) {
+    const int nr = min(R, min(rows, M - m0) - r0);
+    float f[4][R];
+#pragma unroll
+    for (int cg = 0; cg < 4; ++cg)
+#pragma unroll
+      for (int m = 0; m < R; ++m) f[cg][m] = 0.f;
+    for (int k = 0; k < most; k += E) {
+      int c[4][E];
+      float v[4][E];
+#pragma unroll
+      for (int cg = 0; cg < 4; ++cg)
+#pragma unroll
+        for (int u = 0; u < E; ++u) {
+          const int e = e0[cg] + k + u;
+          const bool ok = e < e1[cg];
+          c[cg][u] = ok ? cols[e] : 0;
+          v[cg][u] = ok ? vals[e] : 0.f;
+        }
+#pragma unroll
+      for (int cg = 0; cg < 4; ++cg)
+#pragma unroll
+        for (int u = 0; u < E; ++u) {
+          const size_t base = (size_t)c[cg][u] * M + m0 + r0;
+#pragma unroll
+          for (int m = 0; m < R; ++m)
+            if (m < nr)
+              f[cg][m] = fmaf(v[cg][u], load_act(xt, x_bf16, base + m),
+                              f[cg][m]);
+        }
+    }
+#pragma unroll
+    for (int o = 1; o < 8; o <<= 1)
+#pragma unroll
+      for (int cg = 0; cg < 4; ++cg)
+#pragma unroll
+        for (int m = 0; m < R; ++m)
+          f[cg][m] += __shfl_xor_sync(0xffffffffu, f[cg][m], o);
+    // the 8 lanes hold the same sums; lane p adds the rows m % 8 == p
+#pragma unroll
+    for (int cg = 0; cg < 4; ++cg)
+#pragma unroll
+      for (int m = 0; m < R; ++m)
+        if ((m & 7) == p && m < nr)
+          Cs[(r0 + m) * kCsStride + warp * 16 + cg * 4 + (lane >> 3)] +=
+              f[cg][m];
+  }
+}
+
+// Sums the 8 warps' acc into warp 0's in a fixed tree through `red`
+// (4 * R * kCols floats). The caller syncs before (red may alias buffers
+// still read) and warp 0 holds the sum after.
+template <int R>
+__device__ __forceinline__ void tree_sum(float (&acc)[R][4], float* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int half = kWarps / 2; half >= 1; half /= 2) {
+    if (warp >= half && warp < 2 * half) {
+#pragma unroll
+      for (int m = 0; m < R; ++m)
+        *reinterpret_cast<float4*>(
+            &red[((warp - half) * R + m) * kCols + lane * 4]) =
+            make_float4(acc[m][0], acc[m][1], acc[m][2], acc[m][3]);
+    }
+    __syncthreads();
+    if (warp < half) {
+#pragma unroll
+      for (int m = 0; m < R; ++m) {
+        const float4 o = *reinterpret_cast<const float4*>(
+            &red[(warp * R + m) * kCols + lane * 4]);
+        acc[m][0] += o.x;
+        acc[m][1] += o.y;
+        acc[m][2] += o.z;
+        acc[m][3] += o.w;
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// Stores one value of the block's tile: the final y (y0 added) when the
+// k-split is 1, else the block's partial in ws[split].
+__device__ __forceinline__ void store_out(float v, int row, int col,
+                                          float* __restrict__ y,
+                                          float* __restrict__ ws,
+                                          const void* y0, int y0_bf16, int M,
+                                          int out_f, int splits) {
+  const size_t yi = (size_t)row * out_f + col;
+  if (splits == 1) {
+    y[yi] = (y0 ? load_act(y0, y0_bf16, yi) : 0.f) + v;
+  } else {
+    ws[(size_t)blockIdx.y * M * out_f + yi] = v;
+  }
+}
+
+// After every thread stored its partials: the last of the tile's `splits`
+// blocks to get here sums the partials in split order, adds y0, writes y
+// and resets the tile's counter for the next launch.
+__device__ __forceinline__ void splitk_finish(
+    float* __restrict__ y, const float* ws, int* counters, const void* y0,
+    int y0_bf16, int M, int out_f, int splits, int m0, int rows, int col0) {
+  if (splits == 1) return;
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  int* cnt = counters + blockIdx.z * gridDim.x + blockIdx.x;
+  if (threadIdx.x == 0) last = atomicAdd(cnt, 1) == splits - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  const int ncol = min(kCols, out_f - col0);
+  const int nrow = min(rows, M - m0);
+  for (int t = threadIdx.x; t < nrow * ncol; t += kThreads) {
+    const int r = t / ncol, c = t % ncol;
+    const size_t yi = (size_t)(m0 + r) * out_f + col0 + c;
+    float v = y0 ? load_act(y0, y0_bf16, yi) : 0.f;
+    float s = 0.f;
+    for (int k = 0; k < splits; ++k)
+      s += __ldcg(ws + (size_t)k * M * out_f + yi);
+    y[yi] = v + s;
+  }
+  if (threadIdx.x == 0) *cnt = 0;
+}
+
+// One of the `folds` sidecar blocks of a column tile (blockIdx.y < folds;
+// the k-split's blocks follow them): its share of the fold of rows m0..
+// into Cs (`rows` x kCsStride floats of shared memory), stored as partial
+// blockIdx.y. Blocks start in blockIdx order, so the gathers run beside the
+// word stream of the tile's other blocks, not after it.
+template <int R>
+__device__ __forceinline__ void fold_block(
+    float* Cs, int rows, const void* xt, int x_bf16, const int* rowptr,
+    const int* cols, const float* vals, float* y, float* ws, int* counters,
+    const void* y0, int y0_bf16, int M, int out_f, int m0, int col0,
+    int folds, int parts) {
+  for (int t = threadIdx.x; t < rows * kCsStride; t += kThreads) Cs[t] = 0.f;
+  __syncthreads();
+  fold_tile<R>(Cs, rows, xt, x_bf16, rowptr, cols, vals, M, out_f, m0,
+               col0, blockIdx.y, folds);
+  __syncthreads();
+  for (int t = threadIdx.x; t < rows * kCols; t += kThreads) {
+    const int r = t / kCols, c = t % kCols;
+    if (m0 + r < M && col0 + c < out_f)
+      store_out(Cs[r * kCsStride + c], m0 + r, col0 + c, y, ws, y0, y0_bf16,
+                M, out_f, parts);
+  }
+  splitk_finish(y, ws, counters, y0, y0_bf16, M, out_f, parts, m0, rows,
+                col0);
+}
+
+// ---------------------------------------------------------------------------
+// GEMV: MT rows a tile (a power of two up to 16), x of type XT
+// ---------------------------------------------------------------------------
+
+constexpr int kGemvStages = 4;
+constexpr int kGemvWords = 16;  // packed word rows a stage, 2 a warp
+
+template <int BITS, int MT, typename XT>
+struct GemvShape {
+  static constexpr int CPW = Pack<BITS>::CPW, K = Pack<BITS>::K;
+  static constexpr int SI = kGemvWords * CPW;  // inputs a stage
+  // a stage: the words (16 x 128), then x's rows [m][SI] in XT, each row
+  // padded to keep 16-byte alignment
+  static constexpr int XROW = SI * (int)sizeof(XT) + 16;
+  static constexpr int W_BYTES = kGemvWords * kCols * 4;
+  static constexpr int STAGE = W_BYTES + MT * XROW;
+  static constexpr int RED = 4 * MT * kCols * 4;
+  static constexpr int PIPE = kGemvStages * STAGE;
+  static constexpr int TAB = K * kCols * 4;
+  static constexpr int SMEM = TAB + (PIPE > RED ? PIPE : RED);
+};
+
+// x rows m0.. of inputs [i0, i0 + n) into `dst` (rows of `row` bytes),
+// zeros past i_end and past M: 16-byte copies when x's rows are 16-byte
+// aligned (xalign 16), 4-byte ones (an f32 or a bf16 pair) when 4-byte
+// aligned, else plain loads (bf16 x of odd width).
+template <typename XT, int ROWS>
+__device__ __forceinline__ void stage_rows(char* dst, int row, const XT* x,
+                                           int xalign, int M, int in_f,
+                                           int m0, int i0, int n, int i_end) {
+  constexpr int E = sizeof(XT);
+  if (xalign >= 4) {
+    const int unit = xalign;  // bytes
+    const int upr = n * E / unit;  // units a row
+    for (int t = threadIdx.x; t < ROWS * upr; t += kThreads) {
+      const int m = t / upr, u = t % upr;
+      const int i = i0 + u * unit / E;
+      int nb = 0;
+      const XT* src = x;
+      if (m0 + m < M && i < i_end) {
+        nb = min(unit, (i_end - i) * E);
+        src = x + (size_t)(m0 + m) * in_f + i;
+      }
+      if (unit == 16)
+        cp_async_part<16>(dst + m * row + u * 16, src, nb);
+      else
+        cp_async_part<4>(dst + m * row + u * 4, src, nb);
+    }
+  } else {
+    for (int t = threadIdx.x; t < ROWS * n; t += kThreads) {
+      const int m = t / n, u = t % n;
+      const int i = i0 + u;
+      XT v = XT(0.f);
+      if (m0 + m < M && i < i_end) v = x[(size_t)(m0 + m) * in_f + i];
+      reinterpret_cast<XT*>(dst + m * row)[u] = v;
+    }
+  }
+}
+
+// The 16 x 128 words of word rows [w0, w0 + 16) into `dst`, zeros past
+// w_end and out_f: 16-byte copies when `vec`, else 4-byte ones.
+__device__ __forceinline__ void stage_words(uint32_t* dst,
+                                            const uint32_t* __restrict__ qw,
+                                            int rows, int w0, int w_end,
+                                            int col0, int out_f, int vec) {
+  if (vec) {
+    for (int t = threadIdx.x; t < rows * kCols / 4; t += kThreads) {
+      const int w = t / (kCols / 4), c = (t % (kCols / 4)) * 4;
+      const bool ok = w0 + w < w_end && col0 + c < out_f;
+      cp_async_part<16>(dst + w * kCols + c,
+                        ok ? qw + (size_t)(w0 + w) * out_f + col0 + c : qw,
+                        ok ? 16 : 0);
+    }
+  } else {
+    for (int t = threadIdx.x; t < rows * kCols; t += kThreads) {
+      const int w = t / kCols, c = t % kCols;
+      const bool ok = w0 + w < w_end && col0 + c < out_f;
+      cp_async_part<4>(dst + w * kCols + c,
+                       ok ? qw + (size_t)(w0 + w) * out_f + col0 + c : qw,
+                       ok ? 4 : 0);
+    }
+  }
+}
+
+// x[m][i0 .. i0 + CPW) of one word row from a staged row, as f32 (rounded
+// to bf16 in bf16 mode when x is f32; bf16 x is already).
+template <int CPW, typename XT>
+__device__ __forceinline__ void read_x(float (&v)[CPW], const char* p,
+                                       int round) {
+  if constexpr (sizeof(XT) == 4) {
+    if constexpr (CPW == 8) {
+      const float4 a = reinterpret_cast<const float4*>(p)[0];
+      const float4 b = reinterpret_cast<const float4*>(p)[1];
+      v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+      v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < CPW; j += 2) {
+        const float2 a = reinterpret_cast<const float2*>(p)[j / 2];
+        v[j] = a.x;
+        v[j + 1] = a.y;
+      }
+    }
+    if (round) {
+#pragma unroll
+      for (int j = 0; j < CPW; ++j) v[j] = slt::round_bf16(v[j]);
+    }
+  } else {
+    uint32_t u[CPW / 2];
+    if constexpr (CPW == 8) {
+      const uint4 a = *reinterpret_cast<const uint4*>(p);
+      u[0] = a.x; u[1] = a.y; u[2] = a.z; u[3] = a.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < CPW / 2; ++j)
+        u[j] = reinterpret_cast<const uint32_t*>(p)[j];
+    }
+#pragma unroll
+    for (int j = 0; j < CPW / 2; ++j) {
+      v[2 * j] = __uint_as_float(u[j] << 16);
+      v[2 * j + 1] = __uint_as_float(u[j] & 0xffff0000u);
+    }
+  }
+}
+
+// The table values of one word row's CPW codes for the lane's 4 columns.
+template <int BITS, int J = 0>
+__device__ __forceinline__ void lookup_row(
+    float (&wv)[Pack<BITS>::CPW][4], const uint32_t (&wd)[4],
+    const uint32_t (&lb)[4], const char* tabc) {
+  if constexpr (J < Pack<BITS>::CPW) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      wv[J][q] = *reinterpret_cast<const float*>(
+          tabc + (lb[q] | code_offset<BITS, J>(wd[q])));
+    lookup_row<BITS, J + 1>(wv, wd, lb, tabc);
+  }
+}
+
+template <int BITS, int MT, typename XT>
+__global__ void __launch_bounds__(kThreads, MT <= 2 ? 4 : (MT <= 4 ? 3 : 2))
+    gemv_kernel(const XT* __restrict__ x, const void* xt, int xalign,
+                const uint32_t* __restrict__ qw, const float* __restrict__ lut,
+                const float* __restrict__ sd, const int* __restrict__ rowptr,
+                const int* __restrict__ cols, const float* __restrict__ vals,
+                const void* __restrict__ y0, int y0_bf16,
+                float* __restrict__ y, float* ws, int* counters, int M,
+                int in_f, int out_f, int bf16_mode, int vec, int splits,
+                int words_per_split, int folds) {
+  using S = GemvShape<BITS, MT, XT>;
+  constexpr int CPW = S::CPW, K = S::K;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* tab = reinterpret_cast<float*>(smem);
+  char* pipe = reinterpret_cast<char*>(smem) + S::TAB;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int col0 = blockIdx.x * kCols;
+  const int col = col0 + lane * 4;
+  const int m0 = blockIdx.z * MT;
+  const int nw = (in_f + CPW - 1) / CPW;
+  const int wb = ((int)blockIdx.y - folds) * words_per_split;
+  const int we = min(nw, wb + words_per_split);
+  const int i_end = min(in_f, we * CPW);  // inputs past the split are 0
+  const int ns = (we - wb + kGemvWords - 1) / kGemvWords;
+  const int x_round = bf16_mode && sizeof(XT) == 4;
+  const int parts = folds + splits;  // partials a tile
+  if ((int)blockIdx.y < folds) {
+    fold_block<MT>(reinterpret_cast<float*>(pipe), MT, xt, sizeof(XT) == 2,
+                   rowptr, cols, vals, y, ws, counters, y0, y0_bf16, M,
+                   out_f, m0, col0, folds, parts);
+    return;
+  }
+
+  auto issue = [&](int s) {
+    char* st = pipe + (s % kGemvStages) * S::STAGE;
+    const int w0 = wb + s * kGemvWords;
+    stage_words(reinterpret_cast<uint32_t*>(st), qw, kGemvWords, w0, we,
+                col0, out_f, vec);
+    stage_rows<XT, MT>(st + S::W_BYTES, S::XROW, x, xalign, M, in_f, m0,
+                       w0 * CPW, S::SI, i_end);
+  };
+#pragma unroll
+  for (int s = 0; s < kGemvStages - 1; ++s) {
+    if (s < ns) issue(s);
+    cp_async_commit();
+  }
+  load_table<K, true>(tab, lut, sd, col0, out_f, bf16_mode);
+  uint32_t lb[4];
+  lut_offsets(lb, lane);
+  const char* tabc = reinterpret_cast<const char*>(tab);
+
+  float acc[MT][4];
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+    acc[m][0] = acc[m][1] = acc[m][2] = acc[m][3] = 0.f;
+
+  for (int s = 0; s < ns; ++s) {
+    cp_async_wait<kGemvStages - 2>();
+    __syncthreads();  // stage s landed; every warp is past stage s - 1
+    if (s + kGemvStages - 1 < ns) issue(s + kGemvStages - 1);
+    cp_async_commit();
+    const char* st = pipe + (s % kGemvStages) * S::STAGE;
+    const uint32_t* W = reinterpret_cast<const uint32_t*>(st);
+    const char* X = st + S::W_BYTES;
+#pragma unroll
+    for (int u = 0; u < kGemvWords / kWarps; ++u) {
+      const int wl = u * kWarps + warp;
+      const uint4 q4 = *reinterpret_cast<const uint4*>(W + wl * kCols +
+                                                       lane * 4);
+      const uint32_t wd[4] = {q4.x, q4.y, q4.z, q4.w};
+      float wv[CPW][4];
+      lookup_row<BITS>(wv, wd, lb, tabc);
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        float xv[CPW];
+        read_x<CPW, XT>(xv, X + m * S::XROW + wl * CPW * sizeof(XT),
+                        x_round);
+#pragma unroll
+        for (int j = 0; j < CPW; ++j)
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            acc[m][q] = fmaf(xv[j], wv[j][q], acc[m][q]);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the stages are free for the warps' partials
+  tree_sum<MT>(acc, reinterpret_cast<float*>(pipe));
+  if (warp == 0) {
+#pragma unroll
+    for (int m = 0; m < MT; ++m) {
+      if (m0 + m >= M) break;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (col + q < out_f)
+          store_out(acc[m][q], m0 + m, col + q, y, ws, y0, y0_bf16, M, out_f,
+                    parts);
+    }
+  }
+  splitk_finish(y, ws, counters, y0, y0_bf16, M, out_f, parts, m0, MT,
+                col0);
+}
+
+// ---------------------------------------------------------------------------
+// MMA: 64 rows x 128 columns a block, bf16 mode
+// ---------------------------------------------------------------------------
+
+constexpr int kMmaRows = 64;
+constexpr int kMmaWords = 8;  // packed word rows a k-step
+constexpr int kStages = 4;
+
+template <int BITS>
+struct MmaShape {
+  static constexpr int CPW = Pack<BITS>::CPW, K = Pack<BITS>::K;
+  static constexpr int BK = kMmaWords * CPW;  // inputs a k-step: 64 or 80
+  static constexpr int LD = BK + 8;  // bf16 a tile row: 16 bytes of pad
+  static constexpr int A_BYTES = kMmaRows * LD * 2;
+  static constexpr int W_BYTES = kMmaWords * kCols * 4;
+  static constexpr int B_BYTES = kCols * LD * 2;
+  static constexpr int PIPE_BYTES = kStages * (A_BYTES + W_BYTES) + 2 * B_BYTES;
+  static constexpr int CS_BYTES = kMmaRows * kCsStride * 4;
+  static constexpr int TAB_BYTES = K * kCols * 4;
+  static constexpr int SMEM =
+      TAB_BYTES + (PIPE_BYTES > CS_BYTES ? PIPE_BYTES : CS_BYTES);
+};
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(s));
+}
+
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Issues the copies of a k-step (word rows w0.. of the split) into one
+// stage: x rows m0.. as bf16 (cp.async for bf16 x; f32 x rounded through
+// registers; zeros past i_end and M) and the 8 x 128 words (zeros past
+// w_end and out_f).
+template <int BITS, typename XT>
+__device__ __forceinline__ void mma_issue(
+    __nv_bfloat16* As, uint32_t* Ws, const XT* x, int xalign,
+    const uint32_t* __restrict__ qw, int M, int in_f, int out_f, int m0,
+    int col0, int w0, int w_end, int i_end, int vec) {
+  using S = MmaShape<BITS>;
+  const int i0 = w0 * S::CPW;
+  if (sizeof(XT) == 2) {
+    stage_rows<XT, kMmaRows>(reinterpret_cast<char*>(As), S::LD * 2, x,
+                             xalign, M, in_f, m0, i0, S::BK, i_end);
+  } else {
+    for (int t = threadIdx.x; t < kMmaRows * S::BK; t += kThreads) {
+      const int m = t / S::BK, k = t % S::BK, i = i0 + k;
+      float v = 0.f;
+      if (m0 + m < M && i < i_end)
+        v = slt::to_f32(x[(size_t)(m0 + m) * in_f + i]);
+      As[m * S::LD + k] = __float2bfloat16_rn(v);
+    }
+  }
+  stage_words(Ws, qw, kMmaWords, w0, w_end, col0, out_f, vec);
+  cp_async_commit();
+}
+
+// One stage's 8 x 128 words into B [column][k] as bf16 pairs, through the
+// bf16 table [code][column] (a 32-bit word an entry, so that a warp's
+// lookups never conflict): a thread a column, 4 of the 8 word rows.
+template <int BITS>
+__device__ __forceinline__ void dequant_stage(__nv_bfloat16* Bs,
+                                              const uint32_t* W,
+                                              const uint32_t* tab) {
+  using S = MmaShape<BITS>;
+  constexpr int CPW = S::CPW, K = S::K;
+  const int c = threadIdx.x & (kCols - 1);
+  const uint32_t* tc = tab + c;
+#pragma unroll
+  for (int r = 0; r < kMmaWords / 2; ++r) {
+    const int w = (threadIdx.x >> 7) + 2 * r;
+    const uint32_t wd = W[w * kCols + c];
+    uint32_t v[CPW / 2];  // bf16 pairs (code 2p low, 2p + 1 high)
+#pragma unroll
+    for (int p = 0; p < CPW / 2; ++p)
+      v[p] = tc[((wd >> (BITS * 2 * p)) & (K - 1)) * kCols] |
+             (tc[((wd >> (BITS * (2 * p + 1))) & (K - 1)) * kCols] << 16);
+    uint32_t* dst = reinterpret_cast<uint32_t*>(Bs + c * S::LD + w * CPW);
+    if constexpr (CPW == 8) {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int p = 0; p < CPW / 2; ++p) dst[p] = v[p];
+    }
+  }
+}
+
+template <int BITS, typename XT>
+__global__ void __launch_bounds__(kThreads)
+    mma_kernel(const XT* __restrict__ x, const void* xt, int xalign,
+               const uint32_t* __restrict__ qw, const float* __restrict__ lut,
+               const float* __restrict__ sd, const int* __restrict__ rowptr,
+               const int* __restrict__ cols, const float* __restrict__ vals,
+               const void* __restrict__ y0, int y0_bf16,
+               float* __restrict__ y, float* ws, int* counters, int M,
+               int in_f, int out_f, int vec, int splits,
+               int words_per_split, int folds) {
+  using S = MmaShape<BITS>;
+  constexpr int CPW = S::CPW, K = S::K, LD = S::LD;
+  extern __shared__ __align__(16) unsigned char smem[];
+  auto* tab = reinterpret_cast<uint32_t*>(smem);
+  unsigned char* pipe = smem + S::TAB_BYTES;
+  auto As = [&](int st) {
+    return reinterpret_cast<__nv_bfloat16*>(pipe + st * S::A_BYTES);
+  };
+  auto Ws = [&](int st) {
+    return reinterpret_cast<uint32_t*>(pipe + kStages * S::A_BYTES +
+                                       st * S::W_BYTES);
+  };
+  auto Bs = [&](int b) {  // double-buffered: dequantized a k-step ahead
+    return reinterpret_cast<__nv_bfloat16*>(
+        pipe + kStages * (S::A_BYTES + S::W_BYTES) + b * S::B_BYTES);
+  };
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp / 4, wn = warp % 4;  // 2 x 4 warps of 32 x 32
+  const int g = lane >> 2, tq = lane & 3;
+  const int col0 = blockIdx.x * kCols;
+  const int m0 = blockIdx.z * kMmaRows;
+  const int nw = (in_f + CPW - 1) / CPW;
+  const int wb = ((int)blockIdx.y - folds) * words_per_split;
+  const int we = min(nw, wb + words_per_split);
+  const int i_end = min(in_f, we * CPW);
+  const int nk = (we - wb + kMmaWords - 1) / kMmaWords;
+  const int parts = folds + splits;  // partials a tile
+  if ((int)blockIdx.y < folds) {
+    fold_block<16>(reinterpret_cast<float*>(pipe), kMmaRows, xt,
+                   sizeof(XT) == 2, rowptr, cols, vals, y, ws, counters, y0,
+                   y0_bf16, M, out_f, m0, col0, folds, parts);
+    return;
+  }
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nk)
+      mma_issue<BITS, XT>(As(s), Ws(s), x, xalign, qw, M, in_f, out_f, m0,
+                          col0, wb + s * kMmaWords, we, i_end, vec);
+    else
+      cp_async_commit();  // keep the group count
+  }
+  load_table<K, false>(tab, lut, sd, col0, out_f, 1);
+
+  float acc[2][4][4];
+#pragma unroll
+  for (int a = 0; a < 2; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      acc[a][b][0] = acc[a][b][1] = acc[a][b][2] = acc[a][b][3] = 0.f;
+
+  cp_async_wait<kStages - 2>();
+  __syncthreads();  // stage 0 and the table are in
+  dequant_stage<BITS>(Bs(0), Ws(0), tab);
+  for (int kt = 0; kt < nk; ++kt) {
+    // stage kt + 1 landed, B of k-step kt is written, and every warp is
+    // past k-step kt - 1, whose buffers the next copies reuse
+    cp_async_wait<kStages - 3>();
+    __syncthreads();
+    const int kn = kt + kStages - 1;
+    if (kn < nk)
+      mma_issue<BITS, XT>(As(kn % kStages), Ws(kn % kStages), x, xalign, qw,
+                          M, in_f, out_f, m0, col0, wb + kn * kMmaWords, we,
+                          i_end, vec);
+    else
+      cp_async_commit();
+    if (kt + 1 < nk)
+      dequant_stage<BITS>(Bs((kt + 1) & 1), Ws((kt + 1) % kStages), tab);
+    const __nv_bfloat16* A = As(kt % kStages);
+    const __nv_bfloat16* B = Bs(kt & 1);
+#pragma unroll
+    for (int kk = 0; kk < S::BK / 16; ++kk) {
+      uint32_t a[2][4], b[2][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+        ldmatrix_x4(a[mi], A + (wm * 32 + mi * 16 + (lane & 15)) * LD +
+                               kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int nj = 0; nj < 2; ++nj)
+        ldmatrix_x4(b[nj], B + (wn * 32 + nj * 16 + (lane & 7) +
+                                ((lane >> 4) << 3)) * LD +
+                               kk * 16 + ((lane >> 3) & 1) * 8);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+          mma_bf16(acc[mi][ni], a[mi], b[ni >> 1][(ni & 1) * 2],
+                   b[ni >> 1][(ni & 1) * 2 + 1]);
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the pipeline's buffers are free
+
+  float* Cs = reinterpret_cast<float*>(pipe);
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int ni = 0; ni < 4; ++ni) {
+      const int r = wm * 32 + mi * 16 + g, c = wn * 32 + ni * 8 + 2 * tq;
+      *reinterpret_cast<float2*>(&Cs[r * kCsStride + c]) =
+          make_float2(acc[mi][ni][0], acc[mi][ni][1]);
+      *reinterpret_cast<float2*>(&Cs[(r + 8) * kCsStride + c]) =
+          make_float2(acc[mi][ni][2], acc[mi][ni][3]);
+    }
+  __syncthreads();
+  for (int t = threadIdx.x; t < kMmaRows * kCols; t += kThreads) {
+    const int r = t / kCols, c = t % kCols;
+    if (m0 + r < M && col0 + c < out_f)
+      store_out(Cs[r * kCsStride + c], m0 + r, col0 + c, y, ws, y0, y0_bf16,
+                M, out_f, parts);
+  }
+  splitk_finish(y, ws, counters, y0, y0_bf16, M, out_f, parts, m0,
+                kMmaRows, col0);
+}
+
+// ---------------------------------------------------------------------------
+// Launch
+// ---------------------------------------------------------------------------
+
+struct Args {
+  const void* x;
+  int x_bf16;
+  const void* xt;
+  const uint32_t* qw;
+  const float* lut;
+  const float* sd;
+  const int* rowptr;
+  const int* cols;
+  const float* vals;
+  const void* y0;
+  int y0_bf16;
+  float* y;
+  float* ws;
+  int* counters;
+  int M, in_f, out_f, bf16_mode, variant, row_tile, splits, words_per_split,
+      folds;
+};
+
+// Raises the kernel's dynamic shared memory limit once per instantiation.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, int bytes, bool& done) {
+  if (done) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  done = e == cudaSuccess;
+  return e;
+}
+
+template <int BITS, int MT, typename XT>
+cudaError_t launch_gemv(const Args& a, dim3 grid, int xalign, int vec,
+                        cudaStream_t s) {
+  constexpr int smem = GemvShape<BITS, MT, XT>::SMEM;
+  static bool done = false;
+  const cudaError_t e = allow_smem(gemv_kernel<BITS, MT, XT>, smem, done);
+  if (e != cudaSuccess) return e;
+  gemv_kernel<BITS, MT, XT><<<grid, kThreads, smem, s>>>(
+      static_cast<const XT*>(a.x), a.xt, xalign, a.qw, a.lut, a.sd, a.rowptr,
+      a.cols, a.vals, a.y0, a.y0_bf16, a.y, a.ws, a.counters, a.M, a.in_f,
+      a.out_f, a.bf16_mode, vec, a.splits, a.words_per_split, a.folds);
+  return cudaGetLastError();
+}
+
+template <int BITS, typename XT>
+cudaError_t launch_mma(const Args& a, dim3 grid, int xalign, int vec,
+                       cudaStream_t s) {
+  constexpr int smem = MmaShape<BITS>::SMEM;
+  static bool done = false;
+  const cudaError_t e = allow_smem(mma_kernel<BITS, XT>, smem, done);
+  if (e != cudaSuccess) return e;
+  mma_kernel<BITS, XT><<<grid, kThreads, smem, s>>>(
+      static_cast<const XT*>(a.x), a.xt, xalign, a.qw, a.lut, a.sd, a.rowptr,
+      a.cols, a.vals, a.y0, a.y0_bf16, a.y, a.ws, a.counters, a.M, a.in_f,
+      a.out_f, vec, a.splits, a.words_per_split, a.folds);
+  return cudaGetLastError();
+}
+
+template <int BITS, typename XT>
+cudaError_t launch_x(const Args& a, dim3 grid, int xalign, int vec,
+                     cudaStream_t s) {
+  if (a.variant == 1) {  // tensor cores, bf16 mode
+    if (!a.bf16_mode || a.row_tile != kMmaRows) return cudaErrorInvalidValue;
+    return launch_mma<BITS, XT>(a, grid, xalign, vec, s);
+  }
+  if (a.variant != 0) return cudaErrorInvalidValue;
+  switch (a.row_tile) {
+    case 1: return launch_gemv<BITS, 1, XT>(a, grid, xalign, vec, s);
+    case 2: return launch_gemv<BITS, 2, XT>(a, grid, xalign, vec, s);
+    case 4: return launch_gemv<BITS, 4, XT>(a, grid, xalign, vec, s);
+    case 8: return launch_gemv<BITS, 8, XT>(a, grid, xalign, vec, s);
+    case 16: return launch_gemv<BITS, 16, XT>(a, grid, xalign, vec, s);
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <int BITS>
+int launch(const Args& a, cudaStream_t s) {
+  if (a.M <= 0 || a.out_f <= 0) return (int)cudaSuccess;
+  const int nw = (a.in_f + Pack<BITS>::CPW - 1) / Pack<BITS>::CPW;
+  if (a.splits < 1 || a.words_per_split < 1 || a.words_per_split % 8 ||
+      (long long)a.splits * a.words_per_split < nw ||
+      (a.folds > 0) != (a.rowptr != nullptr) ||
+      (a.splits + a.folds > 1 && (!a.ws || !a.counters)))
+    return (int)cudaErrorInvalidValue;
+  const int vec = a.out_f % 4 == 0 &&
+                  reinterpret_cast<uintptr_t>(a.qw) % 16 == 0;
+  // the widest copy x's rows allow: 16 bytes, 4 (an f32, a bf16 pair), 2
+  const int e = a.x_bf16 ? 2 : 4;
+  const uintptr_t xp = reinterpret_cast<uintptr_t>(a.x);
+  const int xalign = (xp % 16 == 0 && a.in_f * e % 16 == 0)  ? 16
+                     : (xp % 4 == 0 && a.in_f * e % 4 == 0) ? 4
+                                                              : 2;
+  const dim3 grid((a.out_f + kCols - 1) / kCols, a.folds + a.splits,
+                  (a.M + a.row_tile - 1) / a.row_tile);
+  if (a.x_bf16)
+    return (int)launch_x<BITS, __nv_bfloat16>(a, grid, xalign, vec, s);
+  return (int)launch_x<BITS, float>(a, grid, xalign, vec, s);
 }
 
 }  // namespace
 
-// x (M, in) f32 or bf16; qweight int32 (n_words, out); lut f32 (out, 2^bits);
-// rowptr/cols/vals: CSR sidecar or all null; y0 (M, out) f32/bf16 or null;
-// y (M, out) f32. All contiguous. Returns cudaGetLastError().
-extern "C" int slt_lut_matmul(const void* x, int x_bf16, const void* qweight,
-                              const void* lut, const void* rowptr,
-                              const void* cols, const void* vals,
-                              const void* y0, int y0_bf16, void* y, int M,
+// x (M, in) f32 or bf16; xt: x transposed (in, M), the sidecar fold's
+// copy (x itself at one row), or null without a sidecar; qweight int32
+// (n_words, out); lut f32 (out, 2^bits); rowptr/cols/vals: CSR sidecar or
+// all null; y0 (M, out) f32/bf16 or null; y (M, out) f32; folds: the
+// sidecar's blocks a column tile (0 without one); ws: f32 (folds + splits,
+// M, out) when that is above 1, else null; counters: int32, one per
+// (row tile, column tile), all 0 (each launch leaves them 0). variant 0 =
+// GEMV
+// (row_tile 1/2/4/8/16), 1 = MMA (bf16 mode, row_tile 64);
+// words_per_split a multiple of 8 covering the words in `splits` parts.
+// All contiguous. Returns cudaGetLastError().
+extern "C" int slt_lut_matmul(const void* x, int x_bf16, const void* xt,
+                              const void* qweight, const void* lut,
+                              const void* rowptr, const void* cols,
+                              const void* vals, const void* y0, int y0_bf16,
+                              void* y, void* ws, void* counters, int M,
                               int in_f, int out_f, int bits, int bf16_mode,
-                              void* stream) {
-  if (M <= 0 || out_f <= 0) return (int)cudaSuccess;
-  int mt = 1;
-  while (mt < M && mt < 16) mt *= 2;
-  const dim3 grid((out_f + kCols - 1) / kCols, (M + mt - 1) / mt);
+                              int variant, int row_tile, int splits,
+                              int words_per_split, int folds, void* stream) {
+  const Args a{x, x_bf16, xt, static_cast<const uint32_t*>(qweight),
+               static_cast<const float*>(lut), nullptr,
+               static_cast<const int*>(rowptr), static_cast<const int*>(cols),
+               static_cast<const float*>(vals), y0, y0_bf16,
+               static_cast<float*>(y), static_cast<float*>(ws),
+               static_cast<int*>(counters), M, in_f, out_f, bf16_mode,
+               variant, row_tile, splits, words_per_split, folds};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const auto* qw = static_cast<const uint32_t*>(qweight);
-  const auto* lt = static_cast<const float*>(lut);
-  const auto* rp = static_cast<const int*>(rowptr);
-  const auto* cl = static_cast<const int*>(cols);
-  const auto* vl = static_cast<const float*>(vals);
-  auto* yy = static_cast<float*>(y);
-  if (bits == 4) {
-    launch<4>(mt, grid, s, x, x_bf16, qw, lt, nullptr, rp, cl, vl, y0,
-              y0_bf16, yy, M, in_f, out_f, bf16_mode);
-  } else if (bits == 3) {
-    launch<3>(mt, grid, s, x, x_bf16, qw, lt, nullptr, rp, cl, vl, y0,
-              y0_bf16, yy, M, in_f, out_f, bf16_mode);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  if (bits == 4) return launch<4>(a, s);
+  if (bits == 3) return launch<3>(a, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // K10: slt_lut_matmul's arguments with the structured table A (out, 8) f32
 // and d (out,) f32 in place of lut, at 4 bits.
-extern "C" int slt_lut_matmul_struct(const void* x, int x_bf16,
-                                     const void* qweight, const void* a,
-                                     const void* d, const void* rowptr,
-                                     const void* cols, const void* vals,
-                                     const void* y0, int y0_bf16, void* y,
-                                     int M, int in_f, int out_f,
-                                     int bf16_mode, void* stream) {
-  if (M <= 0 || out_f <= 0) return (int)cudaSuccess;
-  int mt = 1;
-  while (mt < M && mt < 16) mt *= 2;
-  const dim3 grid((out_f + kCols - 1) / kCols, (M + mt - 1) / mt);
-  launch<4>(mt, grid, static_cast<cudaStream_t>(stream), x, x_bf16,
-            static_cast<const uint32_t*>(qweight),
-            static_cast<const float*>(a), static_cast<const float*>(d),
-            static_cast<const int*>(rowptr), static_cast<const int*>(cols),
-            static_cast<const float*>(vals), y0, y0_bf16,
-            static_cast<float*>(y), M, in_f, out_f, bf16_mode);
-  return (int)cudaGetLastError();
+extern "C" int slt_lut_matmul_struct(
+    const void* x, int x_bf16, const void* xt, const void* qweight,
+    const void* a_tab, const void* d, const void* rowptr, const void* cols,
+    const void* vals, const void* y0, int y0_bf16, void* y, void* ws,
+    void* counters, int M, int in_f, int out_f, int bf16_mode, int variant,
+    int row_tile, int splits, int words_per_split, int folds,
+    void* stream) {
+  const Args a{x, x_bf16, xt, static_cast<const uint32_t*>(qweight),
+               static_cast<const float*>(a_tab), static_cast<const float*>(d),
+               static_cast<const int*>(rowptr), static_cast<const int*>(cols),
+               static_cast<const float*>(vals), y0, y0_bf16,
+               static_cast<float*>(y), static_cast<float*>(ws),
+               static_cast<int*>(counters), M, in_f, out_f, bf16_mode,
+               variant, row_tile, splits, words_per_split, folds};
+  return launch<4>(a, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* slt_error_string(int err) {

@@ -12,7 +12,16 @@ regime); ``bf16`` rounds x and the LUT to bf16 before the products and
 accumulates in f32 (the ``pallas-bf16`` regime). The sparse fold always
 reads x unrounded.
 
-K10 (``lut_matmul_struct``) is the same kernel template for a 4-bit
+Two device kernels serve both wrappers; :func:`plan` picks one per call
+from the row count and the mode (a pure function, so the CPU tests reach
+it): the GEMV (bf16 mode up to ``GEMV_MAX_ROWS`` rows; exact mode at every
+row count, 16 rows a tile) and, in bf16 mode above, the tensor-core kernel
+(``mma.sync`` bf16 with f32 accumulation). Both split the packed words
+across blocks (``splits``) and sum the partials in a fixed order, so a
+launch is deterministic. ``GEMV_MAX_ROWS`` is where the two meet on the
+H100: ``chip_smoke.py`` times both at 8, 12, 16, 17, 24, 32 and 40 rows.
+
+K10 (``lut_matmul_struct``) is the same two kernels for a 4-bit
 STRUCTURED codebook, given as A (out, 8) and d (out,) with
 ``W[i, o] = A[o, c & 7] + (c & 8 ? d[o] : 0)`` (``models.fuse`` attaches
 them where a LUT decomposes so). It replaces the structured bodies of the
@@ -22,6 +31,7 @@ bf16 mode rounds W, the sum, to bf16, as the TPU's one-pass MXU does.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
 import torch
@@ -31,6 +41,122 @@ from squeezellm_tpu_torch.ops import plain_ops
 
 MODES = ("exact", "bf16")
 MAX_ROWS = 1023  # quant_linear_apply sends 1024 rows and more to K4
+VARIANTS = ("gemv", "mma")
+COLS = 128  # output columns a block (kCols in csrc/lut_matmul.cu)
+# bf16 mode: the GEMV up to this many rows, the tensor-core kernel above.
+# Timed on the H100 (chip_smoke.py `check_k1_cross`, PERF.md): at 8 rows
+# the GEMV is faster at all five LLaMA-2-7B shapes, at 12 rows and more
+# the MMA kernel, its padding to 64 rows costing less than 12 rows of f32
+# FMAs on the CUDA cores.
+GEMV_MAX_ROWS = 8
+GEMV_ROW_TILES = (1, 2, 4, 8, 16)
+MMA_ROW_TILE = 64
+# k-split: at least as many blocks as the card holds at once (132 SMs; the
+# GEMV fits 4 blocks an SM at one row, the MMA kernel 2), so that every SM
+# keeps its stages of words in flight, but no split thinner than MIN_WORDS
+# packed word rows
+SMS = 132
+GEMV_MIN_WORDS, MMA_MIN_WORDS = 32, 64
+# the sidecar's fold runs in blocks of its own beside the word stream: 8 a
+# column tile in the GEMV, whose stream is short (a 4096-wide output's
+# blocks stream 8 KB each), 1 in the MMA kernel, whose partials are M rows
+# deep
+GEMV_FOLDS = 8
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """One launch's shape: the kernel, its rows a tile, and the k-split
+    (``splits`` blocks of ``words_per_split`` packed word rows a column
+    tile; with the sidecar's ``folds`` blocks, their partials go to a
+    (folds + splits, M, out) workspace)."""
+
+    variant: str
+    row_tile: int
+    splits: int
+    words_per_split: int
+    tiles: int  # (row tiles) x (column tiles), one counter each
+    folds: int  # blocks a column tile for the sidecar's fold, if any
+
+
+def plan(M: int, in_f: int, out_f: int, bits: int, mode: str,
+         variant: Optional[str] = None) -> Plan:
+    """The kernel and grid for M rows of an (in_f -> out_f) layer.
+
+    ``variant`` None chooses: the tensor-core kernel in bf16 mode above
+    ``GEMV_MAX_ROWS`` rows, else the GEMV. "mma" is refused in exact mode
+    (its bf16 operands would change exact mode's numbers)."""
+    if variant is not None and variant not in VARIANTS:
+        raise ValueError(f"variant must be one of {VARIANTS}, got "
+                         f"{variant!r}")
+    if variant == "mma" and mode != "bf16":
+        raise ValueError("the tensor-core kernel runs bf16 mode only")
+    if variant is None:
+        variant = ("mma" if mode == "bf16" and M > GEMV_MAX_ROWS
+                   else "gemv")
+    nw = formats.n_words(in_f, bits)
+    col_tiles = -(-out_f // COLS)
+    if variant == "gemv":
+        # the split is the one-row tile's at every row count, so that a
+        # row's sum is taken in the same order whatever else is batched
+        # with it (exact mode's tokens must not depend on the batch)
+        row_tile = next(t for t in GEMV_ROW_TILES if t >= min(M, 16))
+        wave, min_words, fill = SMS * 4, GEMV_MIN_WORDS, col_tiles
+    else:
+        row_tile = MMA_ROW_TILE
+        wave, min_words = SMS * 2, MMA_MIN_WORDS
+        fill = col_tiles * -(-M // row_tile)
+    tiles = col_tiles * -(-M // row_tile)
+    splits = max(1, min(-(-wave // fill), nw // min_words))
+    per = -(-(-(-nw // splits)) // 8) * 8
+    return Plan(variant, row_tile, -(-nw // per), per, tiles,
+                GEMV_FOLDS if variant == "gemv" else 1)
+
+
+_COUNTERS = {}
+
+
+def _counters(device, n: int) -> torch.Tensor:
+    """The tile counters of the k-split on `device`: zeros, and left zero
+    by every launch (the last block of a tile resets its own), so one
+    buffer serves every call on the device's stream."""
+    t = _COUNTERS.get(device)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _COUNTERS[device] = t
+    return t
+
+
+def _launch(fn, name, x, qweight, tables, bits, mode, rowptr, cols, vals,
+            y0, p: Plan) -> torch.Tensor:
+    """Launch K1's or K10's C entry point `fn` with plan `p`."""
+    M, in_f = x.shape
+    out_f = qweight.shape[1]
+    has_sparse = rowptr is not None
+    y = torch.empty((M, out_f), dtype=torch.float32, device=x.device)
+    folds = p.folds if has_sparse else 0
+    parts = folds + p.splits  # partials a column tile
+    ws = (torch.empty((parts, M, out_f), dtype=torch.float32,
+                      device=x.device) if parts > 1 else None)
+    cnt = _counters(x.device, p.tiles) if parts > 1 else None
+    # the fold gathers x by input, so it reads x transposed (x itself at
+    # one row)
+    xt = x.t().contiguous() if has_sparse else None
+    head = [x.data_ptr(), int(x.dtype == torch.bfloat16),
+            xt.data_ptr() if has_sparse else None,
+            qweight.data_ptr(), *[t.data_ptr() for t in tables],
+            rowptr.data_ptr() if has_sparse else None,
+            cols.data_ptr() if has_sparse else None,
+            vals.data_ptr() if has_sparse else None,
+            y0.data_ptr() if y0 is not None else None,
+            int(y0 is not None and y0.dtype == torch.bfloat16), y.data_ptr(),
+            ws.data_ptr() if ws is not None else None,
+            cnt.data_ptr() if cnt is not None else None, M, in_f, out_f]
+    tail = [int(mode == "bf16"), VARIANTS.index(p.variant), p.row_tile,
+            p.splits, p.words_per_split, folds, _build.stream_ptr(x.device)]
+    err = fn(*head, *([bits] if len(tables) == 1 else []), *tail)
+    _build.check(err, name)
+    return y
 
 
 def _round_bf16(t: torch.Tensor) -> torch.Tensor:
@@ -64,41 +190,35 @@ def lut_matmul(x: torch.Tensor, qweight: torch.Tensor, lut: torch.Tensor,
                cols: Optional[torch.Tensor] = None,
                vals: Optional[torch.Tensor] = None,
                y0: Optional[torch.Tensor] = None,
-               mode: str = "exact") -> torch.Tensor:
+               mode: str = "exact",
+               variant: Optional[str] = None) -> torch.Tensor:
     """K1 on a CUDA tensor, its plain version on a CPU tensor.
 
     x: (M, in) f32 or bf16, contiguous; qweight int32 (n_words, out);
     lut f32 (out, 2**bits); rowptr/cols/vals: the CSR sidecar (int32,
-    int32, f32) or None; y0: (M, out) f32/bf16 or None. Returns (M, out)
-    f32. Counts its launches in ``lut_matmul.launches``."""
+    int32, f32) or None; y0: (M, out) f32/bf16 or None; variant: the
+    device kernel, None for :func:`plan`'s choice. Returns (M, out) f32.
+    Counts its launches in ``lut_matmul.launches`` and, by kernel, in
+    ``lut_matmul.variant_launches``."""
     if bits not in (3, 4):
         raise ValueError(f"lut_matmul kernel takes bits 3 or 4, got {bits}")
     _check_operands(x, qweight, bits, mode, y0, rowptr, cols, vals)
     M, in_f = x.shape
     out_f = qweight.shape[1]
     _check(lut, (out_f, 1 << bits), (torch.float32,), "lut", x.device.type)
+    p = plan(M, in_f, out_f, bits, mode, variant)
     if x.device.type == "cpu":
         return lut_matmul_plain(x, qweight, lut, bits, rowptr=rowptr,
                                 cols=cols, vals=vals, y0=y0, mode=mode)
-    has_sparse = rowptr is not None
-    y = torch.empty((M, out_f), dtype=torch.float32, device=x.device)
-    lib = _build.lib()
-    err = lib.slt_lut_matmul(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), qweight.data_ptr(),
-        lut.data_ptr(),
-        rowptr.data_ptr() if has_sparse else None,
-        cols.data_ptr() if has_sparse else None,
-        vals.data_ptr() if has_sparse else None,
-        y0.data_ptr() if y0 is not None else None,
-        int(y0 is not None and y0.dtype == torch.bfloat16), y.data_ptr(),
-        M, in_f, out_f, bits, int(mode == "bf16"),
-        _build.stream_ptr(x.device))
-    _build.check(err, "lut_matmul")
+    y = _launch(_build.lib().slt_lut_matmul, "lut_matmul", x, qweight,
+                (lut,), bits, mode, rowptr, cols, vals, y0, p)
     lut_matmul.launches += 1
+    lut_matmul.variant_launches[p.variant] += 1
     return y
 
 
 lut_matmul.launches = 0
+lut_matmul.variant_launches = dict.fromkeys(VARIANTS, 0)
 
 
 def struct_lut(struct_a: torch.Tensor, struct_d: torch.Tensor) -> torch.Tensor:
@@ -126,39 +246,35 @@ def lut_matmul_struct(x: torch.Tensor, qweight: torch.Tensor,
                       cols: Optional[torch.Tensor] = None,
                       vals: Optional[torch.Tensor] = None,
                       y0: Optional[torch.Tensor] = None,
-                      mode: str = "exact") -> torch.Tensor:
+                      mode: str = "exact",
+                      variant: Optional[str] = None) -> torch.Tensor:
     """K10 on a CUDA tensor, its plain version on a CPU tensor.
 
     K1's operands at 4 bits, with struct_a f32 (out, 8) and struct_d f32
     (out,) in place of the LUT. Returns (M, out) f32. Counts its launches
-    in ``lut_matmul_struct.launches``."""
+    in ``lut_matmul_struct.launches`` and, by kernel, in
+    ``lut_matmul_struct.variant_launches``."""
     _check_operands(x, qweight, 4, mode, y0, rowptr, cols, vals)
     M, in_f = x.shape
     out_f = qweight.shape[1]
     _check(struct_a, (out_f, 8), (torch.float32,), "struct_a",
            x.device.type)
     _check(struct_d, (out_f,), (torch.float32,), "struct_d", x.device.type)
+    p = plan(M, in_f, out_f, 4, mode, variant)
     if x.device.type == "cpu":
         return lut_matmul_struct_plain(x, qweight, struct_a, struct_d,
                                        rowptr=rowptr, cols=cols, vals=vals,
                                        y0=y0, mode=mode)
-    has_sparse = rowptr is not None
-    y = torch.empty((M, out_f), dtype=torch.float32, device=x.device)
-    err = _build.lib().slt_lut_matmul_struct(
-        x.data_ptr(), int(x.dtype == torch.bfloat16), qweight.data_ptr(),
-        struct_a.data_ptr(), struct_d.data_ptr(),
-        rowptr.data_ptr() if has_sparse else None,
-        cols.data_ptr() if has_sparse else None,
-        vals.data_ptr() if has_sparse else None,
-        y0.data_ptr() if y0 is not None else None,
-        int(y0 is not None and y0.dtype == torch.bfloat16), y.data_ptr(),
-        M, in_f, out_f, int(mode == "bf16"), _build.stream_ptr(x.device))
-    _build.check(err, "lut_matmul_struct")
+    y = _launch(_build.lib().slt_lut_matmul_struct, "lut_matmul_struct", x,
+                qweight, (struct_a, struct_d), 4, mode, rowptr, cols, vals,
+                y0, p)
     lut_matmul_struct.launches += 1
+    lut_matmul_struct.variant_launches[p.variant] += 1
     return y
 
 
 lut_matmul_struct.launches = 0
+lut_matmul_struct.variant_launches = dict.fromkeys(VARIANTS, 0)
 
 
 def _check_operands(x, qweight, bits, mode, y0, rowptr, cols, vals) -> None:

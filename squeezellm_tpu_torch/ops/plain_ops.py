@@ -70,8 +70,14 @@ def hybrid_matmul(x: torch.Tensor, topx_weights: torch.Tensor,
     """Top-X dense-channel contribution, additive.
 
     base: the accumulator the contribution is added to IN ITS OWN dtype
-    (in place); a fresh f32 zero tensor when None."""
-    part = torch.matmul(x.float(), topx_weights.float())  # (..., topX)
+    (in place); a fresh f32 zero tensor when None.
+
+    The product is taken in f64 and rounded to f32: a library GEMM sums a
+    row in an order that depends on how many rows it is given, and in f32
+    that moves a row's result with the batch (a request's sampled tokens
+    would then depend on what is served beside it); the f64 sum's order
+    errors lie far below one f32 step, so the rounded row does not move."""
+    part = torch.matmul(x.double(), topx_weights.double()).float()
     y = (base if base is not None
          else torch.zeros(x.shape[:-1] + (out_features,), dtype=torch.float32,
                           device=x.device))

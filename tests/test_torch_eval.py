@@ -259,8 +259,9 @@ def _check_dispatch(device, rows, mode):
     k4 = tdd.dense_matmul(x, tdd.dequant_dense_plain(
         t["qweight"], t["lut"], 3, 40, mode=mode, **sparse), plain=True) + y0
     branch = k4 if big else k1
-    rest = branch.clone().index_add_(
-        -1, t["topx_indices"], x @ t["topx_weights"]) + t["bias"]
+    # the top-X product as plain_ops.hybrid_matmul takes it: in f64
+    topx = (x.double() @ t["topx_weights"].double()).float()
+    rest = branch.clone().index_add_(-1, t["topx_indices"], topx) + t["bias"]
     tol = {"exact": 1e-5, "bf16": 1e-4}[mode]
     scale = float(rest.abs().max())
     assert float((got - rest).abs().max()) <= tol * scale

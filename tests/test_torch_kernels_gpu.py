@@ -495,3 +495,127 @@ def test_tiny_structured_model_kernel_path_matches_plain(dev, transposed):
     assert lut_matmul.lut_matmul.launches == before[1]
     ref = engine.Engine(model, plain=True).generate(prompt, 12)
     np.testing.assert_array_equal(got, ref)
+
+
+def _sidecar(g, dev, out_f, in_f, kind):
+    """A CSR sidecar: none, 5% of the slots at random, or 5% with one
+    crowded row of 2100 entries (columns drawn with repeats, as a
+    Fisher-ranked sidecar crowds a few rows)."""
+    if kind == "none":
+        return {}
+    counts = torch.bincount(torch.randint(0, out_f, (int(0.05 * out_f * in_f),),
+                                          generator=g, device=dev),
+                            minlength=out_f)
+    if kind == "crowded":
+        counts[7] = 2100
+    rowptr = torch.zeros(out_f + 1, dtype=torch.int32, device=dev)
+    rowptr[1:] = torch.cumsum(counts, 0)
+    nnz = int(rowptr[-1])
+    return dict(rowptr=rowptr,
+                cols=torch.randint(0, in_f, (nnz,), generator=g, device=dev,
+                                   dtype=torch.int32),
+                vals=torch.randn(nnz, generator=g, device=dev))
+
+
+@pytest.mark.parametrize("in_f,out_f", [(116, 203), (2056, 260)])
+@pytest.mark.parametrize("mode", ["exact", "bf16"])
+@pytest.mark.parametrize("M", [1, 2, 5, 8, 16, 17, 40, 100, 1023])
+@pytest.mark.parametrize("wrapper,bits", [("k1", 3), ("k1", 4), ("k10", 4)])
+def test_lut_matmul_gemv_and_mma_kernels_match_plain(dev, wrapper, bits, M,
+                                                     mode, in_f, out_f):
+    """Both device kernels of K1 and K10 (the GEMV and, in bf16 mode, the
+    tensor-core kernel, each forced at every row count) against the plain
+    version within 1e-5 of max |y|, and bit-equal across two launches: x
+    and y0 in f32 and bf16, y0 absent, no sidecar, 5%, and one row of 2100
+    entries; `out` not a multiple of 4 and a partial last word (116), and
+    a k-split over several blocks (2056 inputs)."""
+    g = torch.Generator(device=dev).manual_seed(M * 31 + bits + in_f)
+    t = synthetic.random_quant_linear(g, dev, out_f, in_f, bits, 0.0, 0,
+                                      structured=wrapper == "k10").tensors()
+    if wrapper == "k10":
+        tables = (t["lut"][:, :8].contiguous(),
+                  (t["lut"][:, 8] - t["lut"][:, 0]).contiguous())
+        kernel, plain = (lut_matmul.lut_matmul_struct,
+                         lut_matmul.lut_matmul_struct_plain)
+        args = (t["qweight"], *tables)
+    else:
+        kernel, plain = lut_matmul.lut_matmul, lut_matmul.lut_matmul_plain
+        args = (t["qweight"], t["lut"], bits)
+    variants = ("gemv", "mma") if mode == "bf16" else ("gemv",)
+    for kind in ("none", "sparse", "crowded"):
+        kw = _sidecar(g, dev, out_f, in_f, kind)
+        for x_dt, y0_dt in ((torch.float32, torch.float32),
+                            (torch.bfloat16, torch.bfloat16),
+                            (torch.bfloat16, None), (torch.float32,
+                                                     torch.bfloat16)):
+            x = torch.randn(M, in_f, generator=g, device=dev).to(x_dt)
+            y0 = (None if y0_dt is None else
+                  torch.randn(M, out_f, generator=g, device=dev).to(y0_dt))
+            want = plain(x, *args, y0=y0, mode=mode, **kw)
+            for variant in variants:
+                got = kernel(x, *args, y0=y0, mode=mode, variant=variant, **kw)
+                again = kernel(x, *args, y0=y0, mode=mode, variant=variant,
+                               **kw)
+                torch.cuda.synchronize()
+                case = (kind, x_dt, y0_dt, variant)
+                assert _rel(got, want) <= 1e-5, (case, _rel(got, want))
+                assert torch.equal(got, again), case
+
+
+@pytest.mark.parametrize("M,mode,want", [(1, "bf16", "gemv"),
+                                         (8, "bf16", "gemv"),
+                                         (16, "bf16", "mma"),
+                                         (100, "exact", "gemv")])
+def test_lut_matmul_counts_the_kernel_it_ran(dev, M, mode, want):
+    g = torch.Generator(device=dev).manual_seed(M)
+    t = synthetic.random_quant_linear(g, dev, 96, 116, 4, 0.05, 0).tensors()
+    x = torch.randn(M, 116, generator=g, device=dev)
+    before = dict(lut_matmul.lut_matmul.variant_launches)
+    lut_matmul.lut_matmul(x, t["qweight"], t["lut"], 4, mode=mode)
+    after = lut_matmul.lut_matmul.variant_launches
+    assert {k: after[k] - before[k] for k in after} == {
+        k: int(k == want) for k in after}
+
+
+@pytest.mark.parametrize("wrapper", ["k1", "k10"])
+def test_lut_matmul_gemv_rows_do_not_depend_on_the_batch(dev, wrapper):
+    """The GEMV sums a row in the same order whatever else is in the batch
+    (exact mode at every row count, bf16 mode up to 8 rows), so that a
+    request's tokens do not depend on what is served beside it."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    in_f, out_f = 2056, 260
+    t = synthetic.random_quant_linear(g, dev, out_f, in_f, 4, 0.05, 0,
+                                      structured=wrapper == "k10").tensors()
+    if wrapper == "k10":
+        kernel = lut_matmul.lut_matmul_struct
+        args = (t["qweight"], t["lut"][:, :8].contiguous(),
+                (t["lut"][:, 8] - t["lut"][:, 0]).contiguous())
+    else:
+        kernel, args = lut_matmul.lut_matmul, (t["qweight"], t["lut"], 4)
+    kw = dict(rowptr=t["sp_rowptr"], cols=t["sp_cols"], vals=t["sp_vals"])
+    x = torch.randn(40, in_f, generator=g, device=dev)
+    y0 = torch.randn(40, out_f, generator=g, device=dev)
+    for mode, rows in (("exact", 40), ("bf16", 8)):
+        full = kernel(x[:rows], *args, y0=y0[:rows], mode=mode, **kw)
+        for M in (1, 3, 8, 16):
+            if M > rows:
+                continue
+            part = kernel(x[:M], *args, y0=y0[:M], mode=mode, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(part, full[:M]), (mode, M)
+
+
+def test_hybrid_matmul_rows_do_not_depend_on_the_batch(dev):
+    """The top-X product (a library GEMM) gives a row the same f32 value
+    whatever the batch, as K1 does (exact mode's sampled tokens must not
+    depend on what is served beside a request)."""
+    from squeezellm_tpu_torch.ops import plain_ops
+
+    g = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn(300, 4096, generator=g, device=dev)
+    w = torch.randn(4096, 10, generator=g, device=dev)
+    idx = torch.randperm(4096, generator=g, device=dev)[:10]
+    full = plain_ops.hybrid_matmul(x, w, idx, 4096)
+    for a, b in ((0, 1), (74, 111), (256, 300), (3, 11)):
+        part = plain_ops.hybrid_matmul(x[a:b].contiguous(), w, idx, 4096)
+        assert torch.equal(part, full[a:b]), (a, b)

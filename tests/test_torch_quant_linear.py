@@ -177,3 +177,64 @@ def test_lut_matmul_wrapper_takes_plain_path_on_cpu():
         tql.quant_linear_apply(
             tql.QuantLinearSpec(bits=4, in_features=IN_F, out_features=OUT_F),
             {"qweight": args[1], "lut": args[2]}, x, mode="f16")
+
+
+@pytest.mark.parametrize("M,mode,want", [
+    (1, "bf16", "gemv"), (8, "bf16", "gemv"), (9, "bf16", "mma"),
+    (16, "bf16", "mma"), (40, "bf16", "mma"), (1023, "bf16", "mma"),
+    (1, "exact", "gemv"), (40, "exact", "gemv"), (1023, "exact", "gemv")])
+def test_k1_plan_picks_the_kernel_by_rows_and_mode(M, mode, want):
+    """The GEMV up to GEMV_MAX_ROWS rows, the tensor-core kernel above in
+    bf16 mode; exact mode keeps the GEMV (16-row tiles) at every count."""
+    p = tlm.plan(M, 4096, 4096, 4, mode)
+    assert p.variant == want
+    assert (M > tlm.GEMV_MAX_ROWS and mode == "bf16") == (want == "mma")
+    if want == "gemv":
+        assert p.row_tile == min(16, 1 << (M - 1).bit_length())
+    else:
+        assert p.row_tile == tlm.MMA_ROW_TILE
+
+
+@pytest.mark.parametrize("variant", ["gemv", "mma"])
+@pytest.mark.parametrize("M", [1, 8, 40, 1023])
+@pytest.mark.parametrize("in_f,out_f,bits", [
+    (4096, 12288, 4), (4096, 4096, 4), (4096, 22016, 4), (11008, 4096, 4),
+    (4096, 32000, 3), (116, 203, 3), (7, 9, 4)])
+def test_k1_plan_splits_cover_the_words(in_f, out_f, bits, M, variant):
+    """The k-split covers every packed word row once, in word tiles of 8,
+    with no empty split, and the 4096-wide outputs get several blocks a
+    column tile at one row."""
+    p = tlm.plan(M, in_f, out_f, bits, "bf16", variant)
+    nw = formats.n_words(in_f, bits)
+    assert p.words_per_split % 8 == 0
+    assert (p.splits - 1) * p.words_per_split < nw <= (
+        p.splits * p.words_per_split)
+    col_tiles = -(-out_f // tlm.COLS)
+    assert p.tiles == col_tiles * -(-M // p.row_tile)
+    if variant == "gemv" and M == 1 and out_f == 4096:
+        assert p.splits >= 8
+    if variant == "gemv":  # a row's summation order ignores the batch
+        one = tlm.plan(1, in_f, out_f, bits, "bf16", variant)
+        assert (p.splits, p.words_per_split, p.folds) == (
+            one.splits, one.words_per_split, one.folds)
+
+
+def test_k1_wrappers_refuse_a_variant_on_the_cpu():
+    """A CPU tensor meets the refusals a CUDA tensor would: an unknown
+    kernel, and the tensor-core kernel in exact mode."""
+    rng = np.random.default_rng(4)
+    spec, p = _random_linear(rng, 4)
+    x = torch.zeros(20, IN_F)
+    qw, lut = torch.from_numpy(p["qweight"]), torch.from_numpy(p["lut"])
+    a, d = lut[:, :8].contiguous(), lut[:, 8].contiguous()
+    with pytest.raises(ValueError, match="variant"):
+        tlm.lut_matmul(x, qw, lut, 4, mode="bf16", variant="wgmma")
+    with pytest.raises(ValueError, match="bf16 mode only"):
+        tlm.lut_matmul(x, qw, lut, 4, mode="exact", variant="mma")
+    with pytest.raises(ValueError, match="bf16 mode only"):
+        tlm.lut_matmul_struct(x, qw, a, d, mode="exact", variant="mma")
+    # the plain version stands in for either kernel on the CPU
+    for variant in ("gemv", "mma", None):
+        torch.testing.assert_close(
+            tlm.lut_matmul(x, qw, lut, 4, mode="bf16", variant=variant),
+            tlm.lut_matmul_plain(x, qw, lut, 4, mode="bf16"), rtol=0, atol=0)
