@@ -1,0 +1,186 @@
+#!/usr/bin/env python3
+"""Times two checkouts of the PyTorch port against each other on one card.
+
+    python3 chip_ab.py DIR
+
+DIR holds another checkout of the repository (for example a parent commit
+unpacked with ``git archive <commit> | tar -x -C build/parent``; ``build/``
+is ignored by git). Each side runs in a process of its own, in the order
+DIR, this, this, DIR, and reports:
+
+* K1 in bf16 mode (w4, the decode shapes' 0.45% sidecar) at AB_K1_ROWS,
+  through the kernel the model's call at those rows takes on that side (a
+  decode step of 12 or 16 slots and a prompt or verify window of 40, 100
+  or 1023 rows);
+* K2 and K5 at chip_smoke.DECODE_LENS valid rows of a 2048-row cache, and
+  K3 on bf16 q/k/v at chip_smoke.K3_LENS (mode "bf16" where the wrapper
+  takes a mode), with causal SDPA at the eval stride;
+* the device time of the w4 bf16 decode step of LLaMA-2-7B at a short and
+  at a chip_smoke.LONG_CONTEXT-row context, and of one bf16 eval stride.
+
+It prints each reading with the card's name and power limit, then one JSON
+line of them all. Kernel times use chip_smoke.Timer (L2 flushed, CUDA
+events), device times the profiler. It calls only what both sides have.
+"""
+
+import inspect
+import json
+import os
+import subprocess
+import sys
+import time
+
+import chip_smoke as cs
+
+AB_K1_ROWS = (12, 16, 40, 100, 1023)
+AB_K1_DECODE_ROWS = (12, 16)
+
+
+def worker(root):
+    """One side: with the squeezellm_tpu_torch under `root` first on the
+    path, takes every reading once and prints one JSON line."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    sys.path.insert(0, root)
+    from squeezellm_tpu_torch import _build, data, engine, synthetic
+    from squeezellm_tpu_torch.models import common, fuse, registry
+    from squeezellm_tpu_torch.ops import (decode_attn, flash_attn, kv_quant,
+                                          lut_matmul, quant_linear)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.lib()
+    timer = cs.Timer(torch)
+    dev = torch.device("cuda")
+    out = {"root": root, "k1": {}, "k2": {}, "k5": {}, "k3": {}}
+    # a decode step passes decode=True where the port has it (the GEMV at
+    # any slot count); elsewhere the wrapper's plan picks by the rows
+    call_site = "decode" in inspect.signature(
+        quant_linear.quant_linear_apply).parameters
+    gen = torch.Generator(device=dev).manual_seed(19)
+    for name, out_f, in_f, _ in cs.K1_SHAPES:
+        sp = 0.0 if name == "lm_head" else 0.0045
+        t = synthetic.random_quant_linear(gen, dev, out_f, in_f, 4, sp,
+                                          0).tensors()
+        kw = {}
+        if "sp_rowptr" in t:
+            kw = dict(rowptr=t["sp_rowptr"], cols=t["sp_cols"],
+                      vals=t["sp_vals"])
+        out["k1"][name] = {}
+        for M in AB_K1_ROWS:
+            x = torch.randn(M, in_f, generator=gen,
+                            device=dev).to(torch.bfloat16)
+            variant = ("gemv" if call_site and M in AB_K1_DECODE_ROWS
+                       else None)
+            out["k1"][name][M] = timer.ms(lambda: lut_matmul.lut_matmul(
+                x, t["qweight"], t["lut"], 4, mode="bf16", variant=variant,
+                **kw))
+        del t
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    B, H, hd, S = 1, 32, 128, 2048
+    for n in cs.DECODE_LENS:
+        qkv = torch.randn(B, 3 * H * hd, generator=gen,
+                          device=dev).to(torch.bfloat16)
+        q, k, v = (qkv[:, i * H * hd: (i + 1) * H * hd].view(B, H, hd)
+                   for i in range(3))
+        lengths = torch.full((B,), n, dtype=torch.int32, device=dev)
+        cos, sin = common.rope_cos_sin(lengths.long() - 1, hd, 10000.0,
+                                       torch.bfloat16)
+        kw = dict(rope_cos=cos.float().contiguous(),
+                  rope_sin=sin.float().contiguous())
+        cache = torch.randn(2, B, S, H * hd, generator=gen,
+                            device=dev).to(torch.bfloat16)
+        codes, scales = kv_quant.quantize_rows(
+            torch.randn(2, B, S, H, hd, generator=gen, device=dev))
+        codes = codes.reshape(2, B, S, H * hd)
+        scales = scales[..., 0].transpose(2, 3).contiguous()
+        out["k2"][n] = timer.ms(lambda: decode_attn.decode_attention(
+            q, k, v, cache[0], cache[1], lengths, **kw))
+        out["k5"][n] = timer.ms(lambda: decode_attn.decode_attention_q8(
+            q, k, v, codes[0], codes[1], scales[0], scales[1], lengths,
+            **kw))
+    has_mode = "mode" in inspect.signature(
+        flash_attn.flash_attention).parameters
+    for sq in cs.K3_LENS:
+        q = torch.randn(1, sq, H, hd, generator=gen,
+                        device=dev).to(torch.bfloat16).transpose(1, 2)
+        cache = {c: torch.randn(1, 4096, H * hd, generator=gen,
+                                device=dev).to(torch.bfloat16)
+                 for c in ("k", "v")}
+        k, v = common.read_kv(cache, torch.bfloat16, H)
+        kw = {"mode": "bf16"} if has_mode else {}
+        out["k3"][sq] = timer.ms(lambda: flash_attn.flash_attention(
+            q, k, v, 0, **kw))
+        if sq == cs.K3_LENS[-1]:
+            qc, kc, vc = (t[:, :, :sq].contiguous() for t in (q, k, v))
+            out["k3_causal_sdpa_ms"] = timer.ms(
+                lambda: F.scaled_dot_product_attention(qc, kc, vc,
+                                                       is_causal=True))
+
+    _, config = registry.load_config(os.path.join(root, "models",
+                                                  "llama-2-7b"))
+    model = fuse.fuse_for_decode(synthetic.quantized_llama(config, 4,
+                                                           seed=4))
+    eng = engine.Engine(model, dtype=torch.bfloat16,
+                        cache_dtype=torch.bfloat16, mode="bf16")
+    ids = (np.arange(cs.BENCH_TOKENS, dtype=np.int64)[None] * 7919
+           % config.vocab_size)
+    with torch.no_grad():
+        out["decode"] = cs.profile_decode(torch, eng, ids)
+        out["decode_long"] = cs.profile_decode(torch, eng, ids,
+                                               start=cs.LONG_CONTEXT)
+        tokens = data.synthetic_tokens(config.vocab_size, cs.EVAL_SEQLEN,
+                                       seed=17)
+        with cs.CardSampler() as card:
+            out["eval_bf16"] = cs.profile_eval_stride(torch, model, tokens,
+                                                      "bf16", torch.bfloat16)
+        out["eval_bf16"]["card"] = card.stats
+    print(json.dumps(out))
+    return 0
+
+
+def main(other):
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_ab: no CUDA device", file=sys.stderr)
+        return 1
+    smi = cs.sh(["nvidia-smi", "--query-gpu=name,power.limit",
+                 "--format=csv,noheader"]).splitlines()[0]
+    print(f"card: {smi}")
+    runs = []
+    for label, root in (("other", other), ("this", cs.HERE),
+                        ("this", cs.HERE), ("other", other)):
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--worker", os.path.abspath(root)],
+                             capture_output=True, text=True, timeout=1200)
+        if res.returncode != 0:
+            print(res.stdout[-3000:], res.stderr[-6000:], file=sys.stderr)
+            return 1
+        r = json.loads(res.stdout.strip().splitlines()[-1])
+        r["label"], r["seconds"] = label, time.perf_counter() - t0
+        runs.append(r)
+        dec, long_, ev = r["decode"], r["decode_long"], r["eval_bf16"]
+        print(f"{label} ({r['root']}, {r['seconds']:.0f} s): K1 ms {r['k1']} "
+              f"K2 ms {r['k2']} K5 ms {r['k5']} K3 ms {r['k3']} (causal "
+              f"sdpa at {cs.K3_LENS[-1]}: {r['k3_causal_sdpa_ms']:.4f}); "
+              f"decode step device ms {dec.get('device_ms_per_step')} (K2 "
+              f"{dec.get('k2_k5_ms_per_step')}), at {cs.LONG_CONTEXT} rows "
+              f"{long_.get('device_ms_per_step')} (K2 "
+              f"{long_.get('k2_k5_ms_per_step')}); bf16 eval stride device "
+              f"ms {ev.get('device_ms')} {ev.get('parts_ms')} "
+              f"(card {ev.get('card')}) [{smi}]")
+    print(json.dumps({"card": smi, "runs": runs}))
+    return 0
+
+
+if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--worker":
+        sys.exit(worker(sys.argv[2]))
+    if len(sys.argv) != 2:
+        print(__doc__, file=sys.stderr)
+        sys.exit(2)
+    sys.exit(main(sys.argv[1]))

@@ -11,21 +11,25 @@ drives the port's paths on random full-width models made from a seed,
 checking after each that it went through its kernels:
 
 * Engine.generate and Engine.benchmark on LLaMA-2-7B, w4 and w3 with a
-  0.45% sparse sidecar, top-X 10 and a quantized lm_head (K1, K2, K3), and
-  the bf16 dense model of the same config;
+  0.45% sparse sidecar, top-X 10 and a quantized lm_head (K1, K2, K3), the
+  w4 bf16 decode step profiled at a short and at a 2048-row context (K2's
+  row split), and the bf16 dense model of the same config;
 * eval.perplexity on the same two models over 4 strides of 2048 synthetic
-  tokens, 2 strides a forward (K4 and K3), f32 and bf16;
+  tokens, 2 strides a forward (K4 and K3: f32 FMAs in f32, the tensor cores
+  in bf16), f32 and bf16;
 * Engine(cache_dtype="int8") on the w4 model: a request and the decode
   benchmark beside the bf16-cache one (K5);
 * OPT-6.7B w4: one eval group and one greedy request (K2 without rope);
 * serving.PagedContinuousBatchEngine on the w4 model, 8 slots over a pool
   of 160 pages of 128 rows: 16 requests with a shared 256-token prefix
   through run() by single steps, decode windows, prompt-lookup speculation
-  and sampling (K6, K8, K3 with a start), then the bf16 and int8 pools
-  (K7, K9);
+  and sampling (K6, K8, K3 with a start), sampled in bf16 and admitted in
+  reverse order (a request's tokens do not depend on its cohort), then the
+  bf16 and int8 pools (K7, K9);
 * offline quantization on the card: a dense LLaMA-2-7B at full width
   (QUANT_LAYERS deep), Fisher gradients, quantize_model w4 structured and
-  w3 free with a 0.45% sidecar and a quantized lm_head, save_quantized,
+  w3 free (its first W3_LAYERS layers: the host's k-means) with a 0.45%
+  sidecar and a quantized lm_head, save_quantized,
   load_quantized, fuse, one request each against the plain path (K10, K1);
 * a structured w4 LLaMA-2-7B at full depth: a request and the bf16 decode
   benchmark through K10, the benchmark again with the structured table
@@ -55,6 +59,11 @@ HBM_BYTES_S = 3.35e12  # H100 SXM HBM3
 PEAK_FLOP_S = {"bf16": 989e12, "f32": 67e12}
 TOL_K1 = {"exact": 1e-5, "bf16": 1e-4}  # max |dy| / max |y|
 TOL_ATTN = 1e-4  # max |dout| / max |out|
+# K3's bf16 regime (tensor cores) against its plain version's f32 products
+# of the same bf16 inputs, max |dout| / max |v|: p is rounded to bf16
+# before p.v, at most 2**-9 relative a weight, and the weights of a row sum
+# to 1, so the output moves by at most 2**-9 of max |v|; twice that
+TOL_ATTN_BF16 = 2.0**-8
 TOL_TF_EXACT = 1e-4  # teacher-forced logits, f32 model, kernels vs plain
 # The bf16 model one layer at a time (layer_check), kernels vs plain, max
 # |d| / max |out|: two bf16 steps at the top of the output's range. A
@@ -71,16 +80,28 @@ K3_LENS = PROMPT_LENS + (2048,)  # and the eval stride
 # decode, 8 slots, 16 rows, a verify window of 5 x 8 slots, a prompt
 K1_ROWS = (1, 8, 16, 40, 100)
 K10_ROWS = K1_ROWS
+# the rows a decode step gives K1 (one token a slot: the GEMV in bf16
+# mode, as the model asks); the others are prompts and verify windows
+# (the tensor-core kernel in bf16 mode)
+K1_DECODE_ROWS = (1, 8, 16)
 # bf16 mode: both K1 kernels (GEMV, tensor cores) are timed at these rows
-# to place the crossover (lut_matmul.GEMV_MAX_ROWS)
+# to place their crossover
 CROSS_ROWS = (8, 12, 16, 17, 24, 32, 40)
+# K2 and K5: valid rows of a 2048-row cache; the decode profile at a long
+# context starts here
+DECODE_LENS = (1, 128, 1000, 2048)
+LONG_CONTEXT = 2040
 K11_ROWS = (1, 8)  # the transposed route takes at most 8 rows
 K12_ROWS = (1, 8, 40, 100)
 # offline quantization: a dense LLaMA-2-7B at full width and depth (Fisher
 # keeps the f32 weights and the grad^2 sums of every layer on the card, ~54
 # GB), calibrated on FISHER_SAMPLES synthetic windows of FISHER_SEQLEN
-# tokens
+# tokens. The w3 run, whose free codebooks go through the host's k-means
+# solver (the default, as in the JAX package: ~5 s a layer on the card
+# machine's 8 cores), quantizes the first W3_LAYERS layers of the same tree
+# and the lm_head, so the whole run stays well inside its time limit
 QUANT_LAYERS, FISHER_SAMPLES, FISHER_SEQLEN = 32, 4, 512
+W3_LAYERS = 8
 NEW_TOKENS = 32
 BENCH_TOKENS = 128
 # K4: W against the plain version's. Exact mode: equal. bf16 mode: equal,
@@ -248,11 +269,15 @@ def check_k1(torch, timer, record):
                     y0 = torch.randn(M, out_f, generator=gen,
                                      device=dev).to(dt)
                     args = (x, t["qweight"], t["lut"], bits)
+                    # the kernel the model's call at these rows takes
+                    kw["variant"] = "gemv" if M in K1_DECODE_ROWS else None
                     got = lut_matmul.lut_matmul(*args, y0=y0, mode=mode, **kw)
                     again = lut_matmul.lut_matmul(*args, y0=y0, mode=mode,
                                                   **kw)
+                    plain_kw = {k: v for k, v in kw.items()
+                                if k != "variant"}
                     want = lut_matmul.lut_matmul_plain(*args, y0=y0,
-                                                       mode=mode, **kw)
+                                                       mode=mode, **plain_kw)
                     torch.cuda.synchronize()
                     if not torch.equal(got, again):
                         raise AssertionError(
@@ -276,7 +301,7 @@ def check_k1(torch, timer, record):
                               + x.numel() * x.element_size()
                               + y0.numel() * y0.element_size()
                               + got.numel() * 4
-                              + (nnz * 8 + (out_f + 1) * 4 if kw else 0))
+                              + (nnz * 8 + (out_f + 1) * 4 if nnz else 0))
                     b, by = bound_ms(nbytes, [
                         (2 * M * in_f * out_f,
                          "bf16" if mode == "bf16" else "f32"),
@@ -288,14 +313,15 @@ def check_k1(torch, timer, record):
                         ms=timer.ms(lambda: lut_matmul.lut_matmul(
                             *args, y0=y0, mode=mode, **kw)),
                         plain_ms=timer.ms(lambda: lut_matmul.lut_matmul_plain(
-                            *args, y0=y0, mode=mode, **kw), iters=5),
+                            *args, y0=y0, mode=mode, **plain_kw), iters=5),
                         library_ms=timer.ms(lambda: torch.matmul(x, w)),
                         bound_ms=b, bound_by=by, bytes=nbytes,
-                        variant=lut_matmul.plan(M, in_f, out_f, bits,
-                                                mode).variant)
+                        variant=lut_matmul.plan(M, in_f, out_f, bits, mode,
+                                                kw["variant"]).variant)
                     row["gb_s"] = nbytes / row["ms"] / 1e6
-                    if M == 1 and kw:  # the same launch, sidecar withheld
-                        bare = lut_matmul.lut_matmul(*args, y0=y0, mode=mode)
+                    if M == 1 and nnz:  # the same launch, sidecar withheld
+                        bare = lut_matmul.lut_matmul(*args, y0=y0, mode=mode,
+                                                     variant="gemv")
                         want = lut_matmul.lut_matmul_plain(*args, y0=y0,
                                                            mode=mode)
                         if rel_err(bare, want) > TOL_K1[mode]:
@@ -303,7 +329,8 @@ def check_k1(torch, timer, record):
                                                  f"without its sidecar")
                         row["ms_no_sidecar"] = timer.ms(
                             lambda: lut_matmul.lut_matmul(*args, y0=y0,
-                                                          mode=mode))
+                                                          mode=mode,
+                                                          variant="gemv"))
                     record["k1_detail"].append(row)
             del t, w32, lib_w
     print("  K1 ms (bound by b=bytes/o=operations, plain, library matmul)")
@@ -342,8 +369,9 @@ def check_k1(torch, timer, record):
 
 def check_k1_cross(torch, timer, record):
     """Both K1 kernels in bf16 mode (w4, the decode shapes' 0.45% sidecar)
-    at CROSS_ROWS: each held to the plain version, and timed, to place the
-    crossover the wrapper's plan uses (lut_matmul.GEMV_MAX_ROWS)."""
+    at CROSS_ROWS: each held to the plain version, and timed, to place
+    their crossover (a decode step takes the GEMV at any slot count, every
+    other call the tensor-core kernel)."""
     from squeezellm_tpu_torch import synthetic
     from squeezellm_tpu_torch.ops import lut_matmul
 
@@ -362,9 +390,7 @@ def check_k1_cross(torch, timer, record):
                             device=dev).to(torch.bfloat16)
             args = (x, t["qweight"], t["lut"], 4)
             want = lut_matmul.lut_matmul_plain(*args, mode="bf16", **kw)
-            row = dict(shape=name, M=M,
-                       chosen=lut_matmul.plan(M, in_f, out_f, 4,
-                                              "bf16").variant)
+            row = dict(shape=name, M=M)
             for v in lut_matmul.VARIANTS:
                 def run(v=v):
                     return lut_matmul.lut_matmul(*args, mode="bf16",
@@ -376,13 +402,11 @@ def check_k1_cross(torch, timer, record):
                 row[f"{v}_ms"] = timer.ms(run)
             record["k1_cross"].append(row)
         del t
-    print("  K1 crossover, w4 bf16 (ms: GEMV / tensor cores; * = the plan's "
-          "choice)")
+    print("  K1 crossover, w4 bf16 (ms: GEMV / tensor cores; a decode step "
+          "takes the GEMV, every other call the tensor cores)")
     for name, *_ in K1_SHAPES:
         print(f"  K1 {name:8s} " + "  ".join(
-            f"M={r['M']}: " + " / ".join(
-                f"{r[v + '_ms']:.4f}{'*' if r['chosen'] == v else ''}"
-                for v in ("gemv", "mma"))
+            f"M={r['M']}: {r['gemv_ms']:.4f} / {r['mma_ms']:.4f}"
             for r in record["k1_cross"] if r["shape"] == name))
     print(f"K1 crossover ok: {len(record['k1_cross'])} row counts x 2 "
           f"kernels within {TOL_K1['bf16']} of max |y|")
@@ -398,7 +422,7 @@ def check_k2(torch, timer, record):
     gen = torch.Generator(device=dev).manual_seed(12)
     B, H, Hkv, hd, S = 1, 32, 32, 128, 2048
     worst, worst_rel = 0.0, 0.0
-    for n in (1, 128, 1000, 2048):
+    for n in DECODE_LENS:
         qkv = torch.randn(B, (H + 2 * Hkv) * hd, generator=gen,
                           device=dev).to(torch.bfloat16)
         q = qkv[:, : H * hd].view(B, H, hd)
@@ -429,7 +453,8 @@ def check_k2(torch, timer, record):
         kh = kc[0, 0, :n].view(n, Hkv, hd).transpose(0, 1)[None].contiguous()
         vh = kc[1, 0, :n].view(n, Hkv, hd).transpose(0, 1)[None].contiguous()
         q4 = q[:, :, None, :].contiguous()
-        row = dict(n=n, S=S, rel_err=err,
+        row = dict(n=n, S=S, rel_err=err, splits=decode_attn.splits(S),
+                   blocks_with_rows=-(-n // decode_attn.CHUNK),
                    ms=timer.ms(lambda: decode_attn.decode_attention(
                        q, k, v, kc[0], kc[1], lengths, **kw)),
                    plain_ms=timer.ms(lambda: decode_attn.decode_attention_plain(
@@ -439,13 +464,21 @@ def check_k2(torch, timer, record):
                    bound_ms=b, bound_by=by, bytes=nbytes)
         record["k2_detail"].append(row)
         print(f"  K2 n={n:5d}: {row['ms']:.4f} ms (bound {b:.4f} by {by}, "
-              f"plain {row['plain_ms']:.3f}, sdpa {row['library_ms']:.4f})")
+              f"plain {row['plain_ms']:.3f}, sdpa {row['library_ms']:.4f}; "
+              f"{row['splits']} splits of {decode_attn.CHUNK} rows, "
+              f"{row['blocks_with_rows']} with rows)")
     record["k2_max_abs_err"] = worst
     print(f"K2 ok: max rel err {worst_rel:.3g} within {TOL_ATTN}, max abs "
           f"err {worst:.3g}")
 
 
 def check_k3(torch, timer, record):
+    """K3 in both regimes on the same bf16 k/v (head-major views of a
+    4096-row cache) at the prompt lengths and the eval stride: the bf16
+    regime (mode "bf16", q bf16: the tensor-core kernel) within
+    TOL_ATTN_BF16 of max |v|, the exact regime (q in f32: the f32-FMA
+    kernel) within TOL_ATTN of max |out|, both against the plain version;
+    causal SDPA on the same bf16 tensors as the yardstick."""
     import torch.nn.functional as F
 
     from squeezellm_tpu_torch.models import common
@@ -454,7 +487,7 @@ def check_k3(torch, timer, record):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(13)
     H, Hkv, hd, S = 32, 32, 128, 4096
-    worst, worst_rel = 0.0, 0.0
+    worst = {"bf16": 0.0, "exact": 0.0}
     for sq in K3_LENS:
         q = torch.randn(1, sq, H, hd, generator=gen,
                         device=dev).to(torch.bfloat16).transpose(1, 2)
@@ -462,35 +495,53 @@ def check_k3(torch, timer, record):
                                 device=dev).to(torch.bfloat16)
                  for n in ("k", "v")}
         k, v = common.read_kv(cache, torch.bfloat16, Hkv)
-        got = flash_attn.flash_attention(q, k, v, 0)
+        qf = q.float()
         want = flash_attn.flash_attention_plain(q, k, v, 0)
-        torch.cuda.synchronize()
-        err = rel_err(got, want)
-        worst = max(worst, abs_err(got, want))
-        worst_rel = max(worst_rel, err)
-        if err > TOL_ATTN:
-            raise AssertionError(f"K3 Sq={sq}: rel err {err}")
-        nbytes = H * sq * hd * 2 + 2 * Hkv * sq * hd * 2 + H * sq * hd * 4
-        # q.k^T is bf16 x bf16; p.v takes p in f32
-        pairs = sq * (sq + 1) // 2
-        b, by = bound_ms(nbytes, [(2 * H * hd * pairs, "bf16"),
-                                  (2 * H * hd * pairs, "f32")])
+        vmax = float(v[:, :, :sq].float().abs().max())
         qc = q.contiguous()
         kc = k[:, :, :sq].contiguous()
         vc = v[:, :, :sq].contiguous()
-        row = dict(Sq=sq, S=S, rel_err=err,
-                   ms=timer.ms(lambda: flash_attn.flash_attention(q, k, v, 0)),
-                   plain_ms=timer.ms(lambda: flash_attn.flash_attention_plain(
-                       q, k, v, 0), iters=5),
-                   library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
-                       qc, kc, vc, is_causal=True)),
-                   bound_ms=b, bound_by=by, bytes=nbytes)
-        record["k3_detail"].append(row)
-        print(f"  K3 Sq={sq:4d}: {row['ms']:.4f} ms (bound {b:.4f} by {by}, "
-              f"plain {row['plain_ms']:.3f}, sdpa {row['library_ms']:.4f})")
-    record["k3_max_abs_err"] = worst
-    print(f"K3 ok: max rel err {worst_rel:.3g} within {TOL_ATTN}, max abs "
-          f"err {worst:.3g}")
+        library = timer.ms(lambda: F.scaled_dot_product_attention(
+            qc, kc, vc, is_causal=True))
+        pairs = sq * (sq + 1) // 2
+        for regime, qq, mode in (("bf16", q, "bf16"), ("exact", qf, "exact")):
+            before = flash_attn.flash_attention.regime_launches[regime]
+            got = flash_attn.flash_attention(qq, k, v, 0, mode=mode)
+            torch.cuda.synchronize()
+            if flash_attn.flash_attention.regime_launches[regime] != before + 1:
+                raise AssertionError(f"K3 Sq={sq}: not the {regime} kernel")
+            err = abs_err(got, want)
+            worst[regime] = max(worst[regime], err)
+            if regime == "bf16":
+                held, limit = err / vmax, TOL_ATTN_BF16
+            else:
+                held, limit = rel_err(got, want), TOL_ATTN
+            if not (torch.isfinite(got).all() and held <= limit):
+                raise AssertionError(f"K3 {regime} Sq={sq}: err {held} > "
+                                     f"{limit}")
+            nbytes = (H * sq * hd * qq.element_size() + 2 * Hkv * sq * hd * 2
+                      + H * sq * hd * 4)
+            # the tensor-core kernel runs both products bf16 x bf16; the
+            # exact regime's f32 q makes both f32
+            rate = "bf16" if regime == "bf16" else "f32"
+            b, by = bound_ms(nbytes, [(2 * H * hd * pairs, rate),
+                                      (2 * H * hd * pairs, rate)])
+            row = dict(Sq=sq, S=S, regime=regime, err=held, limit=limit,
+                       ms=timer.ms(lambda: flash_attn.flash_attention(
+                           qq, k, v, 0, mode=mode)),
+                       plain_ms=timer.ms(
+                           lambda: flash_attn.flash_attention_plain(
+                               qq, k, v, 0), iters=5),
+                       library_ms=library, bound_ms=b, bound_by=by,
+                       bytes=nbytes)
+            record["k3_detail"].append(row)
+            print(f"  K3 {regime:5s} Sq={sq:4d}: {row['ms']:.4f} ms (bound "
+                  f"{b:.4f} by {by}, plain {row['plain_ms']:.3f}, causal "
+                  f"sdpa {library:.4f}); err {held:.3g} (limit {limit:.3g})")
+    record["k3_max_abs_err"] = max(worst.values())
+    record["k3_max_abs_err_by_regime"] = worst
+    print(f"K3 ok: bf16 regime within {TOL_ATTN_BF16} of max |v|, exact "
+          f"regime within {TOL_ATTN} of max |out|; max abs err {worst}")
 
 
 def check_k4(torch, timer, record):
@@ -614,7 +665,7 @@ def check_k5(torch, timer, record):
                 (32, False, None, torch.float32),
                 (8, True, 256, torch.float32))
     worst, worst_rel = 0.0, 0.0
-    for n in (1, 128, 1000, 2048):
+    for n in DECODE_LENS:
         for vi, (Hkv, rope, window, dt) in enumerate(variants):
             qkv = torch.randn(B, (H + 2 * Hkv) * hd, generator=gen,
                               device=dev).to(dt)
@@ -660,7 +711,8 @@ def check_k5(torch, timer, record):
                       for a in common.read_kv(cache, torch.bfloat16, Hkv))
             q4 = q[:, :, None, :].contiguous()
             row = dict(
-                n=n, S=S, rel_err=err,
+                n=n, S=S, rel_err=err, splits=decode_attn.splits(S),
+                blocks_with_rows=-(-n // decode_attn.CHUNK),
                 ms=timer.ms(lambda: decode_attn.decode_attention_q8(
                     q, k, v, kc[0], kc[1], ks[0], ks[1], lengths, **kw)),
                 plain_ms=timer.ms(
@@ -673,7 +725,9 @@ def check_k5(torch, timer, record):
             record["k5_detail"].append(row)
             print(f"  K5 n={n:5d}: {row['ms']:.4f} ms (bound {b:.4f} by "
                   f"{by}, plain {row['plain_ms']:.3f}, sdpa on the "
-                  f"dequantized cache {row['library_ms']:.4f})")
+                  f"dequantized cache {row['library_ms']:.4f}; "
+                  f"{row['splits']} splits, {row['blocks_with_rows']} with "
+                  f"rows)")
     record["k5_max_abs_err"] = worst
     print(f"K5 ok: 16 cases (MHA and GQA 8 of 32, rope and none, window "
           f"256), codes and scales equal to the plain version's, max rel err "
@@ -758,10 +812,11 @@ def check_k10(torch, timer, record):
                 x = torch.randn(M, in_f, generator=gen, device=dev).to(dt)
                 y0 = torch.randn(M, out_f, generator=gen, device=dev).to(dt)
                 args = (x, t["qweight"], a, d)
+                variant = "gemv" if M in K1_DECODE_ROWS else None
 
                 def kernel():
-                    return lut_matmul.lut_matmul_struct(*args, y0=y0,
-                                                        mode=mode, **kw)
+                    return lut_matmul.lut_matmul_struct(
+                        *args, y0=y0, mode=mode, variant=variant, **kw)
 
                 def plain():
                     return lut_matmul.lut_matmul_struct_plain(
@@ -784,8 +839,8 @@ def check_k10(torch, timer, record):
                                 per_step, got, want, TOL_K1[mode],
                                 (kernel, plain), nbytes, ops,
                                 lambda: torch.matmul(x, w))
-                row["variant"] = lut_matmul.plan(M, in_f, out_f, 4,
-                                                 mode).variant
+                row["variant"] = lut_matmul.plan(M, in_f, out_f, 4, mode,
+                                                 variant).variant
         del t, w32, lib_w
     _print_lut_rows(record, "k10", "K10")
     for mode in ("bf16", "exact"):
@@ -922,6 +977,8 @@ def reset_counts():
     counters()[1].ropeless_launches = 0
     for fn in (counters()[0], counters()[9]):  # K1, K10 by device kernel
         fn.variant_launches = dict.fromkeys(fn.variant_launches, 0)
+    k3 = counters()[2]  # K3 by regime
+    k3.regime_launches = dict.fromkeys(k3.regime_launches, 0)
 
 
 def expect_counts(record, path, want):
@@ -933,7 +990,8 @@ def expect_counts(record, path, want):
         raise AssertionError(f"{path}: launches K1..K12 {got} != {want}")
     record["paths"].append({"path": path, "launches": got, "variants": {
         "K1": dict(counters()[0].variant_launches),
-        "K10": dict(counters()[9].variant_launches)}})
+        "K10": dict(counters()[9].variant_launches),
+        "K3": dict(counters()[2].regime_launches)}})
     return got
 
 
@@ -969,25 +1027,29 @@ def device_ms_by_kernel(torch, fn):
     return by_name, None
 
 
-def profile_decode(torch, eng, ids, steps=8):
+def profile_decode(torch, eng, ids, steps=8, start=2):
     """Device time per decode step and its split by kernel, from a trace
-    of `steps` steps; ``profile_failed`` says why there is none."""
-    cache = eng.new_cache(1, BENCH_TOKENS)
+    of `steps` steps at positions start.. of a cache of start + steps rows
+    (the rows before it zeros: a long context costs its bytes whatever
+    they hold); ``profile_failed`` says why there is none."""
+    cache = eng.new_cache(1, max(BENCH_TOKENS, start + steps))
     tok = torch.tensor(ids[:, :1], device="cuda")
     kw = dict(dtype=eng.dtype, mode=eng.mode)
-    for i in range(2):
+    for i in range(start - 2, start):
         eng.model.decode_step(tok, i, cache, **kw)
 
     def run():
-        for i in range(2, 2 + steps):
+        for i in range(start, start + steps):
             eng.model.decode_step(tok, i, cache, **kw)
 
     by_name, why = device_ms_by_kernel(torch, run)
     if by_name is None:
         return {"profile_failed": why}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return {"profile_failed": None,
+    attn = sum(v for k, v in by_name.items() if "decode_attn_kernel" in k)
+    return {"profile_failed": None, "context": start,
             "device_ms_per_step": sum(by_name.values()) / steps,
+            "k2_k5_ms_per_step": attn / steps,
             "top_ms_per_step": [[k[:60], v / steps] for k, v in top]}
 
 
@@ -1013,7 +1075,7 @@ def profile_eval_stride(torch, model, tokens, mode, dtype):
         low = name.lower()
         if "dequant_dense_kernel" in low or "sparse_fold_kernel" in low:
             parts["K4"] += ms
-        elif "flash_attn_kernel" in low:
+        elif "flash_attn" in low:  # either regime's kernel
             parts["K3"] += ms
         elif any(t in low for t in ("gemm", "cutlass", "cublas", "nvjet",
                                     "xmma")):
@@ -1131,10 +1193,13 @@ def run_model(torch, config, bits, record):
           f"plain path; launches K1..K12 {res['launches']}; f32 "
           f"teacher-forced logits rel err {res['tf_exact_rel_err']:.3g}")
 
-    # (ii) the bf16 flagship benchmark
+    # (ii) the bf16 flagship benchmark: the timed call without the check,
+    # the perplexity check in a call of its own
     bf = engine.Engine(model, dtype=torch.bfloat16,
                        cache_dtype=torch.bfloat16, mode="bf16")
     stats = bf.benchmark(ids, max_seq=BENCH_TOKENS)
+    stats["check_ppl"] = bf.benchmark(ids, max_seq=BENCH_TOKENS,
+                                      check=True)["check_ppl"]
     bf_plain = engine.Engine(model, dtype=torch.bfloat16,
                              cache_dtype=torch.bfloat16, mode="bf16",
                              plain=True)
@@ -1155,6 +1220,10 @@ def run_model(torch, config, bits, record):
         raise AssertionError(f"w{bits} bf16: {stats}")
 
     stats["profile"] = profile_decode(torch, bf, ids)
+    if bits == 4:  # the same step at a 2048-row context: K2's row split
+        stats["profile_long"] = profile_decode(torch, bf, ids,
+                                               start=LONG_CONTEXT)
+        print_long_profile(f"w{bits}", stats, record)
 
     # (iii) launches in one decode step
     cache = bf.new_cache(1, BENCH_TOKENS)
@@ -1302,6 +1371,8 @@ def run_int8(torch, model, ids, bf16_stats, record):
     bf = engine.Engine(model, dtype=torch.bfloat16, cache_dtype="int8",
                        mode="bf16")
     stats = bf.benchmark(ids, max_seq=BENCH_TOKENS)
+    stats["check_ppl"] = bf.benchmark(ids, max_seq=BENCH_TOKENS,
+                                      check=True)["check_ppl"]
     stats["profile"] = profile_decode(torch, bf, ids)
     cache = bf.new_cache(1, BENCH_TOKENS)
     reset_counts()
@@ -1789,6 +1860,25 @@ def run_paged(torch, config, record, smi):
     print("paged f32 sampled (temperature 0.8, top-k 40, top-p 0.95): the "
           "same tokens when repeated in windows of 8 and when admitted in "
           "reverse order, other than greedy's")
+    # (ii') the bf16 regime, sampled: a request's tokens do not depend on
+    # the cohort it is prefilled and decoded in (K1's tensor-core split is
+    # fixed per shape, the call site picks K1's kernel, K3's rows are
+    # computed alone), though admitted singly and in reverse order the
+    # prompts meet other cohorts and other prefix hits
+    bkw = dict(dtype=torch.bfloat16, mode="bf16", cache_dtype=torch.bfloat16)
+    ab = timed("bf16 sampled", engine(seed=5, **bkw),
+               lambda e: run(e, sampling=sp))
+    cb = timed("bf16 sampled, admitted in reverse", engine(seed=5, **bkw),
+               lambda e: serve_in_order(e, prompts, order[::-1], sp))
+    if ab != cb:
+        bad = [r for r in ab if ab[r] != cb[r]]
+        raise AssertionError(f"paged bf16 sampled: reverse admission differs "
+                             f"in requests {bad}: "
+                             f"{[(ab[r], cb[r]) for r in bad[:2]]}")
+    res["bf16_sampled_tokens"] = ab
+    print("paged bf16 sampled: the same tokens for each of the "
+          f"{len(prompts)} requests when admitted in reverse order, one at a "
+          "time")
     prof = profile_paged_step(torch, engine(), prompts)
     res["profile_f32"] = prof
 
@@ -1948,9 +2038,10 @@ def run_quantize(torch, config, record):
     """Offline quantization on the card, from a random dense LLaMA-2-7B at
     full width and QUANT_LAYERS layers: Fisher on synthetic calibration
     tokens, then quantize_model twice (w4 with a 0.45% sensitivity sidecar
-    and structured codebooks; w3 free with the same sidecar), both with a
-    quantized lm_head; save_quantized, load_quantized, fuse; one f32
-    request against the plain path (K10 for w4, K1 for w3)."""
+    and structured codebooks; w3 free with the same sidecar, on the first
+    W3_LAYERS layers), both with a quantized lm_head; save_quantized,
+    load_quantized, fuse; one f32 request against the plain path (K10 for
+    w4, K1 for w3)."""
     import dataclasses
     import shutil
 
@@ -1987,22 +2078,25 @@ def run_quantize(torch, config, record):
           f"{res['fisher_peak_mib']:.0f} MiB)")
     rng = np.random.default_rng(22)
     prompt = rng.integers(0, cfg.vocab_size, (1, PROMPT_LENS[-1]))
-    runs = ((4, True), (3, False))
-    for bits, structured in runs:
+    runs = ((4, True, L), (3, False, W3_LAYERS))
+    for bits, structured, n in runs:
         label = f"w{bits}" + (" structured" if structured else "")
+        cfg_n = dataclasses.replace(cfg, n_layers=n)
+        tree_n = dict(tree, layers=tree["layers"][:n])
         stats = {}
         t0 = time.perf_counter()
         specs, params = pipeline.quantize_model(
-            "llama", cfg, tree, bits, gradients_per_layer=grads,
+            "llama", cfg_n, tree_n, bits, gradients_per_layer=grads[:n],
             sensitivity=0.45, quantize_lm_head=True, structured=structured,
             stats=stats)
         total = time.perf_counter() - t0
         path = os.path.join(HERE, "build", f"quantized_w{bits}")
         shutil.rmtree(path, ignore_errors=True)
         t0 = time.perf_counter()
-        checkpoint.save_quantized(path, "llama", cfg, specs, params)
+        checkpoint.save_quantized(path, "llama", cfg_n, specs, params)
         res[label] = dict(
-            total_s=total, stages_s=stats, per_layer_s=total / (L + 1),
+            layers=n, total_s=total, stages_s=stats,
+            per_layer_s=total / (n + 1),
             save_s=time.perf_counter() - t0,
             checkpoint_bytes=_dir_bytes(path),
             widest_sidecar_row=max(
@@ -2012,9 +2106,9 @@ def run_quantize(torch, config, record):
                 if isinstance(p, dict) and "sp_rows" in p))
         del specs, params
     # the dense tree and the grad^2 sums (27 GB on the card) are done with
-    del grads, tree
+    del grads, tree, tree_n
     torch.cuda.empty_cache()
-    for bits, structured in runs:
+    for bits, structured, n in runs:
         label = f"w{bits}" + (" structured" if structured else "")
         path = os.path.join(HERE, "build", f"quantized_w{bits}")
         t0 = time.perf_counter()
@@ -2033,8 +2127,8 @@ def run_quantize(torch, config, record):
         got = engine.Engine(model).generate(prompt, NEW_TOKENS)
         k = 9 if structured else 0  # K10 or K1
         want = [0] * 12
-        want[k] = NEW_TOKENS * (4 * L + 1)
-        want[1], want[2] = (NEW_TOKENS - 1) * L, L
+        want[k] = NEW_TOKENS * (4 * n + 1)
+        want[1], want[2] = (NEW_TOKENS - 1) * n, n
         launches = expect_counts(record, f"quantized {label} request", want)
         ref = engine.Engine(model, plain=True).generate(prompt, NEW_TOKENS)
         if not np.array_equal(got, ref):
@@ -2044,7 +2138,7 @@ def run_quantize(torch, config, record):
         r.update(load_s=load_s, launches=launches,
                  structured_linears=with_struct, tokens=got[0].tolist(),
                  tf_exact_rel_err=tf)
-        print(f"quantize {label}: {r['total_s']:.1f} s for {L} layers and "
+        print(f"quantize {label}: {r['total_s']:.1f} s for {n} layers and "
               f"the lm_head ({r['per_layer_s']:.2f} s each); stages "
               + ", ".join(f"{n} {v:.1f}" for n, v in r["stages_s"].items())
               + f"; save {r['save_s']:.1f} s "
@@ -2084,6 +2178,8 @@ def _bench(torch, model, ids, label, smi):
                        cache_dtype=torch.bfloat16, mode="bf16")
     torch.cuda.reset_peak_memory_stats()
     stats = bf.benchmark(ids, max_seq=BENCH_TOKENS)
+    stats["check_ppl"] = bf.benchmark(ids, max_seq=BENCH_TOKENS,
+                                      check=True)["check_ppl"]
     stats["profile"] = profile_decode(torch, bf, ids)
     if not math.isfinite(stats["check_ppl"]):
         raise AssertionError(f"{label} bf16 benchmark: {stats}")
@@ -2210,20 +2306,56 @@ def print_profile(label, stats, record):
               f"{k} {v:.3f}" for k, v in prof["top_ms_per_step"]))
 
 
+def print_long_profile(label, stats, record):
+    """The decode step at LONG_CONTEXT rows beside the short one."""
+    prof, short = stats["profile_long"], stats["profile"]
+    if prof["profile_failed"] or short["profile_failed"]:
+        record["profile_failed"].append(f"{label} long context")
+        print(f"{label} decode at {LONG_CONTEXT} rows: PROFILE FAILED, not "
+              f"measured: {prof['profile_failed'] or short['profile_failed']}")
+        return
+    print(f"{label} bf16 decode step, device ms: "
+          f"{short['device_ms_per_step']:.3f} at positions "
+          f"{short['context']}-{short['context'] + 7} (K2 "
+          f"{short['k2_k5_ms_per_step']:.3f}), "
+          f"{prof['device_ms_per_step']:.3f} at positions "
+          f"{LONG_CONTEXT}-{LONG_CONTEXT + 7} (K2 "
+          f"{prof['k2_k5_ms_per_step']:.3f}); top at the long context: "
+          + "; ".join(f"{k} {v:.3f}" for k, v in prof["top_ms_per_step"]))
+
+
 def kernel_lines(record):
     """One entry per kernel: its time at one main-path decode/prefill shape
     (named in "at"); every shape's numbers are in build/chip_smoke.json."""
     k1 = next(r for r in record["k1_detail"] if r["shape"] == "gateup"
               and r["bits"] == 4 and r["M"] == 1 and r["mode"] == "bf16")
-    k2 = next(r for r in record["k2_detail"] if r["n"] == 128)
-    k3 = next(r for r in record["k3_detail"] if r["Sq"] == 100)
+    k2, k5 = (next(r for r in record[f"k{n}_detail"] if r["n"] == 128)
+              for n in (2, 5))
+    k3, k3x = (next(r for r in record["k3_detail"] if r["Sq"] == 100
+                    and r["regime"] == regime) for regime in ("bf16", "exact"))
     k4 = next(r for r in record["k4_detail"] if r["shape"] == "gateup"
               and r["bits"] == 4 and r["mode"] == "bf16")
-    k5 = next(r for r in record["k5_detail"] if r["n"] == 128)
     k6, k7, k8, k9 = (record[f"k{n}_detail"][0] for n in (6, 7, 8, 9))
     # every path's run: counts set to 0 just before it, read just after
     launches = [sum(p["launches"][i] for p in record["paths"])
                 for i in range(len(counters()))]
+    k3_launches = {regime: sum(p["variants"]["K3"][regime]
+                               for p in record["paths"])
+                   for regime in ("bf16", "exact")}
+    k3_err = record["k3_max_abs_err_by_regime"]
+    # the same kernels at a long context, beside the short one
+    long_ = {
+        "decode_attention": (next(r for r in record["k2_detail"]
+                                  if r["n"] == 2048), "2048 valid rows"),
+        "decode_attention_q8": (next(r for r in record["k5_detail"]
+                                     if r["n"] == 2048), "2048 valid rows"),
+        "flash_attention": (next(r for r in record["k3_detail"]
+                                 if r["Sq"] == 2048 and r["regime"] == "bf16"),
+                            "the 2048-token eval stride"),
+        "flash_attention_exact": (next(
+            r for r in record["k3_detail"]
+            if r["Sq"] == 2048 and r["regime"] == "exact"),
+            "the 2048-token eval stride")}
     paged_at = (f"LLaMA-2-7B layer, {PAGED_SLOTS} slots x {PAGED_AT_ROWS} "
                 f"valid rows, {PAGE_SIZE}-row pages, ")
     rows = [
@@ -2236,9 +2368,15 @@ def kernel_lines(record):
          record["k2_max_abs_err"], k2,
          "LLaMA-2-7B layer, B=1, 128 valid rows of a 2048-row bf16 cache"),
         ("flash_attention", "squeezellm_tpu_torch/csrc/flash_attn.cu",
-         "squeezellm_tpu/ops/flash_attn.py:40", launches[2],
-         record["k3_max_abs_err"], k3,
-         "LLaMA-2-7B layer, 100-token prompt, bf16 q/k/v"),
+         "squeezellm_tpu/ops/flash_attn.py:40", k3_launches["bf16"],
+         k3_err["bf16"], k3,
+         "LLaMA-2-7B layer, 100-token prompt, bf16 q/k/v, bf16 regime "
+         "(tensor cores)"),
+        ("flash_attention_exact", "squeezellm_tpu_torch/csrc/flash_attn.cu",
+         "squeezellm_tpu/ops/flash_attn.py:40", k3_launches["exact"],
+         k3_err["exact"], k3x,
+         "LLaMA-2-7B layer, 100-token prompt, f32 q, bf16 k/v, exact regime "
+         "(f32 FMAs)"),
         ("dequant_dense", "squeezellm_tpu_torch/csrc/dequant_dense.cu",
          "squeezellm_tpu/ops/pallas_ops.py:765", launches[3],
          record["k4_max_abs_err"], k4,
@@ -2284,12 +2422,28 @@ def kernel_lines(record):
          ":427 _spmv_kernel)", launches[11], record["k12_max_abs_err"], k12,
          "0.45% CSR sidecar of fused gate|up 22016x4096, 1 row of bf16 x"),
     ]
-    return {"kernels": [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": n, "max_abs_err": err, "ms": r["ms"],
-         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "library_ms": r["library_ms"], "at": at}
-        for name, src, rep, n, err, r, at in rows]}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    lines = []
+    for name, src, rep, n, err, r, at in rows:
+        line = {"name": name, "route": "cuda", "source": src, "replaces": rep,
+                "launches": n, "max_abs_err": err, **{k: r[k] for k in keys},
+                "at": at}
+        if name in long_:
+            r, at = long_[name]
+            line["long"] = {"at": at, **{k: r[k] for k in keys}}
+        lines.append(line)
+    return {"kernels": lines}
+
+
+def build_seconds():
+    """Each CUDA source's seconds from the build's common start (one nvcc a
+    source, all started together), from the build log."""
+    from squeezellm_tpu_torch import _build
+
+    log = os.path.join(os.path.dirname(_build.build()), "build.log")
+    with open(log) as f:
+        return {m[0]: float(m[1]) for m in re.findall(
+            r"^== (\S+) \(rc \d+, ([\d.]+) s\)$", f.read(), re.M)}
 
 
 def ptxas_lines(source):
@@ -2304,8 +2458,10 @@ def ptxas_lines(source):
     for line in text.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            name = next((k for k in ("gemv_kernel", "mma_kernel")
-                         if k in mangled), mangled)
+            name = next((k for k in ("flash_attn_mma_kernel",
+                                     "flash_attn_kernel",
+                                     "decode_attn_kernel", "gemv_kernel",
+                                     "mma_kernel") if k in mangled), mangled)
             args = re.findall(r"Li(\d+)E", mangled)
             args.append("bf16" if "bfloat16" in mangled else "f32")
             name += "<" + ",".join(args) + ">"
@@ -2350,8 +2506,19 @@ def main():
     _build.build()
     _build.lib()
     record["build_s"] = time.perf_counter() - t0
-    print(f"kernels built and loaded in {record['build_s']:.1f} s")
-    record["ptxas"] = ptxas_lines("lut_matmul.cu")
+    record["build_s_by_source"] = build_seconds()
+    print(f"kernels built and loaded in {record['build_s']:.1f} s (each "
+          f"source's nvcc, started together: " + ", ".join(
+              f"{k} {v:.1f} s"
+              for k, v in record["build_s_by_source"].items()) + ")")
+    t0 = time.perf_counter()
+    _build.host_lib()
+    record["host_build_s"] = time.perf_counter() - t0
+    print(f"host k-means solver (csrc/host/nuq_kmeans.cpp, g++) built and "
+          f"loaded in {record['host_build_s']:.1f} s")
+    record["ptxas"] = [line for src in ("lut_matmul.cu", "flash_attn.cu",
+                                        "decode_attn.cu")
+                       for line in ptxas_lines(src)]
     for line in record["ptxas"]:
         print(f"  ptxas {line}")
 
@@ -2402,7 +2569,12 @@ def main():
         print(f"chip_smoke: failed phases {record['failed']}",
               file=sys.stderr)
         return 1
-    print(json.dumps(kernel_lines(record)))
+    lines = kernel_lines(record)
+    idle = [k["name"] for k in lines["kernels"] if not k["launches"]]
+    if idle:
+        print(f"chip_smoke: no path launched {idle}", file=sys.stderr)
+        return 1
+    print(json.dumps(lines))
     print(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

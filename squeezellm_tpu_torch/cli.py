@@ -141,7 +141,8 @@ def cmd_eval(args):
 def cmd_benchmark(args):
     model = _load_model(args)
     ids = _tokens(args, model.config)[:, : args.tokens]
-    print(json.dumps(_engine(args, model).benchmark(ids), indent=2))
+    print(json.dumps(_engine(args, model).benchmark(ids, check=args.check),
+                     indent=2))
 
 
 def cmd_generate(args):
@@ -193,8 +194,12 @@ def main(argv=None):
                    help="top-%% of weights by grad^2 moved to sparse")
     q.add_argument("--outlier-range", type=float, default=None,
                    help="IQR multiplier for threshold outliers (e.g. 1.8)")
-    q.add_argument("--method", default="auto", choices=["auto", "batched"],
-                   help="k-means solver; the port has the batched one")
+    q.add_argument("--method", default="auto",
+                   choices=["auto", "native", "batched"],
+                   help="k-means solver: 'auto' is 'native' (the sorted-"
+                        "Lloyd C++ solver, built with the host's g++ at "
+                        "first use), 'batched' the PyTorch one on the "
+                        "device")
     q.add_argument("--quantize-lm-head", action="store_true",
                    help="also quantize lm_head (the reference keeps it "
                         "fp16)")
@@ -228,6 +233,9 @@ def main(argv=None):
     tokens(b)
     decode(b)
     b.add_argument("--tokens", type=int, default=128)
+    b.add_argument("--check", action="store_true",
+                   help="also compute the fed sequence's next-token "
+                        "perplexity inside the timed loop (check_ppl)")
     b.set_defaults(fn=cmd_benchmark)
 
     g = sub.add_parser("generate", help="greedy generation")

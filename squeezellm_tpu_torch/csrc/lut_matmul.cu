@@ -22,11 +22,12 @@
 // accumulation); the sparse fold always reads x unrounded, transposed
 // (xt, made by the wrapper; x itself at one row) and from L2.
 //
-// Two kernels, picked per call by the wrapper (ops/lut_matmul.py `plan`, a
-// pure function; GEMV_MAX_ROWS there is the measured crossover):
+// Two kernels, picked per call by the caller and laid out by the wrapper
+// (ops/lut_matmul.py `plan`, a pure function): the call site picks, never
+// the row count, so a row's bits do not depend on its batch.
 //
-// gemv_kernel, 1..8 rows in bf16 mode and every row count in exact mode
-// (16 rows a tile). Bound by the packed words' bytes (25 MB for the fused
+// gemv_kernel, the decode step's kernel in bf16 mode at any slot count and
+// exact mode's at every row count (16 rows a tile). Bound by the packed words' bytes (25 MB for the fused
 // 4-bit q|k|v of LLaMA-2-7B, 7.5 us at 3.35 TB/s). Design:
 //  * a block owns 128 output columns; a lane owns 4 adjacent ones, so a
 //    warp reads a word row's 512 contiguous bytes;
@@ -55,8 +56,8 @@
 //    block; no value is summed by an atomic) adds them in order, then y0.
 //    Same inputs, same bits, every launch.
 //
-// mma_kernel, bf16 mode above GEMV_MAX_ROWS rows (prefill chunks, verify
-// windows, serving pools above 8 slots): bound by the products from ~80
+// mma_kernel, bf16 mode's other calls (prompts, prefill chunks, verify
+// windows, an eval forward below 1024 rows): bound by the products from ~80
 // rows, which are bf16 x bf16 with f32 accumulation, what the tensor cores
 // do at 989 TFLOP/s. A block computes 64 rows x 128 columns:
 //  * a 4-stage cp.async ring brings 8-word tiles of qweight and the
@@ -68,7 +69,8 @@
 //  * 8 warps (2 x 4), each 32 x 32, run mma.sync m16n8k16 bf16 with f32
 //    accumulators from ldmatrix fragments (rows padded by 16 bytes: no
 //    bank conflicts);
-//  * the sidecar's fold block and the k-split end as in the GEMV.
+//  * the sidecar's fold block and the k-split end as in the GEMV; the
+//    k-split is fixed per layer shape, whatever the row count.
 // f32 x in bf16 mode is rounded on its way into shared memory through
 // registers (not cp.async). Exact mode never takes this kernel: TF32 or
 // bf16 operands would change its numbers.
@@ -93,28 +95,9 @@ __device__ __forceinline__ float load_act(const void* p, int is_bf16,
                  : static_cast<const float*>(p)[i];
 }
 
-// Copies `nbytes` (0..UNIT) from gmem to smem with cp.async, zero-filling
-// the rest of the UNIT (4 or 16) bytes.
-template <int UNIT>
-__device__ __forceinline__ void cp_async_part(void* smem, const void* gmem,
-                                              int nbytes) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
-  if constexpr (UNIT == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-                 "l"(gmem), "r"(nbytes));
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
-                 "l"(gmem), "r"(nbytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+using slt::cp_async_commit;
+using slt::cp_async_part;
+using slt::cp_async_wait;
 
 // The block's table, shared by both kernels: tab[slot(c, k)] = table value
 // of code k for column col0 + c (0 past out_f), rounded in bf16 mode (the
@@ -620,22 +603,8 @@ struct MmaShape {
       TAB_BYTES + (PIPE_BYTES > CS_BYTES ? PIPE_BYTES : CS_BYTES);
 };
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(s));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
+using slt::ldmatrix_x4;
+using slt::mma_bf16;
 
 // Issues the copies of a k-step (word rows w0.. of the split) into one
 // stage: x rows m0.. as bf16 (cp.async for bf16 x; f32 x rounded through
@@ -843,15 +812,7 @@ struct Args {
       folds;
 };
 
-// Raises the kernel's dynamic shared memory limit once per instantiation.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, int bytes, bool& done) {
-  if (done) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  done = e == cudaSuccess;
-  return e;
-}
+using slt::allow_smem;
 
 template <int BITS, int MT, typename XT>
 cudaError_t launch_gemv(const Args& a, dim3 grid, int xalign, int vec,

@@ -97,13 +97,15 @@ class Engine:
         return torch.stack(rows)
 
     @torch.no_grad()
-    def benchmark(self, input_ids,
-                  max_seq: Optional[int] = None) -> Dict[str, Any]:
+    def benchmark(self, input_ids, max_seq: Optional[int] = None,
+                  check: bool = False) -> Dict[str, Any]:
         """Decode benchmark with the JAX package's protocol: 3 warmup
         steps, then token 0 seeds the loop, every token is one decode step
         from an empty cache, the whole run ends in one fence; median
-        per-token latency, and the next-token perplexity of the fed
-        sequence (``check_ppl``)."""
+        per-token latency. check: also accumulate the next-token
+        perplexity of the fed sequence (``check_ppl``) inside the timed
+        loop, as the JAX package does with ``check=True``; without it the
+        loop runs the decode steps alone."""
         ids = torch.as_tensor(np.asarray(input_ids).reshape(1, -1),
                               dtype=torch.long, device=self.device)
         T = ids.shape[1]
@@ -129,7 +131,7 @@ class Engine:
         for i in range(T):
             logits = self.model.decode_step(ids[:, i: i + 1], pos, cache,
                                             **self._run())
-            if i < T - 1:
+            if check and i < T - 1:
                 logp = torch.log_softmax(logits[0, -1].float(), dim=-1)
                 nll = nll - logp.gather(0, ids[0, i + 1: i + 2])[0]
             pos = pos + 1
@@ -142,8 +144,9 @@ class Engine:
             "tokens_per_s": 1.0 / med,
             "device": (torch.cuda.get_device_name(self.device) if on_cuda
                        else "cpu"),
-            "check_ppl": float(torch.exp(nll / (T - 1))),
         }
+        if check:
+            stats["check_ppl"] = float(torch.exp(nll / (T - 1)))
         if on_cuda:
             stats["peak_memory_mib"] = (
                 torch.cuda.max_memory_allocated(self.device) / 2**20)

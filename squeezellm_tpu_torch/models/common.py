@@ -39,13 +39,14 @@ class LinearSpec:
 def apply_linear(spec: LinearSpec, params: Dict[str, torch.Tensor],
                  x: torch.Tensor, *, mode: str = "exact",
                  y0: Optional[torch.Tensor] = None,
-                 plain: bool = False) -> torch.Tensor:
+                 plain: bool = False, decode: bool = False) -> torch.Tensor:
     """y = y0 + x @ W^T (+ b). Dense params: {'w': (out, in), 'b'?};
     quantized: the quant_linear tensors. A quantized linear folds y0 into
-    its kernel's output init; a dense one adds it."""
+    its kernel's output init; a dense one adds it. decode: the call is a
+    decode step (``quant_linear_apply``)."""
     if spec.is_quant:
         return quant_linear_apply(spec.quant, params, x, mode=mode, y0=y0,
-                                  plain=plain)
+                                  plain=plain, decode=decode)
     y = torch.matmul(x, params["w"].to(x.dtype).t())
     if y0 is not None:
         y = y + y0.to(x.dtype)
@@ -81,9 +82,9 @@ class Linear(nn.Module):
 
     def forward(self, x: torch.Tensor, *, mode: str = "exact",
                 y0: Optional[torch.Tensor] = None,
-                plain: bool = False) -> torch.Tensor:
+                plain: bool = False, decode: bool = False) -> torch.Tensor:
         return apply_linear(self.spec, self.tensors(), x, mode=mode, y0=y0,
-                            plain=plain)
+                            plain=plain, decode=decode)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,

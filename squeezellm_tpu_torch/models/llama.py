@@ -127,6 +127,14 @@ class Step:
     # a page pool's table, shared by every layer
     page_table: Optional[torch.Tensor] = None  # (B, maxp) int32
 
+    def lin(self) -> dict:
+        """The linears' keyword arguments: the regime, and whether this is
+        a one-token-a-slot decode step (K1/K10 run their GEMV there, the
+        tensor-core kernel elsewhere in bf16 mode: the call site, not the
+        row count, picks the kernel)."""
+        return dict(mode=self.mode, plain=self.plain,
+                    decode=self.lengths is not None)
+
 
 # (one token per slot, int8 pool) -> (kernel wrapper, plain version)
 _PAGED_ATTN = {
@@ -156,7 +164,7 @@ class AttnBlock(nn.Module):
         b, s, _ = x.shape
         hd = cfg.head_dim
         nh, nkv = cfg.n_heads, cfg.n_kv_heads
-        lin = dict(mode=step.mode, plain=step.plain)
+        lin = step.lin()
         if "qkv" in self.proj:
             qkv = self.proj["qkv"](x, **lin)
             q = qkv[..., : nh * hd]
@@ -226,7 +234,7 @@ class AttnBlock(nn.Module):
             attend = (flash_attn.flash_attention_plain if step.plain
                       else flash_attn.flash_attention)
             out = attend(q.transpose(1, 2), kh, vh, step.start,
-                         sliding_window=cfg.sliding_window)
+                         sliding_window=cfg.sliding_window, mode=step.mode)
             out = out.to(step.dtype).transpose(1, 2).reshape(b, s, nh * hd)
         return self.proj["o"](out, y0=residual, **lin)
 
@@ -240,7 +248,7 @@ class MLPBlock(nn.Module):
         self.proj = nn.ModuleDict(proj)
 
     def forward(self, x, step: Step, residual=None):
-        lin = dict(mode=step.mode, plain=step.plain)
+        lin = step.lin()
         if "gateup" in self.proj:
             gu = self.proj["gateup"](x, **lin)
             inter = gu.shape[-1] // 2
@@ -284,7 +292,7 @@ class LMHead(nn.Module):
         self.linear = linear
 
     def forward(self, x, step: Step):
-        return self.linear(x, mode=step.mode, plain=step.plain).float()
+        return self.linear(x, **step.lin()).float()
 
 
 class Llama(nn.Module):

@@ -127,7 +127,7 @@ class DecoderLayer(nn.Module):
 
     def forward(self, x, step: Step, cache=None):
         eps = self.config.ln_eps
-        lin = dict(mode=step.mode, plain=step.plain)
+        lin = step.lin()
         h = common.layer_norm(x, self.attn_norm_w, self.attn_norm_b, eps)
         x = x + self.attn(h, step, cache)
         h = common.layer_norm(x, self.ffn_norm_w, self.ffn_norm_b, eps)

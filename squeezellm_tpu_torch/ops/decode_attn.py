@@ -19,7 +19,11 @@ type) replace the TPU kernels ``_dense_attn_kernel`` (K2) and
 ``_dense_attn_kernel_q8`` (K5) of ``squeezellm_tpu/ops/decode_attn.py``
 (``dense_decode_attention`` and ``dense_decode_attention_q8``); their
 bound on the H100 and how the design meets it are noted in the CUDA
-source.
+source. The kernels split a slot's rows over blocks of ``CHUNK`` cache
+rows (:func:`splits`, a function of the cache's capacity alone) and merge
+the blocks' partial softmax states in a fixed order inside the same
+launch, through a workspace the wrapper keeps per device and shape
+(:func:`workspace`).
 """
 
 from __future__ import annotations
@@ -34,6 +38,39 @@ from squeezellm_tpu_torch.models import common
 from squeezellm_tpu_torch.ops import kv_quant
 
 _FLOATS = (torch.float32, torch.bfloat16)
+# cache rows a block reads (the row split); at 2048 rows a LLaMA-2-7B
+# decode step's kernel runs 8 blocks a kv head, 256 at batch 1. Timed on
+# the H100 at 2048 rows (chip_smoke.py check_k2): 256 rows a block beat 128
+# and 64, whose extra blocks cost more in merging than they gained
+CHUNK = 256
+
+
+def splits(S: int) -> int:
+    """Blocks a (kv head, slot) pair's rows are split over: a function of
+    the cache's capacity S alone, so that a slot's bits do not depend on
+    its cohort's lengths or size."""
+    return -(-S // CHUNK)
+
+
+_WORKSPACE = {}
+
+
+def workspace(device, B: int, Hkv: int, g: int, hd: int, S: int):
+    """The partial states (f32 (B, Hkv, splits, g, hd) and (B, Hkv, splits,
+    g, 2)) and the zeroed tile counters (int32 (B, Hkv), reset by the
+    kernel) of one call shape on `device`: allocated once, reused by every
+    later call of that shape (one stream at a time)."""
+    key = (device, B, Hkv, g, hd, splits(S))
+    ws = _WORKSPACE.get(key)
+    if ws is None:
+        sp = splits(S)
+        ws = (torch.empty((B, Hkv, sp, g, hd), dtype=torch.float32,
+                          device=device),
+              torch.empty((B, Hkv, sp, g, 2), dtype=torch.float32,
+                          device=device),
+              torch.zeros((B, Hkv), dtype=torch.int32, device=device))
+        _WORKSPACE[key] = ws
+    return ws
 
 
 def decode_attention_plain(q, k_new, v_new, ck, cv, lengths, *,
@@ -132,14 +169,16 @@ def decode_attention(q, k_new, v_new, ck, cv, lengths, *,
                         rope_sin)
     window = S + 1 if sliding_window is None else int(sliding_window)
     out = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
+    ws = workspace(q.device, B, Hkv, g, hd, S)
     err = _build.lib().slt_decode_attn(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), q.stride(0),
         k_new.stride(0), int(q.dtype == torch.bfloat16),
         rope_cos.data_ptr() if rope_cos is not None else None,
         rope_sin.data_ptr() if rope_cos is not None else None,
         ck.data_ptr(), cv.data_ptr(), int(ck.dtype == torch.bfloat16),
-        lengths.data_ptr(), out.data_ptr(), B, S, Hkv, g, hd, window,
-        1.0 / math.sqrt(hd), _build.stream_ptr(q.device))
+        lengths.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in ws), B,
+        S, Hkv, g, hd, window, 1.0 / math.sqrt(hd), CHUNK,
+        _build.stream_ptr(q.device))
     _build.check(err, "decode_attention")
     decode_attention.launches += 1
     decode_attention.ropeless_launches += rope_cos is None
@@ -180,14 +219,16 @@ def decode_attention_q8(q, k_new, v_new, ck, cv, sk, sv, lengths, *,
                              f"(B, {Hkv}, {S}) on {q.device}")
     window = S + 1 if sliding_window is None else int(sliding_window)
     out = torch.empty((B, H, hd), dtype=torch.float32, device=q.device)
+    ws = workspace(q.device, B, Hkv, g, hd, S)
     err = _build.lib().slt_decode_attn_q8(
         q.data_ptr(), k_new.data_ptr(), v_new.data_ptr(), q.stride(0),
         k_new.stride(0), int(q.dtype == torch.bfloat16),
         rope_cos.data_ptr() if rope_cos is not None else None,
         rope_sin.data_ptr() if rope_cos is not None else None,
         ck.data_ptr(), cv.data_ptr(), sk.data_ptr(), sv.data_ptr(),
-        lengths.data_ptr(), out.data_ptr(), B, S, Hkv, g, hd, window,
-        1.0 / math.sqrt(hd), _build.stream_ptr(q.device))
+        lengths.data_ptr(), out.data_ptr(), *(t.data_ptr() for t in ws), B,
+        S, Hkv, g, hd, window, 1.0 / math.sqrt(hd), CHUNK,
+        _build.stream_ptr(q.device))
     _build.check(err, "decode_attention_q8")
     decode_attention_q8.launches += 1
     return out

@@ -7,12 +7,16 @@ q (B, H, Sq, hd) at positions ``[offset, offset + Sq)``, k/v
 ``kpos <= qpos`` and ``kpos > qpos - window``; GQA by ``h // g``. Any Sq
 and Sk (the kernel masks the ragged edge).
 
-The CUDA kernel (``csrc/flash_attn.cu``) replaces the TPU kernel
+The CUDA kernels (``csrc/flash_attn.cu``) replace the TPU kernel
 ``_flash_kernel`` of ``squeezellm_tpu/ops/flash_attn.py``
-(``flash_attention``); its bound on the H100 and how the design meets it
-are noted in the CUDA source. It reads q, k and v through their strides,
-so head-major views of the token-major cache need no copy, and writes a
-token-major buffer that the caller reshapes for free.
+(``flash_attention``); their bound on the H100 and how the designs meet
+it are noted in the CUDA source. ``mode`` picks the regime, as it picks
+K1's: ``"bf16"`` with q, k and v all bf16 runs both products on the
+tensor cores (p rounded to bf16 before p.v: within 2**-8 of max |v| of
+the plain version), every other call the exact regime's f32-FMA kernel
+(within 1e-4). Both read q, k and v through their strides, so head-major
+views of the token-major cache need no copy, and write a token-major
+buffer that the caller reshapes for free.
 """
 
 from __future__ import annotations
@@ -26,11 +30,16 @@ from squeezellm_tpu_torch import _build
 from squeezellm_tpu_torch.models import common
 
 _FLOATS = (torch.float32, torch.bfloat16)
+MODES = ("exact", "bf16")
 
 
 def flash_attention_plain(q, k, v, offset: int, *,
-                          sliding_window: Optional[int] = None):
-    """The plain PyTorch version of K3: (B, H, Sq, hd) f32."""
+                          sliding_window: Optional[int] = None,
+                          mode: str = "exact"):
+    """The plain PyTorch version of K3: (B, H, Sq, hd) f32, with f32
+    products in either mode (the reference both regimes are held to)."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     H, Sq = q.shape[1], q.shape[2]
     Hkv, Sk = k.shape[1], k.shape[2]
     kk = common.repeat_kv(k.float(), H // Hkv)
@@ -40,16 +49,24 @@ def flash_attention_plain(q, k, v, offset: int, *,
 
 
 def flash_attention(q, k, v, offset: int, *,
-                    sliding_window: Optional[int] = None):
+                    sliding_window: Optional[int] = None,
+                    mode: str = "exact"):
     """K3 on CUDA tensors, its plain version on CPU tensors.
 
     q f32/bf16 and k/v f32/bf16 (k and v sharing dtype and strides), each
-    with a contiguous last dim; offset a python int. Returns
-    (B, H, Sq, hd) f32 (a view of a token-major buffer on the card).
-    Counts its launches in ``flash_attention.launches``."""
+    with a contiguous last dim; offset a python int; mode "bf16" with all
+    three bf16 takes the tensor-core kernel (which also needs 16-byte
+    aligned data and row strides in multiples of 8 elements), any other
+    call the f32-FMA kernel. Returns (B, H, Sq, hd) f32 (a view of a
+    token-major buffer on the card). Counts its launches in
+    ``flash_attention.launches`` and by regime in
+    ``flash_attention.regime_launches``."""
+    if mode not in MODES:
+        raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, offset,
-                                     sliding_window=sliding_window)
+                                     sliding_window=sliding_window,
+                                     mode=mode)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {q.device}")
     B, H, Sq, hd = q.shape
@@ -75,14 +92,24 @@ def flash_attention(q, k, v, offset: int, *,
                out.stride(0), out.stride(2), out.stride(1))
     if max(strides) >= 2**31:
         raise ValueError("flash_attention kernel: strides exceed int32")
+    regime = ("bf16" if mode == "bf16" and q.dtype == torch.bfloat16
+              and k.dtype == torch.bfloat16 else "exact")
+    if regime == "bf16" and (
+            any(t.data_ptr() % 16 for t in (q, k, v))
+            or any(st % 8 for st in strides[:6])):
+        raise ValueError("flash_attention tensor-core kernel: q, k and v "
+                         "need 16-byte aligned data and row, head and batch "
+                         "strides in multiples of 8 elements")
     err = _build.lib().slt_flash_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), *strides,
         int(q.dtype == torch.bfloat16), int(k.dtype == torch.bfloat16),
-        B, H, Hkv, Sq, Sk, hd, int(offset), window, 1.0 / math.sqrt(hd),
-        _build.stream_ptr(q.device))
+        int(regime == "bf16"), B, H, Hkv, Sq, Sk, hd, int(offset), window,
+        1.0 / math.sqrt(hd), _build.stream_ptr(q.device))
     _build.check(err, "flash_attention")
     flash_attention.launches += 1
+    flash_attention.regime_launches[regime] += 1
     return out.transpose(1, 2)
 
 
 flash_attention.launches = 0
+flash_attention.regime_launches = dict.fromkeys(MODES, 0)

@@ -12,14 +12,21 @@ regime); ``bf16`` rounds x and the LUT to bf16 before the products and
 accumulates in f32 (the ``pallas-bf16`` regime). The sparse fold always
 reads x unrounded.
 
-Two device kernels serve both wrappers; :func:`plan` picks one per call
-from the row count and the mode (a pure function, so the CPU tests reach
-it): the GEMV (bf16 mode up to ``GEMV_MAX_ROWS`` rows; exact mode at every
-row count, 16 rows a tile) and, in bf16 mode above, the tensor-core kernel
-(``mma.sync`` bf16 with f32 accumulation). Both split the packed words
-across blocks (``splits``) and sum the partials in a fixed order, so a
-launch is deterministic. ``GEMV_MAX_ROWS`` is where the two meet on the
-H100: ``chip_smoke.py`` times both at 8, 12, 16, 17, 24, 32 and 40 rows.
+Two device kernels serve both wrappers; :func:`plan` lays one out per call
+(a pure function, so the CPU tests reach it): the GEMV (exact mode, and
+bf16 mode where the caller asks for it; 1-16 rows a tile) and the
+tensor-core kernel (``mma.sync`` bf16 with f32 accumulation; bf16 mode
+only). The CALLER picks the kernel, never the row count: the model's
+one-token-a-slot decode step asks for the GEMV at any slot count, and
+every other call (prefill, chunks, verify windows, an eval forward below
+1024 rows) takes the tensor-core kernel in bf16 mode
+(``quant_linear_apply(decode=...)``). Both kernels split the packed words
+across blocks (``splits``) and sum the partials in a fixed order, and the
+split follows the layer's shape only, so a row's bits do not depend on the
+rows batched with it, nor a sampled token on its cohort. On the H100 the
+GEMV is the faster kernel up to 8 rows and the tensor cores from 12
+(``chip_smoke.py`` times both at 8-40 rows), so the decode step of more
+than 8 slots pays for its invariance in bf16 mode.
 
 K10 (``lut_matmul_struct``) is the same two kernels for a 4-bit
 STRUCTURED codebook, given as A (out, 8) and d (out,) with
@@ -43,20 +50,18 @@ MODES = ("exact", "bf16")
 MAX_ROWS = 1023  # quant_linear_apply sends 1024 rows and more to K4
 VARIANTS = ("gemv", "mma")
 COLS = 128  # output columns a block (kCols in csrc/lut_matmul.cu)
-# bf16 mode: the GEMV up to this many rows, the tensor-core kernel above.
-# Timed on the H100 (chip_smoke.py `check_k1_cross`, PERF.md): at 8 rows
-# the GEMV is faster at all five LLaMA-2-7B shapes, at 12 rows and more
-# the MMA kernel, its padding to 64 rows costing less than 12 rows of f32
-# FMAs on the CUDA cores.
-GEMV_MAX_ROWS = 8
 GEMV_ROW_TILES = (1, 2, 4, 8, 16)
 MMA_ROW_TILE = 64
 # k-split: at least as many blocks as the card holds at once (132 SMs; the
 # GEMV fits 4 blocks an SM at one row, the MMA kernel 2), so that every SM
 # keeps its stages of words in flight, but no split thinner than MIN_WORDS
-# packed word rows
+# packed word rows. The split is fixed per layer shape: the GEMV's is the
+# one-row tile's, the MMA kernel's the one MMA_SPLIT_ROW_TILES row tiles
+# (a 65-128-row call) fill the card with; fewer would grow the (splits, M,
+# out) f32 workspace at 1023 rows, more would idle SMs at 40 rows.
 SMS = 132
 GEMV_MIN_WORDS, MMA_MIN_WORDS = 32, 64
+MMA_SPLIT_ROW_TILES = 2
 # the sidecar's fold runs in blocks of its own beside the word stream: 8 a
 # column tile in the GEMV, whose stream is short (a 4096-wide output's
 # blocks stream 8 KB each), 1 in the MMA kernel, whose partials are M rows
@@ -83,29 +88,28 @@ def plan(M: int, in_f: int, out_f: int, bits: int, mode: str,
          variant: Optional[str] = None) -> Plan:
     """The kernel and grid for M rows of an (in_f -> out_f) layer.
 
-    ``variant`` None chooses: the tensor-core kernel in bf16 mode above
-    ``GEMV_MAX_ROWS`` rows, else the GEMV. "mma" is refused in exact mode
-    (its bf16 operands would change exact mode's numbers)."""
+    ``variant`` None takes the mode's kernel: the tensor-core kernel in
+    bf16 mode, the GEMV in exact mode, at every row count; a decode step
+    asks for "gemv". "mma" is refused in exact mode (its bf16 operands
+    would change exact mode's numbers). The k-split depends on the shape
+    only, never on M, so a row is summed in the same order whatever else
+    is batched with it."""
     if variant is not None and variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got "
                          f"{variant!r}")
     if variant == "mma" and mode != "bf16":
         raise ValueError("the tensor-core kernel runs bf16 mode only")
     if variant is None:
-        variant = ("mma" if mode == "bf16" and M > GEMV_MAX_ROWS
-                   else "gemv")
+        variant = "mma" if mode == "bf16" else "gemv"
     nw = formats.n_words(in_f, bits)
     col_tiles = -(-out_f // COLS)
     if variant == "gemv":
-        # the split is the one-row tile's at every row count, so that a
-        # row's sum is taken in the same order whatever else is batched
-        # with it (exact mode's tokens must not depend on the batch)
         row_tile = next(t for t in GEMV_ROW_TILES if t >= min(M, 16))
         wave, min_words, fill = SMS * 4, GEMV_MIN_WORDS, col_tiles
     else:
         row_tile = MMA_ROW_TILE
         wave, min_words = SMS * 2, MMA_MIN_WORDS
-        fill = col_tiles * -(-M // row_tile)
+        fill = col_tiles * MMA_SPLIT_ROW_TILES
     tiles = col_tiles * -(-M // row_tile)
     splits = max(1, min(-(-wave // fill), nw // min_words))
     per = -(-(-(-nw // splits)) // 8) * 8
@@ -197,7 +201,7 @@ def lut_matmul(x: torch.Tensor, qweight: torch.Tensor, lut: torch.Tensor,
     x: (M, in) f32 or bf16, contiguous; qweight int32 (n_words, out);
     lut f32 (out, 2**bits); rowptr/cols/vals: the CSR sidecar (int32,
     int32, f32) or None; y0: (M, out) f32/bf16 or None; variant: the
-    device kernel, None for :func:`plan`'s choice. Returns (M, out) f32.
+    device kernel, None for the mode's (:func:`plan`). Returns (M, out) f32.
     Counts its launches in ``lut_matmul.launches`` and, by kernel, in
     ``lut_matmul.variant_launches``."""
     if bits not in (3, 4):

@@ -33,6 +33,11 @@ this order:
    (``ops/dequant_dense``: the weight dequantized once from the generic
    LUT, the sidecar folded into it) followed by one dense matmul and the
    ``y0`` add; fewer rows: K1 (``ops/lut_matmul``).
+
+Inside K1 and K10 the call site picks the device kernel: ``decode=True``
+(the model's one-token-a-slot decode step) takes the GEMV at any row
+count, every other call the mode's kernel (the tensor cores in bf16 mode),
+so a row's result does not depend on how many rows share its call.
 """
 
 from __future__ import annotations
@@ -83,13 +88,16 @@ def quant_linear_apply(spec: QuantLinearSpec,
                        params: Dict[str, torch.Tensor], x: torch.Tensor, *,
                        mode: str = "exact",
                        y0: Optional[torch.Tensor] = None,
-                       plain: bool = False) -> torch.Tensor:
+                       plain: bool = False,
+                       decode: bool = False) -> torch.Tensor:
     """y = y0 + x @ dequant(qweight) + sparse + hybrid + bias, in x.dtype.
 
     mode: 'exact' (f32) or 'bf16' (x and LUT rounded to bf16, f32
     accumulation). y0: optional (..., out) residual, folded into K1's
     output init or added after K4's matmul. plain: run the kernels' plain
-    versions whatever the device (the reference they are held against)."""
+    versions whatever the device (the reference they are held against).
+    decode: the call is a decode step (one token a slot), which K1 and
+    K10 run as their GEMV at any slot count."""
     lead = x.shape[:-1]
     x2 = x.reshape(-1, spec.in_features).contiguous()
     y0_2 = (None if y0 is None
@@ -99,6 +107,7 @@ def quant_linear_apply(spec: QuantLinearSpec,
         sparse = dict(rowptr=params["sp_rowptr"], cols=params["sp_cols"],
                       vals=params["sp_vals"])
     rows = x2.shape[0]
+    kernel = {} if plain else {"variant": "gemv" if decode else None}
     if rows <= T_MAX_ROWS and spec.bits == 4 and "qweight_t" in params:
         fn = lut_matmul_t_plain if plain else lut_matmul_t
         y = fn(x2, params["qweight_t"], params["lut"], mode=mode)
@@ -111,7 +120,7 @@ def quant_linear_apply(spec: QuantLinearSpec,
     elif "struct_a" in params and rows < BIG_BATCH:
         fn = lut_matmul_struct_plain if plain else lut_matmul_struct
         y = fn(x2, params["qweight"], params["struct_a"], params["struct_d"],
-               y0=y0_2, mode=mode, **sparse)
+               y0=y0_2, mode=mode, **sparse, **kernel)
     elif rows >= BIG_BATCH and spec.bits <= 4:
         fn = dequant_dense_plain if plain else dequant_dense
         w = fn(params["qweight"], params["lut"], spec.bits,
@@ -123,7 +132,7 @@ def quant_linear_apply(spec: QuantLinearSpec,
     else:
         fn = lut_matmul_plain if plain else lut_matmul
         y = fn(x2, params["qweight"], params["lut"], spec.bits, y0=y0_2,
-               mode=mode, **sparse)
+               mode=mode, **sparse, **kernel)
     if spec.topx > 0:
         y = plain_ops.hybrid_matmul(x2, params["topx_weights"],
                                     params["topx_indices"],

@@ -1,10 +1,18 @@
 """Sensitivity-weighted 1-D k-means for non-uniform quantization (NUQ), in
 PyTorch on the device the caller's tensors lie on.
 
-The port of the JAX package's ``quantize/kmeans.py`` (its ``batched``
-solver; the native library and the sklearn mode are not ported):
-``weighted_kmeans_batched``, ``fit_module_luts``, ``fit_structured_luts``
-and ``structured_decomposition`` compute the same function, in f64:
+The port of the JAX package's ``quantize/kmeans.py``. ``fit_module_luts``
+has two solvers (the sklearn mode is not ported):
+
+* ``native`` (the default, as ``auto`` is in the JAX package): the JAX
+  package's sorted-Lloyd C++ solver, a copy of which the port keeps in
+  ``csrc/host/nuq_kmeans.cpp`` and builds with the host's ``g++`` at first
+  use (``_build.host_lib``). It runs on the host with OpenMP; its codebooks
+  and codes equal the JAX package's default bit for bit.
+* ``batched``: ``weighted_kmeans_batched``, on the tensors' device, the
+  same function as the JAX package's ``batched`` solver (which
+  ``fit_structured_luts`` also uses for its init). It and
+  ``fit_structured_luts`` and ``structured_decomposition`` compute, in f64:
 
 * seeded weighted k-means++ init, one ``np.random.default_rng(seed)`` per
   chunk of 256 channels (so a last partial chunk draws another sequence);
@@ -187,6 +195,34 @@ def weighted_kmeans_batched(
     return cent_sorted.to(torch.float32), labels(cent_sorted, x)
 
 
+def weighted_kmeans_native(values: torch.Tensor, weights: torch.Tensor,
+                           k: int, max_iter: int = 50, seed: int = 0,
+                           tol: float = 1e-8
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The host's sorted-Lloyd solver (``csrc/host/nuq_kmeans.cpp``) on
+    (C, N) values and nonneg weights, both taken as f32 (the JAX package's
+    ``_native.weighted_kmeans_batched``). Returns (centroids (C, k) f32
+    sorted ascending, labels (C, N) uint8) on values' device."""
+    from squeezellm_tpu_torch import _build
+
+    try:
+        lib = _build.host_lib()
+    except (RuntimeError, OSError) as e:
+        raise RuntimeError(
+            f"the native k-means solver could not be built or loaded ({e}); "
+            "pass method=\"batched\" to fit on the device instead") from e
+    x = np.ascontiguousarray(values.detach().cpu().numpy(), dtype=np.float32)
+    w = np.ascontiguousarray(weights.detach().cpu().numpy(), dtype=np.float32)
+    C, N = x.shape
+    cents = np.empty((C, k), dtype=np.float32)
+    labels_out = np.empty((C, N), dtype=np.uint8)
+    lib.nuq_weighted_kmeans_batched(
+        x.ctypes.data, w.ctypes.data, C, N, k, max_iter, seed, tol,
+        cents.ctypes.data, labels_out.ctypes.data)
+    return (torch.from_numpy(cents).to(values.device),
+            torch.from_numpy(labels_out).to(values.device))
+
+
 def _sample_weights(weight, gradient):
     """grad^2 masked at zeroed slots (reference nuq.py:169-176), uniform
     over the nonzero slots without gradients, all-zero rows uniform."""
@@ -202,15 +238,20 @@ def fit_module_luts(weight: torch.Tensor, gradient: Optional[torch.Tensor],
     """Per-output-channel codebooks for one module.
 
     weight: (out, in) with outlier slots zeroed; gradient: (out, in) grad^2
-    or None. method: 'auto' or 'batched', the one solver the port has (the
-    JAX package's 'batched'). Returns (lut (out, 2**bits) f32 sorted,
+    or None. method: 'auto' (= 'native', the JAX package's default solver,
+    on the host) or 'batched' (on the weight's device). The sample weights
+    are grad^2 masked at zeroed slots, as f32 for the native solver as the
+    JAX package hands them over. Returns (lut (out, 2**bits) f32 sorted,
     labels (out, in) uint8)."""
-    if method not in ("auto", "batched"):
-        raise ValueError(f"unknown method {method!r}: the port has the "
-                         "batched solver only")
+    if method not in ("auto", "native", "batched"):
+        raise ValueError(f"unknown method {method!r}: the port has 'auto' "
+                         "(= 'native') and 'batched'")
     weight = weight.to(torch.float32)
-    return weighted_kmeans_batched(weight, _sample_weights(weight, gradient),
-                                   2**bits, seed=seed)
+    sw = _sample_weights(weight, gradient)
+    if method == "batched":
+        return weighted_kmeans_batched(weight, sw, 2**bits, seed=seed)
+    return weighted_kmeans_native(weight, sw.to(torch.float32), 2**bits,
+                                  seed=seed)
 
 
 def fit_structured_luts(weight: torch.Tensor,

@@ -79,3 +79,22 @@ def test_decode_attention_length_beyond_cache_clamps():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=TOL)
     np.testing.assert_array_equal(tck.numpy(), np.asarray(wck))
+
+
+def test_decode_split_count_follows_the_cache_capacity_alone():
+    """K2/K5 split a slot's rows over ceil(S / CHUNK) blocks: a function
+    of the cache's capacity S alone (its signature takes nothing else), so
+    that a slot's bits do not depend on its cohort's size or lengths; the
+    partial-state workspace of a shape is made once and reused."""
+    import inspect
+
+    assert list(inspect.signature(decode_attn.splits).parameters) == ["S"]
+    C = decode_attn.CHUNK
+    assert [decode_attn.splits(S) for S in (1, C, C + 1, 2048, 4096)] == [
+        1, 1, 2, -(-2048 // C), -(-4096 // C)]
+    acc, ml, cnt = decode_attn.workspace(torch.device("cpu"), 3, 2, 4, 32,
+                                         2 * C + 5)
+    assert acc.shape == (3, 2, 3, 4, 32) and ml.shape == (3, 2, 3, 4, 2)
+    assert cnt.shape == (3, 2) and not cnt.any()
+    again = decode_attn.workspace(torch.device("cpu"), 3, 2, 4, 32, 3 * C)
+    assert all(a is b for a, b in zip(again, (acc, ml, cnt)))

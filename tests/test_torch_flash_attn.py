@@ -55,3 +55,33 @@ def test_flash_offset_into_cache_matches_pallas(kv_dtype):
     assert np.isfinite(got.numpy()).all()
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
                                atol=TOL)
+
+
+@pytest.mark.parametrize("window", [None, 9])
+def test_flash_bf16_mode_on_the_cpu_runs_the_plain_version(window):
+    """mode="bf16" picks the tensor-core kernel only on the card: on CPU
+    tensors K3 is its plain version (f32 products of the bf16 inputs),
+    equal to the exact mode's bit for bit and within TOL of the Pallas
+    kernel, and no launch is counted."""
+    rng = np.random.default_rng(7)
+    B, Hkv, g, Sq, Sk, hd, off = 1, 2, 2, 16, 64, 32, 21
+    q, k, v = (rng.normal(size=(B, n, s, hd)).astype(np.float32)
+               for n, s in ((Hkv * g, Sq), (Hkv, Sk), (Hkv, Sk)))
+    tq, tk, tv = (torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v))
+    before = (flash_attn.flash_attention.launches,
+              dict(flash_attn.flash_attention.regime_launches))
+    got = flash_attn.flash_attention(tq, tk, tv, off, sliding_window=window,
+                                     mode="bf16")
+    assert (flash_attn.flash_attention.launches,
+            flash_attn.flash_attention.regime_launches) == before
+    exact = flash_attn.flash_attention_plain(tq, tk, tv, off,
+                                             sliding_window=window)
+    torch.testing.assert_close(got, exact, rtol=0, atol=0)
+    want = jfa.flash_attention(*(jnp.asarray(a.float().numpy(), jnp.bfloat16)
+                                 for a in (tq, tk, tv)),
+                               jnp.asarray(off, jnp.int32),
+                               sliding_window=window, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want, np.float32),
+                               rtol=0, atol=TOL)
+    with pytest.raises(ValueError, match="mode"):
+        flash_attn.flash_attention(tq, tk, tv, off, mode="f16")

@@ -30,7 +30,7 @@ cfg = llama.LlamaConfig(vocab_size=64, hidden_size=64, intermediate_size=96,
 model = synthetic.quantized_llama(cfg, 3, sparsity=0.02, topx=2, device="cpu")
 eng = engine.Engine(fuse.fuse_for_decode(model))
 out = eng.generate(np.array([[1, 2, 3]]), 4)
-stats = eng.benchmark(np.arange(8)[None], max_seq=32)
+stats = eng.benchmark(np.arange(8)[None], max_seq=32, check=True)
 logits = model.forward(__import__("torch").tensor([[1, 2, 3]]))
 from squeezellm_tpu_torch import data
 from squeezellm_tpu_torch import eval as eval_mod

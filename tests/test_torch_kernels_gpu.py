@@ -112,6 +112,155 @@ def test_flash_attention_kernel_matches_plain(dev, Sq, offset, hd, g,
     assert (got - want).abs().max() <= 1e-4
 
 
+TOL_ATTN_BF16 = 2.0**-8  # of max |v|: p rounded to bf16 before p.v
+
+
+@pytest.mark.parametrize("hd,g", [(hd, g) for hd in (32, 64, 128)
+                                  for g in (1, 2, 4)])
+@pytest.mark.parametrize("window", [None, 9])
+@pytest.mark.parametrize("offset", [0, 21])
+@pytest.mark.parametrize("Sq", [1, 7, 33, 64, 65, 130, 300])
+def test_flash_attention_bf16_kernel_matches_plain(dev, Sq, offset, window,
+                                                   hd, g):
+    """The bf16 regime's tensor-core kernel (mode "bf16", q, k, v bf16) on
+    strided head-major views of a cache longer than the prefix (rows past
+    it hold large values, never attended), against the plain version's f32
+    products of the same inputs within TOL_ATTN_BF16 of max |v|."""
+    gen = torch.Generator(device=dev).manual_seed(Sq * 7 + offset + hd + g)
+    B, Hkv = 2, 2
+    H, S = g * Hkv, offset + Sq + 70
+    qkv = torch.randn(B, Sq, (H + 2 * Hkv) * hd, generator=gen,
+                      device=dev).to(torch.bfloat16)
+    q = qkv[..., : H * hd].view(B, Sq, H, hd).transpose(1, 2)
+    cache = {n: torch.randn(B, S, Hkv * hd, generator=gen,
+                            device=dev).to(torch.bfloat16) for n in ("k", "v")}
+    for c in cache.values():
+        c[:, offset + Sq:] = 3e4
+    k, v = common.read_kv(cache, torch.bfloat16, Hkv)
+    before = dict(flash_attn.flash_attention.regime_launches)
+    got = flash_attn.flash_attention(q, k, v, offset, sliding_window=window,
+                                     mode="bf16")
+    assert flash_attn.flash_attention.regime_launches["bf16"] == (
+        before["bf16"] + 1)
+    want = flash_attn.flash_attention_plain(
+        q, k[:, :, : offset + Sq], v[:, :, : offset + Sq], offset,
+        sliding_window=window)
+    torch.cuda.synchronize()
+    vmax = float(v[:, :, : offset + Sq].float().abs().max())
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= TOL_ATTN_BF16 * vmax
+
+
+@pytest.mark.parametrize("window", [None, 9, 100])
+def test_flash_attention_bf16_rows_do_not_depend_on_the_cohort(dev, window):
+    """A row's bf16-regime output is bit-equal whichever rows share its
+    call: the whole 300-token prompt at once, or chunks that start at other
+    positions (a prefix hit, a chunk boundary), with and without a window."""
+    gen = torch.Generator(device=dev).manual_seed(window or 0)
+    B, Hkv, g, hd, S = 1, 2, 2, 128, 300
+    H = g * Hkv
+    q = torch.randn(B, S, H, hd, generator=gen,
+                    device=dev).to(torch.bfloat16).transpose(1, 2)
+    cache = {n: torch.randn(B, S, Hkv * hd, generator=gen,
+                            device=dev).to(torch.bfloat16) for n in ("k", "v")}
+    k, v = common.read_kv(cache, torch.bfloat16, Hkv)
+    whole = flash_attn.flash_attention(q, k, v, 0, sliding_window=window,
+                                       mode="bf16")
+    for start, n in ((37, 150), (100, 200), (171, 5)):
+        part = flash_attn.flash_attention(q[:, :, start: start + n], k, v,
+                                          start, sliding_window=window,
+                                          mode="bf16")
+        torch.cuda.synchronize()
+        assert torch.equal(part, whole[:, :, start: start + n]), start
+
+
+def _decode_case(gen, dev, B, H, Hkv, hd, S, cache_dtype):
+    qkv = torch.randn(B, (H + 2 * Hkv) * hd, generator=gen,
+                      device=dev).to(torch.bfloat16)
+    q = qkv[:, : H * hd].view(B, H, hd)
+    k = qkv[:, H * hd: (H + Hkv) * hd].view(B, Hkv, hd)
+    v = qkv[:, (H + Hkv) * hd:].view(B, Hkv, hd)
+    hist = torch.randn(2, B, S, Hkv, hd, generator=gen, device=dev)
+    if cache_dtype == "int8":
+        codes, scales = kv_quant.quantize_rows(hist)
+        return q, k, v, (codes.reshape(2, B, S, Hkv * hd),
+                         scales[..., 0].transpose(2, 3).contiguous())
+    return q, k, v, (hist.reshape(2, B, S, Hkv * hd).to(cache_dtype),)
+
+
+def _decode(q, k, v, caches, lengths, plain, **kw):
+    """K2 (one cache tensor pair) or K5 (codes and scales) on copies of
+    `caches`; returns the output and the updated copies."""
+    c = [t.clone() for t in caches]
+    if len(c) == 1:
+        fn = (decode_attn.decode_attention_plain if plain
+              else decode_attn.decode_attention)
+        out = fn(q, k, v, c[0][0], c[0][1], lengths, **kw)
+    else:
+        fn = (decode_attn.decode_attention_q8_plain if plain
+              else decode_attn.decode_attention_q8)
+        out = fn(q, k, v, c[0][0], c[0][1], c[1][0], c[1][1], lengths, **kw)
+    return out, c
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, torch.float32,
+                                         "int8"])
+@pytest.mark.parametrize("window", [None, 150, 40])
+def test_decode_attention_row_split_matches_plain(dev, window, cache_dtype):
+    """K2 and K5 at lengths on each side of the row chunks' boundaries
+    (CHUNK rows a block), 0, the full cache and beyond it, with windows
+    that cross chunks: within 1e-4 of the plain version, the cache rows
+    equal to its (int8 codes and scales bit for bit)."""
+    C = decode_attn.CHUNK
+    gen = torch.Generator(device=dev).manual_seed(C + (window or 0))
+    lens = [0, 1, C - 1, C, C + 1, 2 * C - 1, 2 * C, 2 * C + 1, 2 * C + 44,
+            2 * C + 45, 2 * C + 60]
+    B, H, Hkv, hd, S = len(lens), 8, 2, 128, 2 * C + 45
+    q, k, v, caches = _decode_case(gen, dev, B, H, Hkv, hd, S, cache_dtype)
+    lengths = torch.tensor(lens, dtype=torch.int32, device=dev)
+    cos, sin = common.rope_cos_sin((lengths - 1).clamp(min=0).long(), hd,
+                                   10000.0)
+    kw = dict(sliding_window=window, rope_cos=cos.contiguous(),
+              rope_sin=sin.contiguous())
+    got, gc = _decode(q, k, v, caches, lengths, False, **kw)
+    want, wc = _decode(q, k, v, caches, lengths, True, **kw)
+    torch.cuda.synchronize()
+    assert decode_attn.splits(S) == 3
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+    assert not got[0].any()
+    for a, b in zip(gc, wc):
+        if cache_dtype == "int8":
+            assert torch.equal(a, b)
+        else:
+            assert float((a.float() - b.float()).abs().max()) <= 1e-6
+
+
+@pytest.mark.parametrize("cache_dtype", [torch.bfloat16, "int8"])
+def test_decode_attention_slot_does_not_depend_on_its_cohort(dev,
+                                                             cache_dtype):
+    """A slot's K2/K5 output and cache rows are bit-equal whether it is
+    decoded alone or beside other slots of other lengths: the row split
+    follows the cache's capacity, never the cohort."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    B, H, Hkv, hd, S = 5, 32, 32, 128, 2048
+    q, k, v, caches = _decode_case(gen, dev, B, H, Hkv, hd, S, cache_dtype)
+    lengths = torch.tensor([2048, 1000, 129, 7, 1500], dtype=torch.int32,
+                           device=dev)
+    cos, sin = common.rope_cos_sin(lengths.long() - 1, hd, 10000.0)
+    kw = dict(rope_cos=cos.contiguous(), rope_sin=sin.contiguous())
+    full, fc = _decode(q, k, v, caches, lengths, False, **kw)
+    for i in range(B):
+        one = [t[:, i: i + 1].contiguous() for t in caches]
+        alone, ac = _decode(
+            q[i: i + 1], k[i: i + 1], v[i: i + 1], one, lengths[i: i + 1],
+            False, rope_cos=kw["rope_cos"][i: i + 1],
+            rope_sin=kw["rope_sin"][i: i + 1])
+        torch.cuda.synchronize()
+        assert torch.equal(alone[0], full[i]), i
+        for a, b in zip(ac, fc):
+            assert torch.equal(a[:, 0], b[:, i]), i
+
+
 def test_tiny_model_kernel_path_matches_plain_path(dev):
     cfg = llama.LlamaConfig(vocab_size=512, hidden_size=256,
                             intermediate_size=384, n_layers=2, n_heads=4,
@@ -562,16 +711,17 @@ def test_lut_matmul_gemv_and_mma_kernels_match_plain(dev, wrapper, bits, M,
                 assert torch.equal(got, again), case
 
 
-@pytest.mark.parametrize("M,mode,want", [(1, "bf16", "gemv"),
-                                         (8, "bf16", "gemv"),
-                                         (16, "bf16", "mma"),
-                                         (100, "exact", "gemv")])
-def test_lut_matmul_counts_the_kernel_it_ran(dev, M, mode, want):
+@pytest.mark.parametrize("M,mode,variant,want", [
+    (1, "bf16", None, "mma"), (8, "bf16", None, "mma"),
+    (16, "bf16", "gemv", "gemv"), (12, "bf16", "gemv", "gemv"),
+    (100, "exact", None, "gemv")])
+def test_lut_matmul_counts_the_kernel_it_ran(dev, M, mode, variant, want):
     g = torch.Generator(device=dev).manual_seed(M)
     t = synthetic.random_quant_linear(g, dev, 96, 116, 4, 0.05, 0).tensors()
     x = torch.randn(M, 116, generator=g, device=dev)
     before = dict(lut_matmul.lut_matmul.variant_launches)
-    lut_matmul.lut_matmul(x, t["qweight"], t["lut"], 4, mode=mode)
+    lut_matmul.lut_matmul(x, t["qweight"], t["lut"], 4, mode=mode,
+                          variant=variant)
     after = lut_matmul.lut_matmul.variant_launches
     assert {k: after[k] - before[k] for k in after} == {
         k: int(k == want) for k in after}
@@ -580,8 +730,8 @@ def test_lut_matmul_counts_the_kernel_it_ran(dev, M, mode, want):
 @pytest.mark.parametrize("wrapper", ["k1", "k10"])
 def test_lut_matmul_gemv_rows_do_not_depend_on_the_batch(dev, wrapper):
     """The GEMV sums a row in the same order whatever else is in the batch
-    (exact mode at every row count, bf16 mode up to 8 rows), so that a
-    request's tokens do not depend on what is served beside it."""
+    (exact mode, and bf16 mode's decode steps, at every row count), so
+    that a request's tokens do not depend on what is served beside it."""
     g = torch.Generator(device=dev).manual_seed(5)
     in_f, out_f = 2056, 260
     t = synthetic.random_quant_linear(g, dev, out_f, in_f, 4, 0.05, 0,
@@ -595,14 +745,42 @@ def test_lut_matmul_gemv_rows_do_not_depend_on_the_batch(dev, wrapper):
     kw = dict(rowptr=t["sp_rowptr"], cols=t["sp_cols"], vals=t["sp_vals"])
     x = torch.randn(40, in_f, generator=g, device=dev)
     y0 = torch.randn(40, out_f, generator=g, device=dev)
-    for mode, rows in (("exact", 40), ("bf16", 8)):
-        full = kernel(x[:rows], *args, y0=y0[:rows], mode=mode, **kw)
-        for M in (1, 3, 8, 16):
-            if M > rows:
-                continue
-            part = kernel(x[:M], *args, y0=y0[:M], mode=mode, **kw)
+    for mode in ("exact", "bf16"):
+        full = kernel(x, *args, y0=y0, mode=mode, variant="gemv", **kw)
+        for M in (1, 3, 8, 12, 16, 17):
+            part = kernel(x[:M], *args, y0=y0[:M], mode=mode,
+                          variant="gemv", **kw)
             torch.cuda.synchronize()
             assert torch.equal(part, full[:M]), (mode, M)
+
+
+@pytest.mark.parametrize("wrapper", ["k1", "k10"])
+@pytest.mark.parametrize("in_f,out_f", [(2056, 260), (4096, 4096)])
+def test_lut_matmul_mma_rows_do_not_depend_on_the_batch(dev, wrapper, in_f,
+                                                        out_f):
+    """The tensor-core kernel's k-split follows the layer's shape, not the
+    row count, so in bf16 mode a row's bits are the same at every M from
+    9 to 1023 and at any place in the batch: a prompt prefilled alone, in
+    a cohort or after a prefix hit gets the same logits."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    t = synthetic.random_quant_linear(g, dev, out_f, in_f, 4, 0.0045, 0,
+                                      structured=wrapper == "k10").tensors()
+    if wrapper == "k10":
+        kernel = lut_matmul.lut_matmul_struct
+        args = (t["qweight"], t["lut"][:, :8].contiguous(),
+                (t["lut"][:, 8] - t["lut"][:, 0]).contiguous())
+    else:
+        kernel, args = lut_matmul.lut_matmul, (t["qweight"], t["lut"], 4)
+    kw = dict(rowptr=t["sp_rowptr"], cols=t["sp_cols"], vals=t["sp_vals"])
+    x = torch.randn(1023, in_f, generator=g, device=dev).to(torch.bfloat16)
+    y0 = torch.randn(1023, out_f, generator=g, device=dev)
+    full = kernel(x, *args, y0=y0, mode="bf16", **kw)
+    for a, b in ((0, 9), (5, 17), (0, 64), (1, 66), (100, 200), (37, 137),
+                 (900, 1023), (3, 1000), (500, 501)):
+        part = kernel(x[a:b].contiguous(), *args, y0=y0[a:b].contiguous(),
+                      mode="bf16", **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(part, full[a:b]), (a, b)
 
 
 def test_hybrid_matmul_rows_do_not_depend_on_the_batch(dev):

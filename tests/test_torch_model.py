@@ -193,3 +193,35 @@ def test_engine_refuses_sampling():
                             _module_meta(specs), params, "cpu")
     with pytest.raises(NotImplementedError, match="sampling slice"):
         engine.Engine(model).generate(PROMPT, 2, temperature=0.7)
+
+
+def test_benchmark_checks_perplexity_only_when_asked(monkeypatch):
+    """Engine.benchmark keeps the JAX protocol's `check` switch: by default
+    the timed loop runs the decode steps alone (no log-softmax, no
+    check_ppl), with check=True it also gives the fed sequence's
+    next-token perplexity, that of the teacher-forced logits."""
+    config, bits = CONFIGS["gqa"]
+    specs, params = _jax_tree(config, bits, seed=1)
+    model = carry.from_tree("llama", dataclasses.asdict(config),
+                            _module_meta(specs), params, "cpu")
+    eng = engine.Engine(model)
+    ids = np.arange(10)[None] * 7 % config.vocab_size
+    calls = []
+    inner = torch.log_softmax
+
+    def spy(*args, **kw):
+        calls.append(1)
+        return inner(*args, **kw)
+
+    monkeypatch.setattr(torch, "log_softmax", spy)
+    stats = eng.benchmark(ids, max_seq=32)
+    assert "check_ppl" not in stats and not calls
+    assert stats["tokens"] == 10 and stats["tokens_per_s"] > 0
+    checked = eng.benchmark(ids, max_seq=32, check=True)
+    assert len(calls) == ids.shape[1] - 1
+    monkeypatch.undo()
+    logits = eng.teacher_forced_logits(ids, max_seq=32)
+    nll = -torch.log_softmax(logits[:-1], -1).gather(
+        1, torch.as_tensor(ids[0, 1:])[:, None]).mean()
+    np.testing.assert_allclose(checked["check_ppl"], float(torch.exp(nll)),
+                               rtol=1e-5)

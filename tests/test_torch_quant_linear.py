@@ -179,16 +179,20 @@ def test_lut_matmul_wrapper_takes_plain_path_on_cpu():
             {"qweight": args[1], "lut": args[2]}, x, mode="f16")
 
 
-@pytest.mark.parametrize("M,mode,want", [
-    (1, "bf16", "gemv"), (8, "bf16", "gemv"), (9, "bf16", "mma"),
-    (16, "bf16", "mma"), (40, "bf16", "mma"), (1023, "bf16", "mma"),
-    (1, "exact", "gemv"), (40, "exact", "gemv"), (1023, "exact", "gemv")])
-def test_k1_plan_picks_the_kernel_by_rows_and_mode(M, mode, want):
-    """The GEMV up to GEMV_MAX_ROWS rows, the tensor-core kernel above in
-    bf16 mode; exact mode keeps the GEMV (16-row tiles) at every count."""
-    p = tlm.plan(M, 4096, 4096, 4, mode)
+@pytest.mark.parametrize("M,mode,variant,want", [
+    (1, "bf16", None, "mma"), (8, "bf16", None, "mma"),
+    (9, "bf16", None, "mma"), (16, "bf16", None, "mma"),
+    (40, "bf16", None, "mma"), (1023, "bf16", None, "mma"),
+    (1, "bf16", "gemv", "gemv"), (12, "bf16", "gemv", "gemv"),
+    (40, "bf16", "gemv", "gemv"), (1, "exact", None, "gemv"),
+    (40, "exact", None, "gemv"), (1023, "exact", None, "gemv")])
+def test_k1_plan_picks_the_kernel_by_rows_and_mode(M, mode, variant, want):
+    """The mode's kernel whatever the row count (the tensor cores in bf16
+    mode, the GEMV in 16-row tiles in exact mode), and the GEMV in bf16
+    mode at any row count when the call site (a decode step) asks for
+    it: the row count picks no kernel."""
+    p = tlm.plan(M, 4096, 4096, 4, mode, variant)
     assert p.variant == want
-    assert (M > tlm.GEMV_MAX_ROWS and mode == "bf16") == (want == "mma")
     if want == "gemv":
         assert p.row_tile == min(16, 1 << (M - 1).bit_length())
     else:
@@ -217,6 +221,72 @@ def test_k1_plan_splits_cover_the_words(in_f, out_f, bits, M, variant):
         one = tlm.plan(1, in_f, out_f, bits, "bf16", variant)
         assert (p.splits, p.words_per_split, p.folds) == (
             one.splits, one.words_per_split, one.folds)
+
+
+FLAGSHIP = ((4096, 12288, 4), (4096, 4096, 4), (4096, 22016, 4),
+            (11008, 4096, 4), (4096, 32000, 4))
+
+
+@pytest.mark.parametrize("in_f,out_f,bits", FLAGSHIP)
+def test_k1_plan_mma_split_is_fixed_per_shape(in_f, out_f, bits):
+    """At the five LLaMA-2-7B shapes the tensor-core kernel splits the
+    words the same way at every row count from 9 to 1023 (and 1-8), so a
+    row is summed in one order whether it is prefilled alone or in a
+    cohort; its partials' workspace stays within 3 (M, out) planes and a
+    sidecar's fold."""
+    first = tlm.plan(1, in_f, out_f, bits, "bf16", "mma")
+    for M in range(2, tlm.MAX_ROWS + 1):
+        p = tlm.plan(M, in_f, out_f, bits, "bf16", "mma")
+        assert (p.splits, p.words_per_split, p.folds) == (
+            first.splits, first.words_per_split, first.folds), M
+        assert p.tiles == -(-out_f // tlm.COLS) * -(-M // tlm.MMA_ROW_TILE)
+    assert first.splits <= 5
+
+
+def test_quant_linear_picks_the_kernel_by_call_site(monkeypatch):
+    """The model's decode step (one token a slot, at 1 or 12 slots, and a
+    one-token prompt, which runs as one) asks K1 for the GEMV; a prompt,
+    a cohort's prefill and a full forward leave the mode's kernel (the
+    tensor cores in bf16 mode) at every row count."""
+    from squeezellm_tpu_torch import engine, synthetic
+    from squeezellm_tpu_torch.models import fuse, llama
+
+    calls = []
+    inner = tql.lut_matmul
+
+    def spy(x, *args, variant=None, **kw):
+        calls.append((x.shape[0], variant))
+        return inner(x, *args, variant=variant, **kw)
+
+    monkeypatch.setattr(tql, "lut_matmul", spy)
+    cfg = llama.LlamaConfig(vocab_size=64, hidden_size=64,
+                            intermediate_size=96, n_layers=1, n_heads=2,
+                            n_kv_heads=1, max_seq=32)
+    model = fuse.fuse_for_decode(synthetic.quantized_llama(
+        cfg, 4, sparsity=0.02, topx=2, device="cpu"))
+    eng = engine.Engine(model, dtype=torch.bfloat16,
+                        cache_dtype=torch.bfloat16, mode="bf16")
+    kw = dict(dtype=torch.bfloat16, mode="bf16")
+
+    def run(fn):
+        calls.clear()
+        with torch.no_grad():
+            fn()
+        return set(calls)
+
+    cache = eng.new_cache(12)
+    assert run(lambda: model.prefill(torch.ones(12, 5, dtype=torch.long),
+                                     cache, **kw)) == {(12, None), (60, None)}
+    assert run(lambda: model.decode_step(
+        torch.ones(12, 1, dtype=torch.long), 5, cache, **kw)) == {
+            (12, "gemv")}
+    assert run(lambda: model.prefill(torch.ones(1, 1, dtype=torch.long),
+                                     eng.new_cache(1), **kw)) == {
+        (1, "gemv")}
+    assert run(lambda: model.forward(torch.ones(1, 9, dtype=torch.long),
+                                     **kw)) == {(9, None)}
+    assert run(lambda: eng.generate(np.ones((1, 7), np.int64), 2)) == {
+        (1, None), (1, "gemv"), (7, None)}
 
 
 def test_k1_wrappers_refuse_a_variant_on_the_cpu():

@@ -88,9 +88,61 @@ def test_fit_module_luts_matches_batched(C, N, bits, with_grad):
     g = g if with_grad else None
     lut, labels = jkmeans.fit_module_luts(w, g, bits, method="batched")
     got, got_labels = kmeans.fit_module_luts(
-        _t(w), None if g is None else _t(g), bits)
+        _t(w), None if g is None else _t(g), bits, method="batched")
     assert got.dtype == torch.float32 and got_labels.dtype == torch.uint8
     _assert_luts(got, lut, got_labels, labels)
+
+
+@pytest.mark.parametrize("C,N,k", [(8, 256, 16), (64, 4096, 8),
+                                   (32, 4096, 16), (300, 116, 8)])
+def test_native_kmeans_equals_the_jax_package_library(C, N, k):
+    """The port's copy of the native solver, built by the host's g++ at
+    first use, against the JAX package's committed library on the same f32
+    values and weights: centroids and labels equal bit for bit (3 and 4
+    bits), and nothing of the JAX package is loaded by the port."""
+    from squeezellm_tpu import _native
+
+    rng = np.random.default_rng(C + N + k)
+    v = rng.standard_normal((C, N)).astype(np.float32)
+    w = rng.random((C, N)).astype(np.float32)
+    w[:2] = 0  # all-zero weights: the solver's own fallback
+    want_c, want_l = _native.weighted_kmeans_batched(v, w, k, seed=3)
+    got_c, got_l = kmeans.weighted_kmeans_native(_t(v), _t(w), k, seed=3)
+    assert got_c.dtype == torch.float32 and got_l.dtype == torch.uint8
+    np.testing.assert_array_equal(got_c.numpy(), want_c)
+    np.testing.assert_array_equal(got_l.numpy(), want_l)
+
+
+@pytest.mark.parametrize("bits", [3, 4])
+@pytest.mark.parametrize("with_grad", [True, False])
+def test_fit_module_luts_auto_equals_the_jax_default(bits, with_grad):
+    """method="auto" is the native solver in both packages: the same LUTs
+    and codes bit for bit, grad^2 weights, zeroed slots and all-zero rows
+    included."""
+    rng = np.random.default_rng(bits * 2 + with_grad)
+    w = _weights(rng, 300, 200, zero_frac=0.05)
+    g = ((rng.random(w.shape) ** 4) * 1e-6).astype(np.float32)
+    g[:3] = 0
+    g = g if with_grad else None
+    lut, labels = jkmeans.fit_module_luts(w, g, bits, method="auto")
+    for method in ("auto", "native"):
+        got, got_labels = kmeans.fit_module_luts(
+            _t(w), None if g is None else _t(g), bits, method=method)
+        np.testing.assert_array_equal(got.numpy(), lut)
+        np.testing.assert_array_equal(got_labels.numpy(), labels)
+
+
+def test_native_kmeans_names_the_batched_solver_when_it_cannot_build(
+        monkeypatch):
+    from squeezellm_tpu_torch import _build
+
+    monkeypatch.setattr(_build, "HOST_CXX", "no-such-compiler-for-the-test")
+    monkeypatch.setattr(_build, "_host_lib", None)
+    w = torch.randn(4, 32)
+    with pytest.raises(RuntimeError, match='method="batched"'):
+        kmeans.fit_module_luts(w, None, 3)
+    lut, _ = kmeans.fit_module_luts(w, None, 3, method="batched")
+    assert lut.shape == (4, 8)
 
 
 def test_weighted_kmeans_uniform_and_repeated_values():
@@ -274,7 +326,8 @@ def test_quantize_model_matches(family, bits, structured, sens, tmp_path):
     jspecs, jparams = jpipeline.quantize_model(
         family, config, dense, bits, method="batched", build_spmv=False, **kw)
     specs, params = pipeline.quantize_model(
-        family, _port_config(config), dense, bits, device="cpu", **kw)
+        family, _port_config(config), dense, bits, device="cpu",
+        method="batched", **kw)
     _assert_trees(params, jparams)
     for ls, lj in zip(specs["layers"], jspecs["layers"]):
         for n in lj:
@@ -285,6 +338,43 @@ def test_quantize_model_matches(family, bits, structured, sens, tmp_path):
                                             params))
     lins = fuse.quant_linears(model)
     assert all(("struct_a" in m.tensors()) == structured for m in lins)
+
+
+@pytest.mark.parametrize("family,bits,sens", [("llama", 3, 0.45),
+                                              ("opt", 4, 0.0)])
+def test_quantize_model_defaults_give_the_jax_codebooks(family, bits, sens):
+    """With default arguments both pipelines fit their codebooks with the
+    native solver: the same packed words, LUTs and sidecar bit for bit."""
+    config = LLAMA if family == "llama" else OPT
+    dense = _dense(config, seed=bits + 10)
+    kw = dict(gradients_per_layer=_grads(config, bits) if sens else None,
+              sensitivity=sens, quantize_lm_head=True)
+    _, jparams = jpipeline.quantize_model(family, config, dense, bits,
+                                          build_spmv=False, **kw)
+    _, params = pipeline.quantize_model(family, _port_config(config), dense,
+                                        bits, device="cpu", **kw)
+
+    def same(got, want):
+        for k, v in want.items():
+            if isinstance(v, dict):
+                same(got[k], v)
+            elif isinstance(v, list):
+                for a, b in zip(got[k], v):
+                    same(a, b)
+            else:
+                np.testing.assert_array_equal(np.asarray(got[k]),
+                                              np.asarray(v), err_msg=k)
+
+    compared = 0
+    for layer, jlayer in zip(params["layers"], jparams["layers"]):
+        for name, jp in jlayer.items():
+            if isinstance(jp, dict) and "lut" in jp:
+                same({n: layer[name][n] for n in ("qweight", "lut")},
+                     {n: jp[n] for n in ("qweight", "lut")})
+                compared += 1
+    assert compared == config.n_layers * (7 if family == "llama" else 6)
+    same({n: params["lm_head"][n] for n in ("qweight", "lut")},
+         {n: jparams["lm_head"][n] for n in ("qweight", "lut")})
 
 
 def _load_port(tmp_path, family, config, specs, params):
