@@ -16,7 +16,14 @@ DIR, this, this, DIR, and reports:
   K3 on bf16 q/k/v at chip_smoke.K3_LENS (mode "bf16" where the wrapper
   takes a mode), with causal SDPA at the eval stride;
 * the device time of the w4 bf16 decode step of LLaMA-2-7B at a short and
-  at a chip_smoke.LONG_CONTEXT-row context, and of one bf16 eval stride.
+  at a chip_smoke.LONG_CONTEXT-row context, and of one bf16 eval stride;
+* K6-K9 at chip_smoke.check_paged's timed case (8 slots x
+  chip_smoke.PAGED_AT_ROWS valid rows, bf16, 128-row pages, W = 5) and at
+  the paged serving run's contexts (PAGED_CONTEXTS), and, on a side whose
+  ops.paged_attn has a CHUNK, at each of PAGED_CHUNKS positions a block;
+* the device time of the paged engine's decode step at 8 slots and of one
+  speculative window (LLaMA-2-7B w4, f32, chip_smoke.profile_paged_step and
+  profile_spec_window), with K6's and K8's shares.
 
 It prints each reading with the card's name and power limit, then one JSON
 line of them all. Kernel times use chip_smoke.Timer (L2 flushed, CUDA
@@ -34,6 +41,36 @@ import chip_smoke as cs
 
 AB_K1_ROWS = (12, 16, 40, 100, 1023)
 AB_K1_DECODE_ROWS = (12, 16)
+# 8 slots' lengths in the paged serving run (prompts of 37-300 tokens and
+# up to 32 new ones)
+PAGED_CONTEXTS = (40, 64, 100, 137, 200, 300, 310, 330)
+PAGED_CHUNKS = (256, 512, 1024)
+
+
+def paged_ms(torch, timer, paged_attn, lengths):
+    """K6-K9 (one launch, L2 flushed: Timer's reading and, under
+    "k<n>_device", the profiler's device time) at 8 slots of `lengths`
+    valid rows of a LLaMA-2-7B layer: bf16 activations, 128-row pages no
+    two slots share, the verify windows W = 5 rows ending at each
+    length."""
+    res = {}
+    for n in (6, 7, 8, 9):
+        q8, verify = n in (7, 9), n in (8, 9)
+        name = (("paged_verify_attention" if verify
+                 else "paged_decode_attention") + ("_q8" if q8 else ""))
+        gen = torch.Generator(device="cuda").manual_seed(20 + n)
+        q, k, v, pools, pt, idx, kw = cs.paged_case(
+            torch, gen, Hkv=32, ps=cs.PAGE_SIZE,
+            maxp=cs.PAGED_MAX_SEQ // cs.PAGE_SIZE,
+            index=[m - 5 if verify else m for m in lengths],
+            W=5 if verify else None, q8=q8, dtype=torch.bfloat16,
+            share=False)
+        fn = getattr(paged_attn, name)
+        res[f"k{n}"] = timer.ms(lambda: fn(q, k, v, *pools, pt, idx, **kw))
+        res[f"k{n}_device"] = cs.paged_device_ms(
+            torch, timer, lambda: fn(q, k, v, *pools, pt, idx, **kw))
+        del q, k, v, pools
+    return res
 
 
 def worker(root):
@@ -44,10 +81,11 @@ def worker(root):
     import torch.nn.functional as F
 
     sys.path.insert(0, root)
-    from squeezellm_tpu_torch import _build, data, engine, synthetic
+    from squeezellm_tpu_torch import _build, data, engine, serving, synthetic
     from squeezellm_tpu_torch.models import common, fuse, registry
     from squeezellm_tpu_torch.ops import (decode_attn, flash_attn, kv_quant,
-                                          lut_matmul, quant_linear)
+                                          lut_matmul, paged_attn,
+                                          quant_linear)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.lib()
@@ -137,6 +175,32 @@ def worker(root):
             out["eval_bf16"] = cs.profile_eval_stride(torch, model, tokens,
                                                       "bf16", torch.bfloat16)
         out["eval_bf16"]["card"] = card.stats
+
+        at = {"timed": [cs.PAGED_AT_ROWS] * cs.PAGED_SLOTS,
+              "serving": list(PAGED_CONTEXTS)}
+        out["paged"] = {c: paged_ms(torch, timer, paged_attn, lens)
+                        for c, lens in at.items()}
+        if hasattr(paged_attn, "CHUNK"):
+            default = paged_attn.CHUNK
+            out["paged_by_chunk"] = {}
+            for chunk in PAGED_CHUNKS:
+                paged_attn.CHUNK = chunk
+                out["paged_by_chunk"][chunk] = {
+                    c: paged_ms(torch, timer, paged_attn, lens)
+                    for c, lens in at.items()}
+            paged_attn.CHUNK = default
+
+        def paged_engine(**kw):
+            return serving.PagedContinuousBatchEngine(
+                model, slots=cs.PAGED_SLOTS, n_pages=cs.PAGED_PAGES,
+                page_size=cs.PAGE_SIZE, max_seq=cs.PAGED_MAX_SEQ,
+                cache_dtype=torch.float32, **kw)
+
+        prompts = cs.paged_requests(config)
+        out["paged_step"] = cs.profile_paged_step(torch, paged_engine(),
+                                                  prompts)
+        out["spec_window"] = cs.profile_spec_window(
+            torch, paged_engine(speculative=cs.SPECULATIVE), prompts)
     print(json.dumps(out))
     return 0
 
@@ -172,7 +236,13 @@ def main(other):
               f"{long_.get('device_ms_per_step')} (K2 "
               f"{long_.get('k2_k5_ms_per_step')}); bf16 eval stride device "
               f"ms {ev.get('device_ms')} {ev.get('parts_ms')} "
-              f"(card {ev.get('card')}) [{smi}]")
+              f"(card {ev.get('card')}); K6-K9 ms {r['paged']} (by chunk "
+              f"{r.get('paged_by_chunk')}); paged step device ms "
+              f"{r['paged_step'].get('device_ms_per_step')} (K6 "
+              f"{r['paged_step'].get('paged_attn_ms_per_step')}), "
+              f"speculative window device ms "
+              f"{r['spec_window'].get('device_ms_per_window')} (K8 "
+              f"{r['spec_window'].get('paged_attn_ms_per_window')}) [{smi}]")
     print(json.dumps({"card": smi, "runs": runs}))
     return 0
 

@@ -1406,6 +1406,23 @@ def run_int8(torch, model, ids, bf16_stats, record):
             "layer_check": lc}
 
 
+def paged_device_ms(torch, timer, fn, n=10):
+    """Device ms of one K6-K9 launch from a profiler trace of `n` calls of
+    `fn`, the L2 flushed before each as Timer does; None when the trace
+    holds none. Beside Timer's reading, which holds the wrapper's host time
+    whenever the host takes longer to enqueue the launch than the card
+    takes to flush."""
+    def run():
+        for _ in range(n):
+            timer.flush.zero_()
+            fn()
+
+    run()
+    by_name, _ = device_ms_by_kernel(torch, run)
+    ms = paged_attn_ms(by_name) / n if by_name else 0.0
+    return ms or None
+
+
 def paged_case(torch, gen, *, Hkv, ps, maxp, index, W, q8, dtype,
                share=True):
     """One K6-K9 case at 32 query heads of 128: pools of random history
@@ -1474,7 +1491,16 @@ def check_paged(torch, timer, record, number):
     # two inactive slots each; Mistral's lengths lie on both sides of its
     # window; verify windows start at a page's last rows and cross it; f32
     # activations over 128-row pages are what the served f32 runs give
+    # the split cases: positions on both sides of the row split's chunk
+    # boundaries (a window from C - 2 crosses a chunk and, with 128-row
+    # pages, a page), 16-row pages, a sliding window whose low edge falls
+    # inside a chunk; the first is also run slot by slot (the cohort check)
+    C = paged_attn.CHUNK
     if verify:
+        split = [(32, None, 128, 2048, torch.bfloat16, 5,
+                  [C - 2, C - 5, C, 2 * C - 8, 1000, 1021, -1, -1]),
+                 (32, 300, 16, 2048, torch.float32, 5,
+                  [C - 2, C + 3, 1000, 2043, 297, 700, -1, -1])]
         cases = [(32, None, 128, 2048, torch.bfloat16, 5,
                   [0, 126, 127, 1000, 2043, 120, -1, -1]),
                  (32, None, 16, 2048, torch.float32, 2,
@@ -1490,6 +1516,10 @@ def check_paged(torch, timer, record, number):
                  (8, 4096, 128, 5120, torch.bfloat16, 2,
                   [0, 127, 4095, 4096, 4998, 4094, -1, -1])]
     else:
+        split = [(32, None, 128, 2048, torch.bfloat16, None,
+                  [C - 1, C, C + 1, 2 * C - 1, 2 * C, 1000, 0, 0]),
+                 (32, 300, 16, 2048, torch.float32, None,
+                  [C - 1, C + 1, 1000, 2048, 301, 777, 0, 0])]
         llama_len = [1, 127, 128, 129, 1000, 2048, 0, 0]
         mistral_len = [1, 129, 4095, 4096, 4097, 5000, 0, 0]
         cases = [(32, None, 128, 2048, torch.bfloat16, None, llama_len),
@@ -1498,7 +1528,8 @@ def check_paged(torch, timer, record, number):
                  (8, 4096, 128, 5120, torch.bfloat16, None, mistral_len),
                  (8, 4096, 16, 5120, torch.float32, None, mistral_len)]
     worst, worst_rel = 0.0, 0.0
-    for Hkv, window, ps, rows, dtype, W, index in cases:
+    for c, (Hkv, window, ps, rows, dtype, W, index) in enumerate(split
+                                                                 + cases):
         q, k, v, pools, pt, idx, kw = paged_case(
             torch, gen, Hkv=Hkv, ps=ps, maxp=rows // ps, index=index, W=W,
             q8=q8, dtype=dtype)
@@ -1515,9 +1546,28 @@ def check_paged(torch, timer, record, number):
         if (err > TOL_ATTN or not all(same) or idle
                 or torch.equal(got_p[0], pools[0])):
             raise AssertionError(
-                f"K{number} Hkv={Hkv} window={window} ps={ps} W={W}: rel err "
-                f"{err}, pools equal {same}, inactive slots' output nonzero "
-                f"{idle}, written {not torch.equal(got_p[0], pools[0])}")
+                f"K{number} Hkv={Hkv} window={window} ps={ps} W={W} index "
+                f"{index}: rel err {err}, pools equal {same}, inactive "
+                f"slots' output nonzero {idle}, written "
+                f"{not torch.equal(got_p[0], pools[0])}")
+        if c == 0:
+            # each slot alone on its own copy of the pools: bit-equal to
+            # its row of the cohort's call, and the pools the slots wrote
+            # one at a time equal the cohort's
+            one_p = [t.clone() for t in pools]
+            for i in range(len(index)):
+                alone = fn(q[i: i + 1], k[i: i + 1], v[i: i + 1], *one_p,
+                           pt[i: i + 1].contiguous(), idx[i: i + 1],
+                           sliding_window=window,
+                           rope_cos=kw["rope_cos"][i: i + 1],
+                           rope_sin=kw["rope_sin"][i: i + 1])
+                if not torch.equal(alone[0], got[i]):
+                    raise AssertionError(f"K{number}: slot {i} alone differs "
+                                         f"from its row in the cohort")
+            if not all(torch.equal(a, b) for a, b in zip(one_p, got_p)):
+                raise AssertionError(f"K{number}: the pools written slot by "
+                                     f"slot differ from the cohort's")
+            del one_p
         del got_p, want_p, pools
 
     # timed: 8 slots x PAGED_AT_ROWS valid rows of a LLaMA-2-7B layer, bf16
@@ -1554,7 +1604,10 @@ def check_paged(torch, timer, record, number):
     mask = (torch.ones(w, n, dtype=torch.bool, device="cuda")
             .tril(diagonal=n - w) if verify else None)
     row = dict(slots=B, rows=n, W=w, page_size=PAGE_SIZE, shared_pages=0,
+               chunk=C, splits=paged_attn.splits(PAGED_MAX_SEQ),
                ms=timer.ms(lambda: fn(q, k, v, *pools, pt, idx, **kw)),
+               device_ms=paged_device_ms(
+                   torch, timer, lambda: fn(q, k, v, *pools, pt, idx, **kw)),
                plain_ms=timer.ms(lambda: plain(q, k, v, *plain_p, pt, idx,
                                                **kw), iters=5),
                library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
@@ -1563,15 +1616,21 @@ def check_paged(torch, timer, record, number):
     row["gb_s"] = nbytes / row["ms"] / 1e6
     record[f"k{number}_detail"].append(row)
     record[f"k{number}_max_abs_err"] = worst
+    dev = row["device_ms"]
     print(f"  K{number} {B} slots x {n} rows{f', W={w}' if verify else ''}: "
-          f"{row['ms']:.4f} ms (bound {b:.4f} by {by}, plain "
+          f"{row['ms']:.4f} ms (device time "
+          f"{'not measured' if dev is None else f'{dev:.4f}'}; "
+          f"bound {b:.4f} by {by}, plain "
           f"{row['plain_ms']:.3f}, sdpa on the gathered dense cache "
-          f"{row['library_ms']:.4f}) [{row['gb_s']:.0f} GB/s]")
-    print(f"K{number} ok: {len(cases)} cases (LLaMA-2-7B and Mistral-7B "
-          f"layers, window 4096, pages of 128 and 16 rows, shared and "
+          f"{row['library_ms']:.4f}) [{row['gb_s']:.0f} GB/s; "
+          f"{row['splits']} splits of {C} positions]")
+    print(f"K{number} ok: {len(split) + len(cases)} cases (LLaMA-2-7B and "
+          f"Mistral-7B layers, windows 300 and 4096, pages of 128 and 16 "
+          f"rows, positions at the {C}-row chunks' boundaries, shared and "
           f"shuffled pages, two inactive slots), pools equal to the plain "
-          f"version's, max rel err {worst_rel:.3g} within {TOL_ATTN}, max "
-          f"abs err {worst:.3g}")
+          f"version's, each slot alone bit-equal to its row in the cohort, "
+          f"max rel err {worst_rel:.3g} within {TOL_ATTN}, max abs err "
+          f"{worst:.3g}")
 
 
 def paged_requests(config):
@@ -1715,9 +1774,7 @@ def profile_paged_step(torch, eng, prompts, steps=8):
     step_ms = (reads[0] + reads[3]) / 2
     window_ms = (reads[1] + reads[2]) / 2
     by_name, why = device_ms_by_kernel(torch, single)
-    for s in list(eng._slots):
-        if s.active:
-            eng.cancel(s.request_id)
+    cancel_all(eng)
     res = {"step_ms": step_ms, "window_step_ms": window_ms,
            "host_reads_ms": reads, "profile_failed": why}
     if by_name is not None:
@@ -1725,8 +1782,39 @@ def profile_paged_step(torch, eng, prompts, steps=8):
         device = sum(by_name.values()) / steps
         res.update(device_ms_per_step=device,
                    idle_share=1 - device / step_ms,
+                   paged_attn_ms_per_step=paged_attn_ms(by_name) / steps,
                    top_ms_per_step=[[k[:60], v / steps] for k, v in top])
     return res
+
+
+def paged_attn_ms(by_name):
+    """Device ms of K6-K9 (one kernel template) in a trace's sums."""
+    return sum(v for k, v in by_name.items() if "paged_attn_kernel" in k)
+
+
+def cancel_all(eng):
+    for s in list(eng._slots):
+        if s.active:
+            eng.cancel(s.request_id)
+
+
+def profile_spec_window(torch, eng, prompts, windows=4):
+    """Device time of one speculative window at 8 active slots (an engine
+    made with speculative=SPECULATIVE): admit eight requests, run two
+    windows, then trace `windows` windows."""
+    eng.add_requests(prompts[:PAGED_SLOTS], 2 * NEW_TOKENS)
+    for _ in range(2):
+        eng.step_spec_window()
+    by_name, why = device_ms_by_kernel(
+        torch, lambda: [eng.step_spec_window() for _ in range(windows)])
+    cancel_all(eng)
+    if by_name is None:
+        return {"profile_failed": why}
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    return {"profile_failed": None,
+            "device_ms_per_window": sum(by_name.values()) / windows,
+            "paged_attn_ms_per_window": paged_attn_ms(by_name) / windows,
+            "top_ms_per_window": [[k[:60], v / windows] for k, v in top]}
 
 
 def run_paged(torch, config, record, smi):
@@ -1879,8 +1967,9 @@ def run_paged(torch, config, record, smi):
     print("paged bf16 sampled: the same tokens for each of the "
           f"{len(prompts)} requests when admitted in reverse order, one at a "
           "time")
-    prof = profile_paged_step(torch, engine(), prompts)
-    res["profile_f32"] = prof
+    res["profile_f32"] = profile_paged_step(torch, engine(), prompts)
+    res["profile_spec_f32"] = profile_spec_window(
+        torch, engine(speculative=SPECULATIVE), prompts)
 
     # (iii) the bf16 regime and the int8 pool: per layer against the plain
     # path; full-depth token agreement reported only
@@ -1937,9 +2026,21 @@ def run_paged(torch, config, record, smi):
                   f"{[round(r, 2) for r in prof['host_reads_ms']]}), "
                   f"device busy "
                   f"{prof['device_ms_per_step']:.3f} ms (idle share "
-                  f"{prof['idle_share']:.3f}); top: " + "; ".join(
+                  f"{prof['idle_share']:.3f}; K6 "
+                  f"{prof['paged_attn_ms_per_step']:.3f}); top: " + "; ".join(
                       f"{k} {v:.3f}" for k, v in prof["top_ms_per_step"])
                   + f" [{smi}]")
+    spec = res["profile_spec_f32"]
+    if spec["profile_failed"]:
+        record["profile_failed"].append("paged speculative window")
+        print(f"paged f32 speculative window: PROFILE FAILED, device time "
+              f"not measured: {spec['profile_failed']} [{smi}]")
+    else:
+        print(f"paged f32 speculative window (W = {SPECULATIVE[0] + 1}) at 8 "
+              f"slots: device busy {spec['device_ms_per_window']:.3f} ms, "
+              f"K8 {spec['paged_attn_ms_per_window']:.3f}; top: " + "; ".join(
+                  f"{k} {v:.3f}" for k, v in spec["top_ms_per_window"])
+              + f" [{smi}]")
     print(f"paged peak MiB: f32 pool {res['peak_mib_f32_pool']:.0f}, bf16 "
           f"pool {res['peak_mib_bf16']:.0f}, int8 pool "
           f"{res['peak_mib_int8 pool']:.0f} [{smi}]")
@@ -2428,6 +2529,8 @@ def kernel_lines(record):
         line = {"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": n, "max_abs_err": err, **{k: r[k] for k in keys},
                 "at": at}
+        if "device_ms" in r:  # the profiler's, beside the timer's ms
+            line["device_ms"] = r["device_ms"]
         if name in long_:
             r, at = long_[name]
             line["long"] = {"at": at, **{k: r[k] for k in keys}}
@@ -2460,10 +2563,12 @@ def ptxas_lines(source):
             mangled = line.split("'")[1]
             name = next((k for k in ("flash_attn_mma_kernel",
                                      "flash_attn_kernel",
-                                     "decode_attn_kernel", "gemv_kernel",
+                                     "decode_attn_kernel",
+                                     "paged_attn_kernel", "gemv_kernel",
                                      "mma_kernel") if k in mangled), mangled)
             args = re.findall(r"Li(\d+)E", mangled)
-            args.append("bf16" if "bfloat16" in mangled else "f32")
+            args.append(("int8 " if "aLi" in mangled else "")
+                        + ("bf16" if "bfloat16" in mangled else "f32"))
             name += "<" + ",".join(args) + ">"
         elif "spill stores" in line:
             spill = line.strip()
@@ -2517,7 +2622,7 @@ def main():
     print(f"host k-means solver (csrc/host/nuq_kmeans.cpp, g++) built and "
           f"loaded in {record['host_build_s']:.1f} s")
     record["ptxas"] = [line for src in ("lut_matmul.cu", "flash_attn.cu",
-                                        "decode_attn.cu")
+                                        "decode_attn.cu", "paged_attn.cu")
                        for line in ptxas_lines(src)]
     for line in record["ptxas"]:
         print(f"  ptxas {line}")

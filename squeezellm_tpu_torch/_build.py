@@ -74,10 +74,10 @@ SIGNATURES = {
 }
 # q, k_new, v_new, 3 q strides, 3 k/v strides, in_bf16, cos, sin, then the
 # pool (pk, pv, cache_bf16; or pk, pv, sk, sv for the int8 twins), then
-# page_tables, lengths or starts, out, B, W, ps, maxp, Hkv, g, hd, window,
-# scale, stream
+# page_tables, lengths or starts, out, ws_acc, ws_ml, counters, B, W, ps,
+# maxp, Hkv, g, hd, window, scale, chunk, stream
 _PAGED_HEAD = [_P, _P, _P] + [_I] * 6 + [_I, _P, _P]
-_PAGED_TAIL = [_P, _P, _P] + [_I] * 8 + [_F, _P]
+_PAGED_TAIL = [_P] * 6 + [_I] * 8 + [_F, _I, _P]
 for _name in ("slt_paged_decode_attn", "slt_paged_verify_attn"):
     SIGNATURES[_name] = _PAGED_HEAD + [_P, _P, _I] + _PAGED_TAIL
     SIGNATURES[_name + "_q8"] = _PAGED_HEAD + [_P, _P, _P, _P] + _PAGED_TAIL

@@ -6,6 +6,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace slt {
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
@@ -36,6 +38,28 @@ __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1)
     v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// A lane's D adjacent elements of a cache row as one load of D *
+// sizeof(TC) bytes, kept raw until used (2 registers a row for bf16 at hd
+// 128, so 8 rows of k and v stay in flight). Used by the decode and paged
+// attention kernels.
+template <typename TC, int D>
+struct Raw {
+  static constexpr int BYTES = D * (int)sizeof(TC);
+  using T = std::conditional_t<
+      BYTES == 16, uint4,
+      std::conditional_t<
+          BYTES == 8, uint2,
+          std::conditional_t<BYTES == 4, uint32_t,
+                             std::conditional_t<BYTES == 2, uint16_t,
+                                                uint8_t>>>>;
+};
+
+template <typename TC, int D>
+__device__ __forceinline__ float raw_at(const typename Raw<TC, D>::T& r,
+                                        int d) {
+  return to_f32(reinterpret_cast<const TC*>(&r)[d]);
 }
 
 // ---------------------------------------------------------------------------

@@ -55,8 +55,6 @@
 //    every other row;
 //  * the k scale multiplies the logit after the dot product of q with the
 //    raw codes, the v scale multiplies p before p.v, as the TPU kernel does.
-#include <type_traits>
-
 #include "common.cuh"
 
 namespace {
@@ -65,27 +63,6 @@ constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 constexpr int kMaxG = 8;     // query heads per kv head
 constexpr int kUnroll = 8;   // rows a warp loads before it uses them
-
-// A lane's D adjacent elements of a cache row as one load of D *
-// sizeof(TC) bytes, kept raw until used (2 registers a row for bf16 at hd
-// 128, so 8 rows of k and v stay in flight).
-template <typename TC, int D>
-struct Raw {
-  static constexpr int BYTES = D * (int)sizeof(TC);
-  using T = std::conditional_t<
-      BYTES == 16, uint4,
-      std::conditional_t<
-          BYTES == 8, uint2,
-          std::conditional_t<BYTES == 4, uint32_t,
-                             std::conditional_t<BYTES == 2, uint16_t,
-                                                uint8_t>>>>;
-};
-
-template <typename TC, int D>
-__device__ __forceinline__ float raw_at(const typename Raw<TC, D>::T& r,
-                                        int d) {
-  return slt::to_f32(reinterpret_cast<const TC*>(&r)[d]);
-}
 
 // G: 1 when a kv head has one query head (every multi-head config), else
 // kMaxG (g <= G); it sizes the registers and shared memory the heads take.
@@ -102,7 +79,7 @@ __global__ void __launch_bounds__(kThreads)
                        float scale, int chunk) {
   constexpr int hd = D * 32;
   constexpr bool kQ8 = sizeof(TC) == 1;  // int8 codes + row scales
-  using RawT = typename Raw<TC, D>::T;
+  using RawT = typename slt::Raw<TC, D>::T;
   __shared__ __align__(16) float q_s[G][hd];
   __shared__ float kv_s[2][hd];
   __shared__ float red_m[kWarps][G];
@@ -238,7 +215,7 @@ __global__ void __launch_bounds__(kThreads)
           float d = 0.f;
 #pragma unroll
           for (int e = 0; e < D; ++e)
-            d = fmaf(qr[u][e], raw_at<TC, D>(kr[j], e), d);
+            d = fmaf(qr[u][e], slt::raw_at<TC, D>(kr[j], e), d);
           s[j] = slt::warp_sum(d) * ksc[j];
           if (t0 + j < r_hi) mx = fmaxf(mx, s[j]);
         }
@@ -254,7 +231,8 @@ __global__ void __launch_bounds__(kThreads)
             const float pv = kQ8 ? p * vsc[j] : p;
 #pragma unroll
             for (int e = 0; e < D; ++e)
-              acc[u][e] = fmaf(pv, raw_at<TC, D>(vr[j], e), acc[u][e]);
+              acc[u][e] =
+                  fmaf(pv, slt::raw_at<TC, D>(vr[j], e), acc[u][e]);
           }
         }
         l[u] = lsum;

@@ -28,7 +28,11 @@ replace the TPU kernels ``_paged_attn_kernel`` (K6),
 ``_paged_attn_kernel_q8`` (K7), ``_paged_verify_kernel`` (K8) and
 ``_paged_verify_kernel_q8`` (K9) of ``squeezellm_tpu/ops/paged_attn.py``;
 their bound on the H100 and how the design meets it are noted in the CUDA
-source. A wrapper runs its plain version for CPU tensors only.
+source. The kernels split a slot's positions over blocks of ``CHUNK``
+(:func:`splits`, a function of the page table's capacity alone) and merge
+the blocks' partial softmax states in a fixed order inside the same
+launch, through a workspace kept per device and shape (:func:`workspace`).
+A wrapper runs its plain version for CPU tensors only.
 """
 
 from __future__ import annotations
@@ -45,6 +49,41 @@ from squeezellm_tpu_torch.ops import kv_quant
 _FLOATS = (torch.float32, torch.bfloat16)
 MAX_WINDOW_TOKENS = 8  # W of a verify window the kernels take
 MAX_GROUP = 8  # query heads per kv head
+# positions a block reads (the row split; at most 1024, the kernel's
+# bound). Timed on the H100 at 256, 512 and 1024 (chip_ab.py: K6-K9 at 8
+# slots of 1024 rows and at 8 slots of the serving run's 40-330 rows; the
+# readings are in PERF.md): 1024 was the fastest at 1024 rows for all four,
+# one block a kv head and slot with no partials to merge, and no slower at
+# 40-330 rows. Longer contexts split: a 2048-row slot takes two blocks
+CHUNK = 1024
+
+
+def splits(capacity: int) -> int:
+    """Blocks a (kv head, slot) pair's positions are split over: a
+    function of the page table's capacity (maxp * ps) alone, so that a
+    slot's bits do not depend on its cohort's lengths, starts or size."""
+    return -(-capacity // CHUNK)
+
+
+_WORKSPACE = {}
+
+
+def workspace(device, B: int, Hkv: int, R: int, hd: int, n_splits: int):
+    """The partial states (f32 (B, Hkv, n_splits, R, hd) and (B, Hkv,
+    n_splits, R, 2), R = g * W query rows) and the zeroed counters (int32
+    (B, Hkv), reset by the kernel) of one call shape on `device`:
+    allocated once, reused by every later call of that shape (one stream
+    at a time)."""
+    key = (torch.device(device), B, Hkv, R, hd, n_splits)
+    ws = _WORKSPACE.get(key)
+    if ws is None:
+        ws = (torch.empty((B, Hkv, n_splits, R, hd), dtype=torch.float32,
+                          device=device),
+              torch.empty((B, Hkv, n_splits, R, 2), dtype=torch.float32,
+                          device=device),
+              torch.zeros((B, Hkv), dtype=torch.int32, device=device))
+        _WORKSPACE[key] = ws
+    return ws
 
 
 # ---------------------------------------------------------------------------
@@ -251,6 +290,7 @@ def _launch(fn_name, q, k_new, v_new, pools, scales, page_tables, index,
     window = (maxp * ps + W + 1 if sliding_window is None
               else int(sliding_window))
     out = torch.empty((B, W, H, hd), dtype=torch.float32, device=q.device)
+    ws = workspace(q.device, B, Hkv, g * W, hd, splits(maxp * ps))
     cache_args = ([pools[0].data_ptr(), pools[1].data_ptr(),
                    int(pools[0].dtype == torch.bfloat16)]
                   if scales is None else
@@ -262,8 +302,9 @@ def _launch(fn_name, q, k_new, v_new, pools, scales, page_tables, index,
         rope_cos.data_ptr() if rope_cos is not None else None,
         rope_sin.data_ptr() if rope_cos is not None else None,
         *cache_args, page_tables.data_ptr(), index.data_ptr(),
-        out.data_ptr(), B, W, ps, maxp, Hkv, g, hd, window,
-        1.0 / math.sqrt(hd), _build.stream_ptr(q.device))
+        out.data_ptr(), *(t.data_ptr() for t in ws), B, W, ps, maxp, Hkv,
+        g, hd, window, 1.0 / math.sqrt(hd), CHUNK,
+        _build.stream_ptr(q.device))
     _build.check(err, fn_name)
     return out
 

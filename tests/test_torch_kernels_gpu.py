@@ -414,31 +414,51 @@ def _paged_case(dev, gen, *, B, Hkv, g, hd, ps, maxp, W, q8, in_dtype,
     return q, k, v, pools, pt, idx, kw
 
 
+def _paged_run(fn, plain, q, k, v, pools, pt, idx, kw):
+    """One K6-K9 call (``fn``, or its plain version) on copies of `pools`;
+    returns the output and the updated copies."""
+    pc = [t.clone() for t in pools]
+    f = getattr(paged_attn, fn + ("_plain" if plain else ""))
+    return f(q, k, v, *pc, pt, idx, **kw), pc
+
+
+def _split_capacity(ps, W):
+    """Pages a slot needs so that its capacity spans three chunks."""
+    return -(-(2 * paged_attn.CHUNK + 2 * ps + W) // ps)
+
+
+@pytest.mark.parametrize("at", ["pages", "chunks"])
 @pytest.mark.parametrize("q8", [False, True])
 @pytest.mark.parametrize("in_dtype,pool_dtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
     (torch.float32, torch.bfloat16)])
 @pytest.mark.parametrize("hd,g,ps,window,rope", [
     (32, 2, 16, None, True), (64, 4, 8, 21, True), (128, 1, 16, None, False),
-    (128, 8, 32, 40, True)])
+    (128, 8, 32, 40, True), (128, 1, 128, 100, True)])
 def test_paged_decode_kernels_match_plain(dev, hd, g, ps, window, rope,
-                                          in_dtype, pool_dtype, q8):
+                                          in_dtype, pool_dtype, q8, at):
     """K6 and K7: output within 1e-4 of max |out|, the pools after the
     write equal to the plain version's (int8 codes and scales included),
-    an inactive slot untouched, lengths at a page's first and last row."""
+    an inactive slot untouched, lengths at a page's first and last row
+    ("pages") or at CHUNK - 1, CHUNK and CHUNK + 1 positions, where the
+    row split changes hands ("chunks"; sliding windows whose low edge
+    falls inside a chunk)."""
     gen = torch.Generator(device=dev).manual_seed(hd + g + ps)
-    maxp = 6
-    lengths = [1, ps, ps + 1, 0, 3 * ps + 5, maxp * ps]
+    C = paged_attn.CHUNK
+    if at == "pages":
+        maxp = 6
+        lengths = [1, ps, ps + 1, 0, 3 * ps + 5, maxp * ps]
+    else:
+        maxp = _split_capacity(ps, 1)
+        lengths = [C - 1, C, C + 1, 0, 2 * C + 5, maxp * ps]
     q, k, v, pools, pt, idx, kw = _paged_case(
         dev, gen, B=6, Hkv=2, g=g, hd=hd, ps=ps, maxp=maxp, W=None, q8=q8,
         in_dtype=in_dtype, pool_dtype=pool_dtype, index=lengths, rope=rope)
     kw["sliding_window"] = window
-    got_p = [t.clone() for t in pools]
-    want_p = [t.clone() for t in pools]
     fn = "paged_decode_attention" + ("_q8" if q8 else "")
     before = getattr(paged_attn, fn).launches
-    got = getattr(paged_attn, fn)(q, k, v, *got_p, pt, idx, **kw)
-    want = getattr(paged_attn, fn + "_plain")(q, k, v, *want_p, pt, idx, **kw)
+    got, got_p = _paged_run(fn, False, q, k, v, pools, pt, idx, kw)
+    want, want_p = _paged_run(fn, True, q, k, v, pools, pt, idx, kw)
     torch.cuda.synchronize()
     assert getattr(paged_attn, fn).launches == before + 1
     assert (got - want).abs().max() <= 1e-4 * want.abs().max()
@@ -448,31 +468,40 @@ def test_paged_decode_kernels_match_plain(dev, hd, g, ps, window, rope,
     assert not torch.equal(got_p[0], pools[0])
 
 
+@pytest.mark.parametrize("at", ["pages", "chunks"])
 @pytest.mark.parametrize("q8", [False, True])
 @pytest.mark.parametrize("in_dtype,pool_dtype", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16)])
 @pytest.mark.parametrize("hd,g,ps,W,window,rope", [
     (32, 2, 16, 2, None, True), (64, 4, 8, 5, 21, True),
     (128, 1, 16, 8, None, False), (128, 8, 32, 8, 40, True),
-    (128, 3, 16, 3, None, True)])
+    (128, 3, 16, 3, None, True), (128, 1, 128, 5, None, True),
+    (128, 4, 128, 5, 100, True)])
 def test_paged_verify_kernels_match_plain(dev, hd, g, ps, W, window, rope,
-                                          in_dtype, pool_dtype, q8):
+                                          in_dtype, pool_dtype, q8, at):
     """K8 and K9: every window row's output within 1e-4 of max |out|, all
-    W rows written as the plain version writes them, windows that start at
-    a page's last rows and cross into the next page, an inactive slot."""
+    W rows written as the plain version writes them, an inactive slot;
+    windows that start at a page's last rows and cross into the next page
+    ("pages"), or that start at CHUNK - 2 and cross a chunk (and, with
+    128-row pages, a page), start at a chunk's first or last position, and
+    sliding windows whose low edge falls inside a chunk ("chunks"). g * W >
+    8 rows take the kernel's passes of 8."""
     gen = torch.Generator(device=dev).manual_seed(hd + g + ps + W)
-    maxp = 6
-    starts = [0, ps - 1, 2 * ps - W + 1, -1, 3 * ps + 5, maxp * ps - W]
+    C = paged_attn.CHUNK
+    if at == "pages":
+        maxp = 6
+        starts = [0, ps - 1, 2 * ps - W + 1, -1, 3 * ps + 5, maxp * ps - W]
+    else:
+        maxp = _split_capacity(ps, W)
+        starts = [C - 2, C - W, C, -1, 2 * C - 1, maxp * ps - W]
     q, k, v, pools, pt, idx, kw = _paged_case(
         dev, gen, B=6, Hkv=2, g=g, hd=hd, ps=ps, maxp=maxp, W=W, q8=q8,
         in_dtype=in_dtype, pool_dtype=pool_dtype, index=starts, rope=rope)
     kw["sliding_window"] = window
-    got_p = [t.clone() for t in pools]
-    want_p = [t.clone() for t in pools]
     fn = "paged_verify_attention" + ("_q8" if q8 else "")
     before = getattr(paged_attn, fn).launches
-    got = getattr(paged_attn, fn)(q, k, v, *got_p, pt, idx, **kw)
-    want = getattr(paged_attn, fn + "_plain")(q, k, v, *want_p, pt, idx, **kw)
+    got, got_p = _paged_run(fn, False, q, k, v, pools, pt, idx, kw)
+    want, want_p = _paged_run(fn, True, q, k, v, pools, pt, idx, kw)
     torch.cuda.synchronize()
     assert getattr(paged_attn, fn).launches == before + 1
     assert got.shape == want.shape == (6, 2 * g, W, hd)
@@ -481,6 +510,40 @@ def test_paged_verify_kernels_match_plain(dev, hd, g, ps, W, window, rope,
     for a, b_ in zip(got_p, want_p):
         assert torch.equal(a, b_)
     assert not torch.equal(got_p[0], pools[0])
+
+
+@pytest.mark.parametrize("ps", [16, 128])
+@pytest.mark.parametrize("fn", ["paged_decode_attention",
+                                "paged_decode_attention_q8",
+                                "paged_verify_attention",
+                                "paged_verify_attention_q8"])
+def test_paged_kernels_slot_does_not_depend_on_its_cohort(dev, fn, ps):
+    """A slot's K6-K9 output is bit-equal whether it runs alone or beside
+    slots of other lengths or starts, and the pools written by the slots
+    one at a time equal those the cohort wrote (codes and scales too): the
+    row split follows the table's capacity, never the cohort."""
+    gen = torch.Generator(device=dev).manual_seed(ps + len(fn))
+    C = paged_attn.CHUNK
+    verify = "verify" in fn
+    W = 5 if verify else None
+    index = ([2043, 1000, C - 2, 7, 1500] if verify
+             else [2048, 1000, C + 1, 7, 1500])
+    q, k, v, pools, pt, idx, kw = _paged_case(
+        dev, gen, B=5, Hkv=8, g=1, hd=128, ps=ps, maxp=2048 // ps, W=W,
+        q8=fn.endswith("q8"), in_dtype=torch.bfloat16,
+        pool_dtype=torch.bfloat16, index=index, rope=True)
+    full, full_p = _paged_run(fn, False, q, k, v, pools, pt, idx, kw)
+    one_p = [t.clone() for t in pools]
+    for i in range(len(index)):
+        f = getattr(paged_attn, fn)
+        alone = f(q[i: i + 1], k[i: i + 1], v[i: i + 1], *one_p,
+                  pt[i: i + 1].contiguous(), idx[i: i + 1],
+                  rope_cos=kw["rope_cos"][i: i + 1],
+                  rope_sin=kw["rope_sin"][i: i + 1])
+        torch.cuda.synchronize()
+        assert torch.equal(alone[0], full[i]), i
+    for a, b_ in zip(one_p, full_p):
+        assert torch.equal(a, b_)
 
 
 @pytest.mark.parametrize("family,cache_dtype", [

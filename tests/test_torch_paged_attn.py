@@ -210,19 +210,70 @@ def test_pool_scale_layout():
     assert torch.equal(kv_quant.pool_unpack_scales(packed), sc)
 
 
-@pytest.mark.parametrize("bad", ["hd", "group", "window", "table", "scales"])
+def test_paged_split_count_follows_the_table_capacity_alone():
+    """K6-K9 split a slot's positions over ceil(maxp * ps / CHUNK) blocks:
+    a function of the page table's capacity alone (its signature takes
+    nothing else), so that a slot's bits do not depend on its cohort's
+    size, lengths or starts; CHUNK stays within the kernel's bound."""
+    import inspect
+    import os
+    import re
+
+    assert list(inspect.signature(paged_attn.splits).parameters) == [
+        "capacity"]
+    C = paged_attn.CHUNK
+    assert [paged_attn.splits(n) for n in (1, C, C + 1, 2048, 5120)] == [
+        1, 1, 2, -(-2048 // C), -(-5120 // C)]
+    # 16-row and 128-row pages of one capacity split alike
+    assert paged_attn.splits(128 * 16) == paged_attn.splits(16 * 128)
+    src = os.path.join(os.path.dirname(paged_attn.__file__), "..", "csrc",
+                       "paged_attn.cu")
+    with open(src) as f:
+        bound = int(re.search(r"kMaxChunk = (\d+);", f.read()).group(1))
+    assert 1 <= C <= bound
+
+
+def test_paged_workspace_is_made_once_per_shape():
+    """The partial states and counters of one call shape (B, Hkv, g * W
+    rows, hd, splits) are allocated once, counters zeroed, and the same
+    tensors come back for the same shape; another row count gets its own."""
+    dev = torch.device("cpu")
+    acc, ml, cnt = paged_attn.workspace(dev, 3, 2, 5, 64, 4)
+    assert acc.shape == (3, 2, 4, 5, 64) and ml.shape == (3, 2, 4, 5, 2)
+    assert acc.dtype == ml.dtype == torch.float32
+    assert cnt.shape == (3, 2) and cnt.dtype == torch.int32
+    assert not cnt.any()
+    again = paged_attn.workspace("cpu", 3, 2, 5, 64, 4)
+    assert all(a is b for a, b in zip(again, (acc, ml, cnt)))
+    other = paged_attn.workspace(dev, 3, 2, 1, 64, 4)
+    assert other[0].shape == (3, 2, 4, 1, 64) and other[0] is not acc
+
+
+@pytest.mark.parametrize("bad", ["hd", "group", "window", "table", "scales",
+                                 "index", "rope", "pool", "dtype",
+                                 "strides"])
 def test_wrappers_refuse_on_the_cpu_what_the_kernels_refuse(bad):
     """A CPU tensor meets the same refusals as a CUDA tensor would."""
     ps, W = 16, 3
     hd = 48 if bad == "hd" else HD
     H = 18 if bad == "group" else 2 * HKV
     W = 9 if bad == "window" else W
-    q = torch.zeros(B, H, W, hd)
-    k = torch.zeros(B, HKV, W, hd)
+    dtype = torch.float16 if bad == "dtype" else torch.float32
+    q = torch.zeros(B, H, W, hd, dtype=dtype)
+    k = torch.zeros(B, HKV, W, hd, dtype=dtype)
+    # v_new as a head-major view of a token-major tensor: other strides
+    v = (torch.zeros(B, W, HKV, hd).transpose(1, 2) if bad == "strides"
+         else k)
     pools = [torch.zeros(6, ps, HKV * hd) for _ in (0, 1)]
+    if bad == "pool":
+        pools[1] = torch.zeros(6, HKV * hd, ps).transpose(1, 2)
     pt = torch.zeros(B, MAXP, dtype=torch.int64 if bad == "table"
                      else torch.int32)
-    start = torch.zeros(B, dtype=torch.int32)
+    start = torch.zeros(B, dtype=torch.int64 if bad == "index"
+                        else torch.int32)
+    kw = {}
+    if bad == "rope":  # cos without sin
+        kw = dict(rope_cos=torch.zeros(B, W, hd))
     with pytest.raises(ValueError):
         if bad == "scales":
             codes = [p.to(torch.int8) for p in pools]
@@ -230,4 +281,5 @@ def test_wrappers_refuse_on_the_cpu_what_the_kernels_refuse(bad):
             paged_attn.paged_verify_attention_q8(q, k, k, *codes, *sc, pt,
                                                  start)
         else:
-            paged_attn.paged_verify_attention(q, k, k, *pools, pt, start)
+            paged_attn.paged_verify_attention(q, k, v, *pools, pt, start,
+                                              **kw)
