@@ -15,8 +15,13 @@ DIR, this, this, DIR, and reports:
 * K2 and K5 at chip_smoke.DECODE_LENS valid rows of a 2048-row cache, and
   K3 on bf16 q/k/v at chip_smoke.K3_LENS (mode "bf16" where the wrapper
   takes a mode), with causal SDPA at the eval stride;
+* K4 (w4, the 0.45% sidecar folded in) at the five LLaMA-2-7B shapes in
+  bf16 and exact mode, and K11 (transposed words) at AB_K11_ROWS in bf16
+  mode, each by the timer and by the profiler's device time a launch;
 * the device time of the w4 bf16 decode step of LLaMA-2-7B at a short and
-  at a chip_smoke.LONG_CONTEXT-row context, and of one bf16 eval stride;
+  at a chip_smoke.LONG_CONTEXT-row context, of one bf16 eval stride, and
+  of the bf16 decode step of a structured w4 LLaMA-2-7B with transposed
+  words attached (K11 + K12);
 * K6-K9 at chip_smoke.check_paged's timed case (8 slots x
   chip_smoke.PAGED_AT_ROWS valid rows, bf16, 128-row pages, W = 5) and at
   the paged serving run's contexts (PAGED_CONTEXTS), and, on a side whose
@@ -40,6 +45,7 @@ import time
 import chip_smoke as cs
 
 AB_K1_ROWS = (12, 16, 40, 100, 1023)
+AB_K11_ROWS = (1, 8)
 AB_K1_DECODE_ROWS = (12, 16)
 # 8 slots' lengths in the paged serving run (prompts of 37-300 tokens and
 # up to 32 new ones)
@@ -73,6 +79,56 @@ def paged_ms(torch, timer, paged_attn, lengths):
     return res
 
 
+def device_ms(torch, fn, n=5):
+    """The profiler's device time a call of `fn`, over n calls."""
+    by_name, _ = cs.device_ms_by_kernel(
+        torch, lambda: [fn() for _ in range(n)])
+    return None if by_name is None else sum(by_name.values()) / n
+
+
+def k4_k11_ms(torch, timer, dequant_dense, lut_matmul_t):
+    """K4 at the LLaMA-2-7B shapes (w4, both modes) and K11 at AB_K11_ROWS
+    (bf16): {shape: {case: [timer ms, device ms]}} and the sums a forward
+    (K4) and a decode step (K11, one row)."""
+    from squeezellm_tpu_torch import synthetic
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    k4, k11 = {}, {}
+    for name, out_f, in_f, per in cs.K4_SHAPES[:5]:
+        sp = 0.0 if name == "lm_head" else 0.0045
+        t = synthetic.random_quant_linear(gen, dev, out_f, in_f, 4, sp,
+                                          0).tensors()
+        kw = {}
+        if "sp_rowptr" in t:
+            kw = dict(rowptr=t["sp_rowptr"], cols=t["sp_cols"],
+                      vals=t["sp_vals"])
+        k4[name] = {}
+        for mode in ("bf16", "exact"):
+            def fn():
+                return dequant_dense.dequant_dense(t["qweight"], t["lut"], 4,
+                                                   in_f, mode=mode, **kw)
+            k4[name][mode] = [timer.ms(fn), device_ms(torch, fn), per]
+        qwt = t["qweight"].t().contiguous()
+        k11[name] = {}
+        for M in AB_K11_ROWS:
+            x = torch.randn(M, in_f, generator=gen,
+                            device=dev).to(torch.bfloat16)
+
+            def fn():
+                return lut_matmul_t.lut_matmul_t(x, qwt, t["lut"],
+                                                 mode="bf16")
+            k11[name][M] = [timer.ms(fn), device_ms(torch, fn), per]
+        del t, qwt
+        torch.cuda.empty_cache()
+    sums = {f"k4_forward_{mode}": [sum(k4[n][mode][i] * k4[n][mode][2]
+                                       for n in k4) for i in (0, 1)]
+            for mode in ("bf16", "exact")}
+    sums["k11_step_1_row"] = [sum(k11[n][1][i] * k11[n][1][2] for n in k11)
+                              for i in (0, 1)]
+    return {"k4": k4, "k11": k11, "sums": sums}
+
+
 def worker(root):
     """One side: with the squeezellm_tpu_torch under `root` first on the
     path, takes every reading once and prints one JSON line."""
@@ -83,8 +139,9 @@ def worker(root):
     sys.path.insert(0, root)
     from squeezellm_tpu_torch import _build, data, engine, serving, synthetic
     from squeezellm_tpu_torch.models import common, fuse, registry
-    from squeezellm_tpu_torch.ops import (decode_attn, flash_attn, kv_quant,
-                                          lut_matmul, paged_attn,
+    from squeezellm_tpu_torch.ops import (decode_attn, dequant_dense,
+                                          flash_attn, kv_quant, lut_matmul,
+                                          lut_matmul_t, paged_attn,
                                           quant_linear)
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -115,6 +172,8 @@ def worker(root):
                 x, t["qweight"], t["lut"], 4, mode="bf16", variant=variant,
                 **kw))
         del t
+
+    out.update(k4_k11_ms(torch, timer, dequant_dense, lut_matmul_t))
 
     gen = torch.Generator(device=dev).manual_seed(12)
     B, H, hd, S = 1, 32, 128, 2048
@@ -175,6 +234,16 @@ def worker(root):
             out["eval_bf16"] = cs.profile_eval_stride(torch, model, tokens,
                                                       "bf16", torch.bfloat16)
         out["eval_bf16"]["card"] = card.stats
+        # the same decode step through K11 + K12: a structured w4 model
+        # with transposed words attached (chip_smoke.run_structured)
+        tmodel = fuse.attach_decode_luts(fuse.fuse_for_decode(
+            synthetic.quantized_llama(config, 4, seed=10, structured=True)),
+            transposed=True)
+        out["decode_transposed"] = cs.profile_decode(torch, engine.Engine(
+            tmodel, dtype=torch.bfloat16, cache_dtype=torch.bfloat16,
+            mode="bf16"), ids)
+        del tmodel
+        torch.cuda.empty_cache()
 
         at = {"timed": [cs.PAGED_AT_ROWS] * cs.PAGED_SLOTS,
               "serving": list(PAGED_CONTEXTS)}
@@ -228,6 +297,11 @@ def main(other):
         r["label"], r["seconds"] = label, time.perf_counter() - t0
         runs.append(r)
         dec, long_, ev = r["decode"], r["decode_long"], r["eval_bf16"]
+        tdec = r["decode_transposed"]
+        print(f"{label} ({r['root']}, {r['seconds']:.0f} s): K4 [timer ms, "
+              f"device ms, launches] {r['k4']}, K11 {r['k11']}, sums "
+              f"[timer, device] {r['sums']}; transposed decode step device "
+              f"ms {tdec.get('device_ms_per_step')} [{smi}]")
         print(f"{label} ({r['root']}, {r['seconds']:.0f} s): K1 ms {r['k1']} "
               f"K2 ms {r['k2']} K5 ms {r['k5']} K3 ms {r['k3']} (causal "
               f"sdpa at {cs.K3_LENS[-1]}: {r['k3_causal_sdpa_ms']:.4f}); "

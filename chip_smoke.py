@@ -617,6 +617,10 @@ def check_k4(torch, timer, record):
                     rel_err=err, rel_err_vs_k1_plain=k1_err,
                     ms=timer.ms(lambda: dd.dequant_dense(*args, mode=mode,
                                                          **kw)),
+                    # the fold runs in the dequant launch: its cost is the
+                    # difference to the same launch without the sidecar
+                    ms_no_sidecar=timer.ms(lambda: dd.dequant_dense(
+                        *args, mode=mode)),
                     plain_ms=timer.ms(lambda: dd.dequant_dense_plain(
                         *args, mode=mode, **kw), iters=3, warmup=1),
                     library_ms=None, bound_ms=b, bound_by=by, bytes=nbytes)
@@ -624,11 +628,13 @@ def check_k4(torch, timer, record):
                 record["k4_detail"].append(row)
             del t
             torch.cuda.empty_cache()
-    print("  K4 ms (bound, plain) [GB/s]; no library call computes it")
+    print("  K4 ms (bound, plain) [GB/s] {the same launch without the "
+          "sidecar}; no library call computes it")
     for r in record["k4_detail"]:
         print(f"  K4 {r['shape']:8s} w{r['bits']} {r['mode']:5s} "
               f"{r['ms']:.4f} ({r['bound_ms']:.4f}{r['bound_by'][0]}, "
-              f"{r['plain_ms']:.2f}) [{r['gb_s']:.0f}]")
+              f"{r['plain_ms']:.2f}) [{r['gb_s']:.0f}] "
+              f"{{{r['ms_no_sidecar']:.4f}}}")
     for bits in (4, 3):
         for mode in ("bf16", "exact"):
             rows = [r for r in record["k4_detail"] if r["bits"] == bits
@@ -894,6 +900,16 @@ def check_k11(torch, timer, record):
                           ops, lambda: torch.matmul(x, w))
         del t, qwt, w32, lib_w
     _print_lut_rows(record, "k11", "K11")
+    rows = [r for r in record["k11_detail"] if r["M"] == 8
+            and r["mode"] == "bf16"]
+    record["k11_8_rows_vs_library"] = {
+        r["shape"]: [r["ms"], r["library_ms"]] for r in rows}
+    slower = [r["shape"] for r in rows if r["ms"] > r["library_ms"]]
+    print("  K11 at 8 rows, bf16, against torch.matmul on the dequantized "
+          "bf16 weight (ms): " + ", ".join(
+              f"{r['shape']} {r['ms']:.4f} / {r['library_ms']:.4f}"
+              for r in rows)
+          + (f"; slower at {slower}" if slower else "; no slower at any"))
     print(f"K11 ok: {len(record['k11_detail'])} cases (5 shapes, rows "
           f"{K11_ROWS}, exact and bf16), max abs err "
           f"{record['k11_max_abs_err']:.3g}, within {TOL_K1} of max |y|")
@@ -1053,10 +1069,20 @@ def profile_decode(torch, eng, ids, steps=8, start=2):
             "top_ms_per_step": [[k[:60], v / steps] for k, v in top]}
 
 
+# K4's device kernels by name: the dequant pass (whose launch folds the
+# sidecar too) and the separate fold launch of an older form of the kernel
+# (chip_ab.py profiles an older checkout with this function)
+K4_KERNELS = ("k4_dequant_kernel", "dequant_dense_kernel")
+K4_FOLD_KERNELS = ("sparse_fold_kernel",)
+
+
 def profile_eval_stride(torch, model, tokens, mode, dtype):
     """Device time of one eval stride (one forward of EVAL_SEQLEN tokens
-    and its NLL) and the shares of K4, the dense matmuls after it (and the
-    top-X products: every library GEMM), K3 and the rest."""
+    and its NLL) and the shares of K4 (its dequant pass and, where it is a
+    launch of its own, its fold), the dense matmuls after it (and the top-X
+    products: every library GEMM), K3 and the rest. Raises when the trace
+    holds no K4 kernel by these names: every stride launches K4, so a
+    renamed kernel would otherwise be counted as "rest"."""
     from squeezellm_tpu_torch import eval as eval_mod
 
     tok = torch.as_tensor(tokens[:, :EVAL_SEQLEN].astype("int64"),
@@ -1070,11 +1096,14 @@ def profile_eval_stride(torch, model, tokens, mode, dtype):
     by_name, why = device_ms_by_kernel(torch, run)
     if by_name is None:
         return {"profile_failed": why}
-    parts = {"K4": 0.0, "dense matmul": 0.0, "K3": 0.0, "rest": 0.0}
+    parts = {"K4": 0.0, "K4 fold": 0.0, "dense matmul": 0.0, "K3": 0.0,
+             "rest": 0.0}
     for name, ms in by_name.items():
         low = name.lower()
-        if "dequant_dense_kernel" in low or "sparse_fold_kernel" in low:
+        if any(k in low for k in K4_KERNELS):
             parts["K4"] += ms
+        elif any(k in low for k in K4_FOLD_KERNELS):
+            parts["K4 fold"] += ms
         elif "flash_attn" in low:  # either regime's kernel
             parts["K3"] += ms
         elif any(t in low for t in ("gemm", "cutlass", "cublas", "nvjet",
@@ -1082,6 +1111,9 @@ def profile_eval_stride(torch, model, tokens, mode, dtype):
             parts["dense matmul"] += ms
         else:
             parts["rest"] += ms
+    if parts["K4"] <= 0:
+        raise AssertionError(f"eval stride: no K4 kernel {K4_KERNELS} in "
+                             f"the trace: {sorted(by_name)}")
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"profile_failed": None, "device_ms": sum(by_name.values()),
             "parts_ms": parts, "top_ms": [[k[:70], v] for k, v in top]}
@@ -2565,8 +2597,11 @@ def ptxas_lines(source):
                                      "flash_attn_kernel",
                                      "decode_attn_kernel",
                                      "paged_attn_kernel", "gemv_kernel",
-                                     "mma_kernel") if k in mangled), mangled)
-            args = re.findall(r"Li(\d+)E", mangled)
+                                     "mma_kernel", "k4_dequant_kernel",
+                                     "k11_kernel") if k in mangled),
+                        mangled)
+            args = [("b" + b) for b in re.findall(r"Lb(\d)E", mangled)]
+            args += re.findall(r"Li(\d+)E", mangled)
             args.append(("int8 " if "aLi" in mangled else "")
                         + ("bf16" if "bfloat16" in mangled else "f32"))
             name += "<" + ",".join(args) + ">"
@@ -2622,7 +2657,8 @@ def main():
     print(f"host k-means solver (csrc/host/nuq_kmeans.cpp, g++) built and "
           f"loaded in {record['host_build_s']:.1f} s")
     record["ptxas"] = [line for src in ("lut_matmul.cu", "flash_attn.cu",
-                                        "decode_attn.cu", "paged_attn.cu")
+                                        "decode_attn.cu", "paged_attn.cu",
+                                        "dequant_dense.cu", "lut_matmul_t.cu")
                        for line in ptxas_lines(src)]
     for line in record["ptxas"]:
         print(f"  ptxas {line}")

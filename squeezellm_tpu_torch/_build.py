@@ -62,8 +62,10 @@ SIGNATURES = {
     "slt_lut_matmul_struct": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
                               _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                               _I, _P],
-    # x, x_bf16, qweight_t, lut, y, M, in, out, bf16_mode, stream
-    "slt_lut_matmul_t": [_P, _I, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, x_bf16, qweight_t, lut, y, ws, counters, M, in, out, bf16_mode,
+    # splits, words_per_split, stream
+    "slt_lut_matmul_t": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _I, _P],
     # x, x_bf16, rowptr, cols, vals, y, B, in, out, stream
     "slt_spmv": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
     # slt_decode_attn's, with the scale sidecars sk, sv after ck, cv and no

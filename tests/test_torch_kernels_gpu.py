@@ -301,6 +301,73 @@ def test_dequant_dense_kernel_equals_plain(dev, in_f, out_f, bits, mode):
         assert torch.equal(got, want), int((got != want).sum())
 
 
+def _crowded_csr(g, out_f, in_f, bits, dev, density):
+    """A CSR sidecar that meets every boundary of K4's fold and tiles:
+    channels at both sides of a 128-column tile edge with rows of 70
+    entries (three 32-entry batches) in which one slot repeats across each
+    batch edge (entries 30-33 and 62-65) and others at the rows on both
+    sides of a block's row edge (64 or, in two passes, 128 words: 512 or
+    1024 rows at 4 bits, 640 or 1280 at 3),
+    zero-valued padding entries at slot (0, 0) in front, and `density` of
+    the other slots at random, unsorted within a row as a real sidecar
+    is."""
+    rng = np.random.default_rng(int(g.initial_seed()))
+    cpw = 8 if bits == 4 else 10
+    edge, edge2 = 64 * cpw, 128 * cpw  # a block's rows: 64 or 128 words
+    rows = []
+    for o in range(out_f):
+        n = rng.binomial(in_f, density)
+        c = list(rng.integers(0, in_f, n))
+        if o in (0, 126, 127, 128, 129, out_f - 1):
+            c = list(rng.integers(0, in_f, 70))
+            for e in (30, 31, 32, 33, 62, 63, 64, 65):
+                c[e] = 5 % in_f
+            if in_f > edge:
+                c[10], c[40], c[69] = edge - 1, edge, edge - 1
+            if in_f > edge2:
+                c[15], c[45], c[68] = edge2 - 1, edge2, edge2 - 1
+        rows.append(c)
+    rows[0] = [0, 0, 0] + rows[0]
+    counts = [len(c) for c in rows]
+    rowptr = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    cols = np.concatenate([np.asarray(c, dtype=np.int64) for c in rows])
+    vals = rng.standard_normal(len(cols)).astype(np.float32)
+    vals[:3] = 0.0
+    return dict(rowptr=torch.from_numpy(rowptr).to(dev),
+                cols=torch.from_numpy(cols.astype(np.int32)).to(dev),
+                vals=torch.from_numpy(vals).to(dev))
+
+
+@pytest.mark.parametrize("density", [0.01, 0.05])
+@pytest.mark.parametrize("mode", ["exact", "bf16"])
+@pytest.mark.parametrize("bits", [3, 4])
+@pytest.mark.parametrize("in_f,out_f", [(1300, 260), (1300, 262),
+                                        (645, 131), (4096, 256),
+                                        (10400, 4096)])
+def test_dequant_dense_fold_batches_and_tiles_equal_plain(dev, in_f, out_f,
+                                                          bits, mode,
+                                                          density):
+    """K4's W equal to the plain version's in every element when CSR rows
+    are longer than a 32-entry batch and a slot repeats across batch, row
+    block and column tile edges; a word row holds ~10 sidecar entries (1%)
+    or more than its bucket (5%: ~50, the block's slow fold); blocks of one
+    pass and, at 10400 x 4096, of two; `out` a multiple of 4 (16-byte
+    words and W stores) and not (4-byte ones), `in` not a multiple of a
+    word row or of a block's word rows."""
+    g = torch.Generator(device=dev).manual_seed(in_f * 7 + out_f + bits)
+    t = synthetic.random_quant_linear(g, dev, out_f, in_f, bits, 0.0,
+                                      0).tensors()
+    kw = _crowded_csr(g, out_f, in_f, bits, dev, density)
+    args = (t["qweight"], t["lut"], bits, in_f)
+    got = dequant_dense.dequant_dense(*args, mode=mode, **kw)
+    again = dequant_dense.dequant_dense(*args, mode=mode, **kw)
+    want = dequant_dense.dequant_dense_plain(*args, mode=mode, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (in_f, out_f) and got.dtype == want.dtype
+    assert torch.equal(got, want), int((got != want).sum())
+    assert torch.equal(got, again)
+
+
 @pytest.mark.parametrize("in_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("hd,g,window,rope,S", [
     (32, 2, None, True, 80), (64, 4, 5, True, 33), (128, 1, None, False, 80),
@@ -643,6 +710,60 @@ def test_lut_matmul_t_kernel_matches_plain(dev, M, in_f, out_f, mode):
         want = lut_matmul_t.lut_matmul_t_plain(x, qwt, t["lut"], mode=mode)
         torch.cuda.synchronize()
         assert _rel(got, want) <= 1e-5, (x_dt, _rel(got, want))
+
+
+TOL_K1 = {"exact": 1e-5, "bf16": 1e-4}  # chip_smoke.TOL_K1
+
+
+@pytest.mark.parametrize("mode", ["exact", "bf16"])
+@pytest.mark.parametrize("in_f,out_f", [(1000, 130), (1028, 257),
+                                        (1056, 128), (4104, 36),
+                                        (11008, 140), (520, 17000),
+                                        (136, 34000)])
+def test_lut_matmul_t_tiles_and_splits_match_plain(dev, in_f, out_f, mode):
+    """K11 within TOL_K1 of max |y| of the plain version at every row
+    count, x in f32 and bf16: `in` not a multiple of 16 inputs, of a
+    128-input span or of a block's 128 words (a partial last span, 4-byte
+    copies where n_words % 4 != 0), k-splits of 1 to 11 blocks, and
+    128-channel tiles with a tail; two launches bit-equal."""
+    g = torch.Generator(device=dev).manual_seed(in_f + out_f)
+    t = synthetic.random_quant_linear(g, dev, out_f, in_f, 4, 0.0,
+                                      0).tensors()
+    qwt = t["qweight"].t().contiguous()
+    for M in range(1, 9):
+        for x_dt in (torch.float32, torch.bfloat16):
+            x = torch.randn(M, in_f, generator=g, device=dev).to(x_dt)
+            got = lut_matmul_t.lut_matmul_t(x, qwt, t["lut"], mode=mode)
+            again = lut_matmul_t.lut_matmul_t(x, qwt, t["lut"], mode=mode)
+            want = lut_matmul_t.lut_matmul_t_plain(x, qwt, t["lut"],
+                                                   mode=mode)
+            torch.cuda.synchronize()
+            assert _rel(got, want) <= TOL_K1[mode], (M, x_dt,
+                                                     _rel(got, want))
+            assert torch.equal(got, again), (M, x_dt)
+
+
+@pytest.mark.parametrize("mode", ["exact", "bf16"])
+@pytest.mark.parametrize("in_f,out_f", [(4096, 4096), (1028, 257)])
+def test_lut_matmul_t_rows_do_not_depend_on_the_batch(dev, in_f, out_f,
+                                                      mode):
+    """Row m of K11 is bit-equal at every M from 1 to 8 and at every place
+    in the batch: a slot's tokens do not depend on the slots decoded
+    beside it (the tensor cores always take 8 columns, exact mode's row
+    variants sum a row in one order, the split follows the shape)."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    t = synthetic.random_quant_linear(g, dev, out_f, in_f, 4, 0.0,
+                                      0).tensors()
+    qwt = t["qweight"].t().contiguous()
+    for x_dt in (torch.float32, torch.bfloat16):
+        x = torch.randn(8, in_f, generator=g, device=dev).to(x_dt)
+        full = lut_matmul_t.lut_matmul_t(x, qwt, t["lut"], mode=mode)
+        for a, b in ((0, 1), (0, 2), (0, 3), (0, 4), (0, 5), (0, 6), (0, 7),
+                     (7, 8), (3, 8), (2, 5), (1, 2)):
+            part = lut_matmul_t.lut_matmul_t(x[a:b].contiguous(), qwt,
+                                             t["lut"], mode=mode)
+            torch.cuda.synchronize()
+            assert torch.equal(part, full[a:b]), (x_dt, a, b)
 
 
 @pytest.mark.parametrize("B", [1, 3, 8, 40, 100, 1023])
