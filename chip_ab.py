@@ -16,8 +16,12 @@ DIR, this, this, DIR, and reports:
   K3 on bf16 q/k/v at chip_smoke.K3_LENS (mode "bf16" where the wrapper
   takes a mode), with causal SDPA at the eval stride;
 * K4 (w4, the 0.45% sidecar folded in) at the five LLaMA-2-7B shapes in
-  bf16 and exact mode, and K11 (transposed words) at AB_K11_ROWS in bf16
-  mode, each by the timer and by the profiler's device time a launch;
+  bf16 and exact mode, K11 (transposed words) at AB_K11_ROWS in bf16
+  mode, and K12 (the sparse sum) on the four 0.45% sidecars at
+  AB_K11_ROWS, x bf16 and f32, beside torch.sparse.mm (and, on a side
+  whose K12 folds, folded as the transposed route calls it, and at 8 rows
+  with x read as it is instead of copied to its interleaved layout), each
+  by the timer and by the profiler's device time a launch;
 * the device time of the w4 bf16 decode step of LLaMA-2-7B at a short and
   at a chip_smoke.LONG_CONTEXT-row context, of one bf16 eval stride, and
   of the bf16 decode step of a structured w4 LLaMA-2-7B with transposed
@@ -28,7 +32,8 @@ DIR, this, this, DIR, and reports:
   ops.paged_attn has a CHUNK, at each of PAGED_CHUNKS positions a block;
 * the device time of the paged engine's decode step at 8 slots and of one
   speculative window (LLaMA-2-7B w4, f32, chip_smoke.profile_paged_step and
-  profile_spec_window), with K6's and K8's shares.
+  profile_spec_window), with K6's and K8's shares, and of its bf16 step at
+  8 slots through K1 and with transposed words attached (K11 + K12).
 
 It prints each reading with the card's name and power limit, then one JSON
 line of them all. Kernel times use chip_smoke.Timer (L2 flushed, CUDA
@@ -73,8 +78,9 @@ def paged_ms(torch, timer, paged_attn, lengths):
             share=False)
         fn = getattr(paged_attn, name)
         res[f"k{n}"] = timer.ms(lambda: fn(q, k, v, *pools, pt, idx, **kw))
-        res[f"k{n}_device"] = cs.paged_device_ms(
-            torch, timer, lambda: fn(q, k, v, *pools, pt, idx, **kw))
+        res[f"k{n}_device"] = cs.flushed_device_ms(
+            torch, timer, lambda: fn(q, k, v, *pools, pt, idx, **kw),
+            cs.PAGED_KERNELS)
         del q, k, v, pools
     return res
 
@@ -129,6 +135,54 @@ def k4_k11_ms(torch, timer, dequant_dense, lut_matmul_t):
     return {"k4": k4, "k11": k11, "sums": sums}
 
 
+def k12_ms(torch, timer, spmv):
+    """K12 on the LLaMA-2-7B 0.45% sidecars at AB_K11_ROWS, x bf16 and f32:
+    {shape: {"<M> <x dtype>": {case: [timer ms, device ms]}}} for the sum
+    alone ("sum") and torch.sparse.mm on a pre-transposed x ("library");
+    on a side whose spmv folds, also the fold into K11's output as the
+    transposed route calls it ("fold"); and the sums a decode step (128
+    launches) at each row count and dtype."""
+    from squeezellm_tpu_torch import synthetic
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(22)
+    folds = "y" in inspect.signature(spmv.spmv).parameters
+    res, per = {}, {}
+    for name, out_f, in_f, n in cs.K1_SHAPES[:4]:
+        t = synthetic.random_quant_linear(gen, dev, out_f, in_f, 4, 0.0045,
+                                          0).tensors()
+        csr = (t["sp_rowptr"], t["sp_cols"], t["sp_vals"])
+        lib = torch.sparse_csr_tensor(*csr, size=(out_f, in_f))
+        per[name], res[name] = n, {}
+        for M in AB_K11_ROWS:
+            for dt in (torch.bfloat16, torch.float32):
+                x = torch.randn(M, in_f, generator=gen, device=dev).to(dt)
+                xt = x.float().t().contiguous()
+                y = torch.randn(M, out_f, generator=gen, device=dev)
+                y0 = (torch.randn(M, out_f, generator=gen, device=dev).to(dt)
+                      if name in ("o", "down") else None)
+                fns = {"sum": (lambda: spmv.spmv(x, *csr, out_f),
+                               cs.K12_KERNELS),
+                       "library": (lambda: torch.sparse.mm(lib, xt), None)}
+                if folds:
+                    fns["fold"] = (lambda: spmv.spmv(x, *csr, out_f, y=y,
+                                                     y0=y0), cs.K12_KERNELS)
+                case = {k: [timer.ms(fn), cs.flushed_device_ms(
+                    torch, timer, fn, kernels)]
+                    for k, (fn, kernels) in fns.items()}
+                res[name][f"{M} {str(dt)[6:]}"] = case
+        del t, csr, lib
+    step = {}
+    for key in res[next(iter(res))]:
+        for case in res[next(iter(res))][key]:
+            vals = [res[s][key][case] for s in res]
+            step[f"{key} {case}"] = [
+                None if any(v[i] is None for v in vals)
+                else sum(v[i] * per[s] for v, s in zip(vals, res))
+                for i in (0, 1)]
+    return {"k12": res, "k12_step": step}
+
+
 def worker(root):
     """One side: with the squeezellm_tpu_torch under `root` first on the
     path, takes every reading once and prints one JSON line."""
@@ -142,7 +196,7 @@ def worker(root):
     from squeezellm_tpu_torch.ops import (decode_attn, dequant_dense,
                                           flash_attn, kv_quant, lut_matmul,
                                           lut_matmul_t, paged_attn,
-                                          quant_linear)
+                                          quant_linear, spmv)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     _build.lib()
@@ -174,6 +228,7 @@ def worker(root):
         del t
 
     out.update(k4_k11_ms(torch, timer, dequant_dense, lut_matmul_t))
+    out.update(k12_ms(torch, timer, spmv))
 
     gen = torch.Generator(device=dev).manual_seed(12)
     B, H, hd, S = 1, 32, 128, 2048
@@ -260,16 +315,23 @@ def worker(root):
             paged_attn.CHUNK = default
 
         def paged_engine(**kw):
+            kw.setdefault("cache_dtype", torch.float32)
             return serving.PagedContinuousBatchEngine(
                 model, slots=cs.PAGED_SLOTS, n_pages=cs.PAGED_PAGES,
-                page_size=cs.PAGE_SIZE, max_seq=cs.PAGED_MAX_SEQ,
-                cache_dtype=torch.float32, **kw)
+                page_size=cs.PAGE_SIZE, max_seq=cs.PAGED_MAX_SEQ, **kw)
 
         prompts = cs.paged_requests(config)
         out["paged_step"] = cs.profile_paged_step(torch, paged_engine(),
                                                   prompts)
         out["spec_window"] = cs.profile_spec_window(
             torch, paged_engine(speculative=cs.SPECULATIVE), prompts)
+        bkw = dict(dtype=torch.bfloat16, mode="bf16",
+                   cache_dtype=torch.bfloat16)
+        out["paged_step_bf16"] = cs.profile_paged_step(
+            torch, paged_engine(**bkw), prompts)
+        fuse.attach_decode_luts(model, transposed=True)
+        out["paged_step_bf16_transposed"] = cs.profile_paged_step(
+            torch, paged_engine(**bkw), prompts)
     print(json.dumps(out))
     return 0
 
@@ -301,7 +363,19 @@ def main(other):
         print(f"{label} ({r['root']}, {r['seconds']:.0f} s): K4 [timer ms, "
               f"device ms, launches] {r['k4']}, K11 {r['k11']}, sums "
               f"[timer, device] {r['sums']}; transposed decode step device "
-              f"ms {tdec.get('device_ms_per_step')} [{smi}]")
+              f"ms {tdec.get('device_ms_per_step')} (by kernel "
+              f"{tdec.get('ms_per_step_by_kernel')}, device launches a step "
+              f"{tdec.get('launches_per_step')}) [{smi}]")
+        print(f"{label} ({r['root']}): K12 [timer ms, device ms] "
+              f"{r['k12']}; a decode step's 128 launches {r['k12_step']} "
+              f"[{smi}]")
+        for k in ("paged_step_bf16", "paged_step_bf16_transposed"):
+            p = r[k]
+            print(f"{label} ({r['root']}): {k} device ms "
+                  f"{p.get('device_ms_per_step')} (by kernel "
+                  f"{p.get('ms_per_step_by_kernel')}, device launches a step "
+                  f"{p.get('launches_per_step')}), host ms {p['step_ms']}, "
+                  f"idle share {p.get('idle_share')} [{smi}]")
         print(f"{label} ({r['root']}, {r['seconds']:.0f} s): K1 ms {r['k1']} "
               f"K2 ms {r['k2']} K5 ms {r['k5']} K3 ms {r['k3']} (causal "
               f"sdpa at {cs.K3_LENS[-1]}: {r['k3_causal_sdpa_ms']:.4f}); "

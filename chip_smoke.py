@@ -25,7 +25,9 @@ checking after each that it went through its kernels:
   through run() by single steps, decode windows, prompt-lookup speculation
   and sampling (K6, K8, K3 with a start), sampled in bf16 and admitted in
   reverse order (a request's tokens do not depend on its cohort), then the
-  bf16 and int8 pools (K7, K9);
+  bf16 and int8 pools (K7, K9), then with transposed words attached: eight
+  f32 requests against the plain path and the bf16 step profiled (K11,
+  K12);
 * offline quantization on the card: a dense LLaMA-2-7B at full width
   (QUANT_LAYERS deep), Fisher gradients, quantize_model w4 structured and
   w3 free (its first W3_LAYERS layers: the host's k-means) with a 0.45%
@@ -93,6 +95,10 @@ DECODE_LENS = (1, 128, 1000, 2048)
 LONG_CONTEXT = 2040
 K11_ROWS = (1, 8)  # the transposed route takes at most 8 rows
 K12_ROWS = (1, 8, 40, 100)
+# device kernels by name in a profiler trace: K12's (its sum, and the copy
+# of x it makes first at more than one row) and K6-K9's (one template)
+K12_KERNELS = ("spmv",)
+PAGED_KERNELS = ("paged_attn_kernel",)
 # offline quantization: a dense LLaMA-2-7B at full width and depth (Fisher
 # keeps the f32 weights and the grad^2 sums of every layer on the card, ~54
 # GB), calibrated on FISHER_SAMPLES synthetic windows of FISHER_SEQLEN
@@ -140,6 +146,7 @@ OPT_PROMPT = 16
 PAGED_SLOTS, PAGED_PAGES, PAGE_SIZE, PAGED_MAX_SEQ = 8, 160, 128, 2048
 PAGED_PREFIX, PAGED_SUFFIX, PAGED_LENS = 256, 44, (100, 37)
 SPECULATIVE = (4, 2)
+TRANSPOSED_NEW = 4  # new tokens a request with transposed words attached
 # K6-K9 are timed at 8 slots x 1024 valid rows of a LLaMA-2-7B layer
 PAGED_AT_ROWS = 1024
 
@@ -917,7 +924,12 @@ def check_k11(torch, timer, record):
 
 def check_k12(torch, timer, record):
     """K12 (CSR sparse sum) against its plain version on the 0.45% sidecars
-    of LLaMA-2-7B's fused linears, x in f32 (exact regime) and bf16."""
+    of LLaMA-2-7B's fused linears, x in f32 (exact regime) and bf16: the
+    sum alone at K12_ROWS, timed beside torch.sparse.mm on a CSR tensor
+    (handed a pre-transposed x), and at K11_ROWS also as the transposed
+    route calls it, folded in place into K11's f32 output with the bf16
+    or f32 residual for o and down. Each time by the timer and by the
+    profiler's device time a launch."""
     from squeezellm_tpu_torch import synthetic
     from squeezellm_tpu_torch.ops import spmv
 
@@ -941,33 +953,109 @@ def check_k12(torch, timer, record):
                 def plain():
                     return spmv.spmv_plain(x, *csr, out_f)
 
+                def library():
+                    return torch.sparse.mm(lib, xt)
+
                 got, want = kernel(), plain()
+                again = kernel()
                 torch.cuda.synchronize()
+                if not torch.equal(got, again):
+                    raise AssertionError(f"k12 {name} M={M} {mode}: two "
+                                         f"launches differ")
                 nbytes = ((out_f + 1) * 4 + nnz * 8
                           + x.numel() * x.element_size() + got.numel() * 4)
-                _lut_case(timer, record, "k12", name, 4, M, mode, per_step,
-                          got, want, TOL_K1["exact"], (kernel, plain),
-                          nbytes, [(2 * M * nnz, "f32")],
-                          lambda: torch.sparse.mm(lib, xt))
+                ops = [(2 * M * nnz, "f32")]
+                row = _lut_case(timer, record, "k12", name, 4, M, mode,
+                                per_step, got, want, TOL_K1["exact"],
+                                (kernel, plain), nbytes, ops, library)
+                row["device_ms"] = flushed_device_ms(torch, timer, kernel,
+                                                     K12_KERNELS)
+                row["library_device_ms"] = flushed_device_ms(torch, timer,
+                                                             library)
+                if M in K11_ROWS:
+                    row["fold"] = _k12_fold(torch, timer, gen, spmv, x, csr,
+                                            name, nbytes, ops)
         del t, csr, lib
-    print("  K12 ms (bound by b=bytes/o=operations, plain, library "
-          "torch.sparse.mm on a CSR tensor)")
+    print("  K12 ms by the timer / device time (bound by b=bytes/"
+          "o=operations, plain, library torch.sparse.mm on a CSR tensor by "
+          "the timer / device time); the fold into K11's output")
     for r in record["k12_detail"]:
+        fold = r.get("fold")
         print(f"  K12 {r['shape']:8s} M={r['M']:3d} x {r['mode']:5s} "
-              f"{r['ms']:.4f} ({r['bound_ms']:.4f}{r['bound_by'][0]}, "
-              f"{r['plain_ms']:.3f}, {r['library_ms']:.4f})")
-    for mode in ("bf16", "exact"):
-        rows = [r for r in record["k12_detail"] if r["M"] == 1
-                and r["mode"] == mode]
-        step = {k: sum(r[k] * r["launches_per_step"] for r in rows)
-                for k in ("ms", "bound_ms", "library_ms")}
-        record["k12_per_decode_step"].append(dict(mode=mode, **step))
-        print(f"  K12 per decode step, x {mode}: {step['ms']:.3f} ms (bound "
-              f"{step['bound_ms']:.4f}, library {step['library_ms']:.3f})")
+              f"{r['ms']:.4f} / {_ms(r['device_ms'])} ({r['bound_ms']:.4f}"
+              f"{r['bound_by'][0]}, {r['plain_ms']:.3f}, "
+              f"{r['library_ms']:.4f} / {_ms(r['library_device_ms'])})"
+              + (f"; fold {fold['ms']:.4f} / {_ms(fold['device_ms'])} "
+                 f"({fold['bound_ms']:.4f})" if fold else ""))
+    for M in K11_ROWS:
+        for mode in ("bf16", "exact"):
+            rows = [r for r in record["k12_detail"] if r["M"] == M
+                    and r["mode"] == mode]
+            step = {k: _per_step(rows, lambda r, k=k: r[k])
+                    for k in ("ms", "device_ms", "bound_ms", "library_ms",
+                              "library_device_ms")}
+            step.update({f"fold_{k}": _per_step(rows,
+                                                lambda r, k=k: r["fold"][k])
+                         for k in ("ms", "device_ms", "bound_ms")})
+            record["k12_per_decode_step"].append(dict(M=M, mode=mode,
+                                                      **step))
+            print(f"  K12 per decode step ({M} rows, x {mode}; 128 "
+                  f"launches), timer / device ms: folded "
+                  f"{step['fold_ms']:.3f} / {_ms(step['fold_device_ms'])} "
+                  f"(bound {step['fold_bound_ms']:.4f}), the sum alone "
+                  f"{step['ms']:.3f} / {_ms(step['device_ms'])} (bound "
+                  f"{step['bound_ms']:.4f}), library {step['library_ms']:.3f}"
+                  f" / {_ms(step['library_device_ms'])}")
+    rows = [r for r in record["k12_detail"] if r["M"] == 8]
+    slower = [(r["shape"], r["mode"]) for r in rows
+              if r["ms"] > r["library_ms"]
+              or (r["device_ms"] or 0) > (r["library_device_ms"] or 0)]
+    record["k12_8_rows_slower_than_library"] = slower
+    print("  K12 at 8 rows against torch.sparse.mm by the timer and by "
+          "device time: " + (f"slower at {slower}" if slower
+                             else "no slower at any shape or x dtype"))
     print(f"K12 ok: {len(record['k12_detail'])} cases (4 sidecars, rows "
-          f"{K12_ROWS}, x f32 and bf16), max abs err "
+          f"{K12_ROWS}, x f32 and bf16; folded at {K11_ROWS}), max abs err "
           f"{record['k12_max_abs_err']:.3g}, within {TOL_K1['exact']} of "
-          f"max |y|")
+          f"max |y|; two launches equal")
+
+
+def _k12_fold(torch, timer, gen, spmv, x, csr, name, nbytes, ops):
+    """K12 as the transposed route calls it: y (K11's f32 output) += y0 (x's
+    dtype, o and down only) + the sum, in place; held to the plain version,
+    timed."""
+    M, out_f = x.shape[0], csr[0].numel() - 1
+    y = torch.randn(M, out_f, generator=gen, device=x.device)
+    y0 = (torch.randn(M, out_f, generator=gen, device=x.device).to(x.dtype)
+          if name in ("o", "down") else None)
+    got = spmv.spmv(x, *csr, out_f, y=y.clone(), y0=y0)
+    want = spmv.spmv_plain(x, *csr, out_f, y=y.clone(), y0=y0)
+    err = rel_err(got, want)
+    if err > TOL_K1["exact"]:
+        raise AssertionError(f"k12 fold {name} M={M}: rel err {err}")
+    acc = y.clone()
+
+    def fold():
+        return spmv.spmv(x, *csr, out_f, y=acc, y0=y0)
+
+    nbytes += y.numel() * 4 + (0 if y0 is None
+                               else y0.numel() * y0.element_size())
+    return dict(rel_err=err, with_y0=y0 is not None, ms=timer.ms(fold),
+                device_ms=flushed_device_ms(torch, timer, fold, K12_KERNELS),
+                bound_ms=bound_ms(nbytes, ops)[0])
+
+
+def _ms(v):
+    return "not measured" if v is None else f"{v:.4f}"
+
+
+def _per_step(rows, get):
+    """A decode step's sum over the shapes' launches; None when a reading
+    is missing."""
+    vals = [get(r) for r in rows]
+    if any(v is None for v in vals):
+        return None
+    return sum(v * r["launches_per_step"] for v, r in zip(vals, rows))
 
 
 def counters():
@@ -995,6 +1083,7 @@ def reset_counts():
         fn.variant_launches = dict.fromkeys(fn.variant_launches, 0)
     k3 = counters()[2]  # K3 by regime
     k3.regime_launches = dict.fromkeys(k3.regime_launches, 0)
+    counters()[11].copy_launches = 0  # K12's copies of x
 
 
 def expect_counts(record, path, want):
@@ -1007,7 +1096,8 @@ def expect_counts(record, path, want):
     record["paths"].append({"path": path, "launches": got, "variants": {
         "K1": dict(counters()[0].variant_launches),
         "K10": dict(counters()[9].variant_launches),
-        "K3": dict(counters()[2].regime_launches)}})
+        "K3": dict(counters()[2].regime_launches),
+        "K12 copies of x": counters()[11].copy_launches}})
     return got
 
 
@@ -1015,10 +1105,11 @@ def read_counts():
     return [fn.launches for fn in counters()]
 
 
-def device_ms_by_kernel(torch, fn):
+def device_ms_by_kernel(torch, fn, counts=None):
     """(device ms of one call of `fn` by kernel name, None), from a
     torch.profiler trace; (None, why) when the profiler failed or the
-    trace holds no device time: the numbers are then not measured."""
+    trace holds no device time: the numbers are then not measured. A dict
+    `counts` receives each kernel's launches."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1038,6 +1129,8 @@ def device_ms_by_kernel(torch, fn):
         if us is None:
             us = getattr(e, "self_cuda_time_total", 0)
         by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
+        if counts is not None:
+            counts[e.key] = counts.get(e.key, 0) + e.count
     if sum(by_name.values()) <= 0:
         return None, "the trace holds no device time"
     return by_name, None
@@ -1058,7 +1151,8 @@ def profile_decode(torch, eng, ids, steps=8, start=2):
         for i in range(start, start + steps):
             eng.model.decode_step(tok, i, cache, **kw)
 
-    by_name, why = device_ms_by_kernel(torch, run)
+    counts = {}
+    by_name, why = device_ms_by_kernel(torch, run, counts)
     if by_name is None:
         return {"profile_failed": why}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
@@ -1066,7 +1160,23 @@ def profile_decode(torch, eng, ids, steps=8, start=2):
     return {"profile_failed": None, "context": start,
             "device_ms_per_step": sum(by_name.values()) / steps,
             "k2_k5_ms_per_step": attn / steps,
-            "top_ms_per_step": [[k[:60], v / steps] for k, v in top]}
+            "top_ms_per_step": [[k[:60], v / steps] for k, v in top],
+            **step_shares(by_name, counts, steps)}
+
+
+# a decode step's linears' kernels by name, for their shares of a trace
+STEP_KERNELS = {"K1 GEMV": ("gemv_kernel",), "K11": ("k11_kernel",),
+                "K12": K12_KERNELS}
+
+
+def step_shares(by_name, counts, steps):
+    """Device ms a step of each of STEP_KERNELS, and the device launches a
+    step of every kernel in the trace."""
+    ms = {k: sum(v for name, v in by_name.items()
+                 if any(p in name for p in pats)) / steps
+          for k, pats in STEP_KERNELS.items()}
+    return {"ms_per_step_by_kernel": ms,
+            "launches_per_step": sum(counts.values()) / steps}
 
 
 # K4's device kernels by name: the dequant pass (whose launch folds the
@@ -1438,12 +1548,14 @@ def run_int8(torch, model, ids, bf16_stats, record):
             "layer_check": lc}
 
 
-def paged_device_ms(torch, timer, fn, n=10):
-    """Device ms of one K6-K9 launch from a profiler trace of `n` calls of
-    `fn`, the L2 flushed before each as Timer does; None when the trace
-    holds none. Beside Timer's reading, which holds the wrapper's host time
-    whenever the host takes longer to enqueue the launch than the card
-    takes to flush."""
+def flushed_device_ms(torch, timer, fn, kernels=None, n=10):
+    """Device ms a call of `fn` from a profiler trace of `n` calls, the L2
+    flushed before each as Timer does: of the kernels whose names hold one
+    of `kernels`, or with None of every kernel but the flush's own (a
+    library call that zeroes with the flush's kernel has that part left
+    out too); None when the trace holds none. Beside Timer's reading, which
+    holds the wrapper's host time whenever the host takes longer to enqueue
+    the launch than the card takes to flush."""
     def run():
         for _ in range(n):
             timer.flush.zero_()
@@ -1451,8 +1563,15 @@ def paged_device_ms(torch, timer, fn, n=10):
 
     run()
     by_name, _ = device_ms_by_kernel(torch, run)
-    ms = paged_attn_ms(by_name) / n if by_name else 0.0
-    return ms or None
+    if not by_name:
+        return None
+    if kernels is None:
+        flush, _ = device_ms_by_kernel(torch, timer.flush.zero_)
+        ms = sum(v for k, v in by_name.items() if k not in (flush or {}))
+    else:
+        ms = sum(v for k, v in by_name.items()
+                 if any(p in k for p in kernels))
+    return ms / n or None
 
 
 def paged_case(torch, gen, *, Hkv, ps, maxp, index, W, q8, dtype,
@@ -1638,8 +1757,9 @@ def check_paged(torch, timer, record, number):
     row = dict(slots=B, rows=n, W=w, page_size=PAGE_SIZE, shared_pages=0,
                chunk=C, splits=paged_attn.splits(PAGED_MAX_SEQ),
                ms=timer.ms(lambda: fn(q, k, v, *pools, pt, idx, **kw)),
-               device_ms=paged_device_ms(
-                   torch, timer, lambda: fn(q, k, v, *pools, pt, idx, **kw)),
+               device_ms=flushed_device_ms(
+                   torch, timer, lambda: fn(q, k, v, *pools, pt, idx, **kw),
+                   PAGED_KERNELS),
                plain_ms=timer.ms(lambda: plain(q, k, v, *plain_p, pt, idx,
                                                **kw), iters=5),
                library_ms=timer.ms(lambda: F.scaled_dot_product_attention(
@@ -1805,7 +1925,8 @@ def profile_paged_step(torch, eng, prompts, steps=8):
     reads = [timed_ms(fn) for fn in (single, window, window, single)]
     step_ms = (reads[0] + reads[3]) / 2
     window_ms = (reads[1] + reads[2]) / 2
-    by_name, why = device_ms_by_kernel(torch, single)
+    counts = {}
+    by_name, why = device_ms_by_kernel(torch, single, counts)
     cancel_all(eng)
     res = {"step_ms": step_ms, "window_step_ms": window_ms,
            "host_reads_ms": reads, "profile_failed": why}
@@ -1815,13 +1936,61 @@ def profile_paged_step(torch, eng, prompts, steps=8):
         res.update(device_ms_per_step=device,
                    idle_share=1 - device / step_ms,
                    paged_attn_ms_per_step=paged_attn_ms(by_name) / steps,
-                   top_ms_per_step=[[k[:60], v / steps] for k, v in top])
+                   top_ms_per_step=[[k[:60], v / steps] for k, v in top],
+                   **step_shares(by_name, counts, steps))
     return res
+
+
+def paged_transposed(torch, model, prompts, engine, record, bkw):
+    """The paged engine with transposed words attached to its w4 model
+    (in place): every call of at most 8 rows, so every decode step at 8
+    slots, takes K11 for its linears and K12 for their sidecars, the
+    prompts K1 or K4. Greedy f32 tokens of eight requests held to the
+    plain path's, then the bf16 step at 8 slots profiled."""
+    from squeezellm_tpu_torch.models import fuse
+
+    t0 = time.perf_counter()
+    L = model.config.n_layers
+    fuse.attach_decode_luts(model, transposed=True)
+    few = prompts[:PAGED_SLOTS]
+    reset_counts()
+    eng = engine()
+    got = eng.run(few, max_new_tokens=TRANSPOSED_NEW)
+    st = eng.stats
+    counts = read_counts()
+    want = [0] * 12
+    want[0], want[3] = counts[0], counts[3]  # a prompt's rows pick K1 or K4
+    want[2] = L * st["prefills"]
+    want[5] = L * st["decode_steps"]
+    want[10] = (4 * L + 1) * st["decode_steps"] + st["prefills"]  # lm_head
+    want[11] = 4 * L * st["decode_steps"]
+    if counts[0] + counts[3] != 4 * L * st["prefills"]:
+        raise AssertionError(f"paged transposed: K1 {counts[0]} + K4 "
+                             f"{counts[3]} launches for {st['prefills']} "
+                             f"prefills")
+    launches = expect_counts(record, "paged transposed f32", want)
+    ref = engine(plain=True).run(few, max_new_tokens=TRANSPOSED_NEW)
+    if got != ref:
+        bad = [r for r in ref if got[r] != ref[r]]
+        raise AssertionError(f"paged transposed f32: requests {bad} differ "
+                             f"from the plain path: "
+                             f"{[(got[r], ref[r]) for r in bad[:2]]}")
+    print(f"paged transposed f32 greedy: {len(few)} requests of "
+          f"{TRANSPOSED_NEW} new tokens identical to the plain path; "
+          f"{st['prefills']} prefills, {st['decode_steps']} decode steps; "
+          f"launches K1..K12 {launches}, K12's copies of x "
+          f"{record['paths'][-1]['variants']['K12 copies of x']}")
+    prof = profile_paged_step(torch, engine(**bkw), prompts)
+    secs = time.perf_counter() - t0
+    print(f"[paged with transposed words: {secs:.1f} s of the paged phase]")
+    return {"tokens": got, "launches": launches, "seconds": secs,
+            "profile": prof}
 
 
 def paged_attn_ms(by_name):
     """Device ms of K6-K9 (one kernel template) in a trace's sums."""
-    return sum(v for k, v in by_name.items() if "paged_attn_kernel" in k)
+    return sum(v for k, v in by_name.items()
+               if any(p in k for p in PAGED_KERNELS))
 
 
 def cancel_all(eng):
@@ -2043,7 +2212,10 @@ def run_paged(torch, config, record, smi):
         if label == "bf16":
             res["profile_bf16"] = profile_paged_step(torch, engine(**kw),
                                                      prompts)
-    for label in ("f32", "bf16"):
+    res["transposed"] = paged_transposed(torch, model, prompts, engine,
+                                         record, bkw)
+    res["profile_bf16_transposed"] = res["transposed"].pop("profile")
+    for label in ("f32", "bf16", "bf16_transposed"):
         prof = res[f"profile_{label}"]
         if prof["profile_failed"]:
             record["profile_failed"].append(f"paged {label}")
@@ -2059,7 +2231,11 @@ def run_paged(torch, config, record, smi):
                   f"device busy "
                   f"{prof['device_ms_per_step']:.3f} ms (idle share "
                   f"{prof['idle_share']:.3f}; K6 "
-                  f"{prof['paged_attn_ms_per_step']:.3f}); top: " + "; ".join(
+                  f"{prof['paged_attn_ms_per_step']:.3f}; " + ", ".join(
+                      f"{k} {v:.3f}" for k, v in
+                      prof["ms_per_step_by_kernel"].items())
+                  + f"; {prof['launches_per_step']:.0f} device launches a "
+                  f"step); top: " + "; ".join(
                       f"{k} {v:.3f}" for k, v in prof["top_ms_per_step"])
                   + f" [{smi}]")
     spec = res["profile_spec_f32"]
@@ -2417,7 +2593,10 @@ def run_structured(torch, config, record, smi):
     for k in ("structured", "withheld", "transposed"):
         prof = res[k].get("bench", res[k])["profile"]
         dev[k] = ("not measured" if prof["profile_failed"]
-                  else f"{prof['device_ms_per_step']:.3f}")
+                  else f"{prof['device_ms_per_step']:.3f} ("
+                  + ", ".join(f"{n} {v:.3f}" for n, v in
+                              prof["ms_per_step_by_kernel"].items() if v)
+                  + f"; {prof['launches_per_step']:.0f} device launches)")
         if prof["profile_failed"]:
             record["profile_failed"].append(f"{k} w4")
     print("structured w4 device ms a bf16 decode step: "
@@ -2488,7 +2667,11 @@ def kernel_lines(record):
         "flash_attention_exact": (next(
             r for r in record["k3_detail"]
             if r["Sq"] == 2048 and r["regime"] == "exact"),
-            "the 2048-token eval stride")}
+            "the 2048-token eval stride"),
+        "spmv": (next(r for r in record["k12_detail"] if r["shape"] == "down"
+                      and r["M"] == 8 and r["mode"] == "bf16"),
+                 "0.45% CSR sidecar of down 4096x11008, 8 rows of bf16 x "
+                 "(a paged decode step at 8 slots)")}
     paged_at = (f"LLaMA-2-7B layer, {PAGED_SLOTS} slots x {PAGED_AT_ROWS} "
                 f"valid rows, {PAGE_SIZE}-row pages, ")
     rows = [
@@ -2566,6 +2749,8 @@ def kernel_lines(record):
         if name in long_:
             r, at = long_[name]
             line["long"] = {"at": at, **{k: r[k] for k in keys}}
+            if "device_ms" in r:
+                line["long"]["device_ms"] = r["device_ms"]
         lines.append(line)
     return {"kernels": lines}
 
@@ -2598,7 +2783,8 @@ def ptxas_lines(source):
                                      "decode_attn_kernel",
                                      "paged_attn_kernel", "gemv_kernel",
                                      "mma_kernel", "k4_dequant_kernel",
-                                     "k11_kernel") if k in mangled),
+                                     "k11_kernel", "spmv_interleave_kernel",
+                                     "spmv_kernel") if k in mangled),
                         mangled)
             args = [("b" + b) for b in re.findall(r"Lb(\d)E", mangled)]
             args += re.findall(r"Li(\d+)E", mangled)
@@ -2658,7 +2844,8 @@ def main():
           f"loaded in {record['host_build_s']:.1f} s")
     record["ptxas"] = [line for src in ("lut_matmul.cu", "flash_attn.cu",
                                         "decode_attn.cu", "paged_attn.cu",
-                                        "dequant_dense.cu", "lut_matmul_t.cu")
+                                        "dequant_dense.cu", "lut_matmul_t.cu",
+                                        "spmv.cu")
                        for line in ptxas_lines(src)]
     for line in record["ptxas"]:
         print(f"  ptxas {line}")

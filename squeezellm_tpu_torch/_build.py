@@ -66,8 +66,10 @@ SIGNATURES = {
     # splits, words_per_split, stream
     "slt_lut_matmul_t": [_P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                          _I, _P],
-    # x, x_bf16, rowptr, cols, vals, y, B, in, out, stream
-    "slt_spmv": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _P],
+    # x, x_bf16, mt, xt, xt_bytes, rowptr, cols, vals, y0, y0_bf16, y,
+    # accumulate, B, in, out, group, stream
+    "slt_spmv": [_P, _I, _I, _P, ctypes.c_size_t, _P, _P, _P, _P, _I, _P,
+                 _I, _I, _I, _I, _I, _P],
     # slt_decode_attn's, with the scale sidecars sk, sv after ck, cv and no
     # cache_bf16
     "slt_decode_attn_q8": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,

@@ -24,8 +24,8 @@ this order:
 
 1. at most 8 rows, 4 bits, and ``qweight_t`` attached
    (``models.fuse.attach_decode_luts(transposed=True)``): K11
-   (``ops/lut_matmul_t``), then ``+ y0``, then K12's sparse sum
-   (``ops/spmv``);
+   (``ops/lut_matmul_t``), then ``+ y0`` and K12's sparse sum
+   (``ops/spmv``), both in K12's launch, in place on K11's output;
 2. a structured table attached (``struct_a``/``struct_d``) and fewer than
    ``BIG_BATCH`` rows: K10 (``ops/lut_matmul.lut_matmul_struct``), with
    the CSR fold and ``y0`` as in K1;
@@ -94,8 +94,9 @@ def quant_linear_apply(spec: QuantLinearSpec,
 
     mode: 'exact' (f32) or 'bf16' (x and LUT rounded to bf16, f32
     accumulation). y0: optional (..., out) residual, folded into K1's
-    output init or added after K4's matmul. plain: run the kernels' plain
-    versions whatever the device (the reference they are held against).
+    output init or K12's launch, or added after K4's matmul. plain: run
+    the kernels' plain versions whatever the device (the reference they
+    are held against).
     decode: the call is a decode step (one token a slot), which K1 and
     K10 run as their GEMV at any slot count."""
     lead = x.shape[:-1]
@@ -111,12 +112,12 @@ def quant_linear_apply(spec: QuantLinearSpec,
     if rows <= T_MAX_ROWS and spec.bits == 4 and "qweight_t" in params:
         fn = lut_matmul_t_plain if plain else lut_matmul_t
         y = fn(x2, params["qweight_t"], params["lut"], mode=mode)
-        if y0_2 is not None:
-            y = y + y0_2.float()
-        if sparse:
+        if sparse:  # y = (y + y0) + sparse, in place in K12's launch
             fn = spmv_plain if plain else spmv
-            y = y + fn(x2, sparse["rowptr"], sparse["cols"], sparse["vals"],
-                       spec.out_features)
+            fn(x2, sparse["rowptr"], sparse["cols"], sparse["vals"],
+               spec.out_features, y=y, y0=y0_2)
+        elif y0_2 is not None:
+            y = y + y0_2.float()
     elif "struct_a" in params and rows < BIG_BATCH:
         fn = lut_matmul_struct_plain if plain else lut_matmul_struct
         y = fn(x2, params["qweight"], params["struct_a"], params["struct_d"],

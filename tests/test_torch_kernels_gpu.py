@@ -766,19 +766,100 @@ def test_lut_matmul_t_rows_do_not_depend_on_the_batch(dev, in_f, out_f,
             assert torch.equal(part, full[a:b]), (x_dt, a, b)
 
 
+def _k12_csr(dev, kind, seed):
+    """A CSR sidecar (in_f, rowptr, cols, vals) on `dev`, out_f = 517 rows:
+    "random" (2% of 300 inputs); "wide" (2% of 25000 inputs: one row of f32
+    x, 100000 bytes, is more than a block stages, so it is read from
+    global memory); "skewed" (empty rows, one row holding
+    half of 2304 inputs, one of 2000 entries, the rest sparse);
+    "duplicates" (columns repeated within rows); "g8"/"g16"/"g32" (row
+    lengths at the edges of a lane, of G lanes and of G * UNROLL entries
+    in flight, among rows of 3 G entries, so that their mean picks that
+    G)."""
+    rng = np.random.default_rng(seed)
+    out_f = 517
+    in_f = {"skewed": 2304, "random": 300, "duplicates": 300,
+            "wide": 25000}.get(kind, 600)
+    if kind in ("random", "wide"):
+        lengths = rng.binomial(in_f, 0.02, out_f)
+    elif kind == "skewed":
+        lengths = np.where(rng.random(out_f) < 0.3, 0,
+                           rng.integers(1, 12, out_f))
+        lengths[5], lengths[300] = in_f // 2, 2000
+    elif kind == "duplicates":
+        lengths = rng.integers(0, 40, out_f)
+    else:
+        G, U = int(kind[1:]), spmv.UNROLL
+        edges = [0, 1, G - 1, G, G + 1, G * U - 1, G * U, G * U + 1,
+                 2 * G * U + 1]
+        period = [n for e in edges for n in (e, 3 * G, 3 * G, 3 * G, 3 * G)]
+        lengths = np.array(period * (out_f // len(period) + 1))[:out_f]
+    rows = []
+    for n in lengths:
+        rows.append(rng.integers(0, 16, n) if kind == "duplicates"
+                    else rng.choice(in_f, n, replace=False))
+    cols = np.concatenate(rows).astype(np.int32)
+    rowptr = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    vals = rng.standard_normal(len(cols)).astype(np.float32)
+    if kind.startswith("g"):
+        assert spmv.group_size(len(cols), out_f) == int(kind[1:])
+    return in_f, *(torch.from_numpy(a).to(dev) for a in (rowptr, cols, vals))
+
+
+K12_SIDECARS = ["random", "wide", "skewed", "duplicates", "g8", "g16",
+                "g32"]
+
+
+@pytest.mark.parametrize("sidecar", K12_SIDECARS)
 @pytest.mark.parametrize("B", [1, 3, 8, 40, 100, 1023])
-def test_spmv_kernel_matches_plain(dev, B):
+def test_spmv_kernel_matches_plain(dev, B, sidecar):
+    """The sum alone and folded into an accumulator (y0 none, f32, bf16),
+    x f32 and bf16, against the plain version."""
+    in_f, *csr = _k12_csr(dev, sidecar, B)
+    out_f = csr[0].numel() - 1
     g = torch.Generator(device=dev).manual_seed(B)
-    in_f, out_f = 300, 517
-    t = synthetic.random_quant_linear(g, dev, out_f, in_f, 4, 0.02,
-                                      0).tensors()
     for x_dt in (torch.float32, torch.bfloat16):
         x = torch.randn(B, in_f, generator=g, device=dev).to(x_dt)
-        args = (x, t["sp_rowptr"], t["sp_cols"], t["sp_vals"], out_f)
-        got = spmv.spmv(*args)
-        want = spmv.spmv_plain(*args)
-        torch.cuda.synchronize()
-        assert _rel(got, want) <= 1e-5, (x_dt, _rel(got, want))
+        y = torch.randn(B, out_f, generator=g, device=dev)
+        for y0_dt in (None, "none", torch.float32, torch.bfloat16):
+            kw = {}
+            if y0_dt is not None:  # the accumulate form
+                y0 = (None if y0_dt == "none" else
+                      torch.randn(B, out_f, generator=g, device=dev).to(
+                          y0_dt))
+                kw = dict(y=y.clone(), y0=y0)
+            got = spmv.spmv(x, *csr, out_f, **kw)
+            if kw:
+                assert got.data_ptr() == kw["y"].data_ptr()  # in place
+                kw["y"] = y.clone()
+            want = spmv.spmv_plain(x, *csr, out_f, **kw)
+            torch.cuda.synchronize()
+            assert _rel(got, want) <= 1e-5, (x_dt, y0_dt, _rel(got, want))
+
+
+@pytest.mark.parametrize("sidecar", K12_SIDECARS)
+def test_spmv_rows_do_not_depend_on_the_batch(dev, sidecar):
+    """Row m of K12 is bit-equal at every M from 1 to 8, at every place in
+    the batch, across two launches and with the fold: a slot's tokens do
+    not depend on the slots decoded beside it."""
+    in_f, *csr = _k12_csr(dev, sidecar, 7)
+    out_f = csr[0].numel() - 1
+    g = torch.Generator(device=dev).manual_seed(7)
+    for x_dt in (torch.float32, torch.bfloat16):
+        x = torch.randn(8, in_f, generator=g, device=dev).to(x_dt)
+        y = torch.randn(8, out_f, generator=g, device=dev)
+        y0 = torch.randn(8, out_f, generator=g, device=dev)
+        full = spmv.spmv(x, *csr, out_f)
+        assert torch.equal(spmv.spmv(x, *csr, out_f), full)
+        folded = spmv.spmv(x, *csr, out_f, y=y.clone(), y0=y0)
+        for a, b in ((0, 1), (0, 2), (0, 3), (0, 4), (0, 5), (0, 6), (0, 7),
+                     (7, 8), (3, 8), (2, 5), (1, 2)):
+            part = spmv.spmv(x[a:b].contiguous(), *csr, out_f)
+            fpart = spmv.spmv(x[a:b].contiguous(), *csr, out_f,
+                              y=y[a:b].clone(), y0=y0[a:b].contiguous())
+            torch.cuda.synchronize()
+            assert torch.equal(part, full[a:b]), (x_dt, a, b)
+            assert torch.equal(fpart, folded[a:b]), (x_dt, a, b)
 
 
 @pytest.mark.parametrize("rows,want", [(1, "t"), (8, "t"), (9, "struct"),

@@ -183,6 +183,95 @@ def test_k12_plain_takes_crowded_rows_a_block_at_a_time(monkeypatch):
                                rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("y0_dtype", [None, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B", [1, 8, 40])
+def test_k12_fold_is_the_composition_bit_for_bit(B, y0_dtype):
+    """K12's accumulate form, y = (y + y0) + sum in place, is the
+    transposed route's two adds in their order, bit for bit: through the
+    plain version and through the wrapper on CPU tensors."""
+    rng = np.random.default_rng(30 + B)
+    coo = _coo(rng, OUT_F, IN_F)
+    csr = [_t(a) for a in carry.csr_from_coo(coo.rows, coo.cols, coo.vals,
+                                             OUT_F, IN_F)]
+    x = _t(rng.standard_normal((B, IN_F)).astype(np.float32))
+    y = _t(rng.standard_normal((B, OUT_F)).astype(np.float32))
+    y0 = (None if y0_dtype is None else
+          _t(rng.standard_normal((B, OUT_F)).astype(np.float32)).to(y0_dtype))
+    want = y if y0 is None else y + y0.float()
+    want = want + spmv.spmv_plain(x, *csr, OUT_F)
+    for fn in (spmv.spmv_plain, spmv.spmv):
+        acc = y.clone()
+        got = fn(x, *csr, OUT_F, y=acc, y0=y0)
+        assert got is acc
+        assert torch.equal(got, want), fn.__name__
+
+
+@pytest.mark.parametrize("with_y0", [False, True])
+@pytest.mark.parametrize("rows", [1, 3, 8])
+def test_transposed_route_matches_lut_matmul_t_and_gather_spmv(rows,
+                                                               with_y0):
+    """The port's transposed route (K11, then y0 and K12's sum folded in
+    K12's launch) against the JAX package's: lut_matmul_t, + y0, then
+    gather_spmv on a slot plan, both Pallas kernels in interpret mode."""
+    rng = np.random.default_rng(40 + rows)
+    lut = np.sort(rng.standard_normal((OUT_F, 16)).astype(np.float32), 1)
+    coo = _coo(rng, OUT_F, IN_F, 0.02)
+    p = {"qweight": _qweight(rng, IN_F, OUT_F), "lut": lut,
+         "sp_rows": coo.rows, "sp_cols": coo.cols, "sp_vals": coo.vals}
+    spec, jp = jspmv.attach_plan(
+        jql.QuantLinearSpec(bits=4, in_features=IN_F, out_features=OUT_F,
+                            nnz_pad=len(coo.vals)), p)
+    assert spec.sg_rows > 0
+    jp.update(qweight_t=np.ascontiguousarray(p["qweight"].T),
+              lut_w=np.asarray(pallas_ops.wide_lut(lut, 4)))
+    lin = carry.linear_from_tree(IN_F, {"quant": True, "bits": 4}, p, "cpu")
+    holder = torch.nn.Module()
+    holder.lin = lin
+    fuse.attach_decode_luts(holder, transposed=True)
+    assert "qweight_t" in lin.tensors()
+    x = rng.standard_normal((rows, IN_F)).astype(np.float32)
+    y0 = (rng.standard_normal((rows, OUT_F)).astype(np.float32) if with_y0
+          else None)
+    before = spmv.spmv.launches
+    got = lin(_t(x), y0=None if y0 is None else _t(y0))
+    assert spmv.spmv.launches == before  # CPU tensors: the plain version
+    want = jql.quant_linear_apply(
+        spec, jax.tree.map(jnp.asarray, jp), jnp.asarray(x),
+        backend="pallas", y0=None if y0 is None else jnp.asarray(y0))
+    assert _rel(got, want) <= EXACT
+
+
+@pytest.mark.parametrize("bad", ["y0 without y", "y dtype", "y shape",
+                                 "y0 shape", "y0 dtype", "y strided"])
+def test_spmv_refuses_a_wrong_accumulator(bad):
+    B = 3
+    rowptr = torch.zeros(OUT_F + 1, dtype=torch.int32)
+    cols, vals = torch.zeros(0, dtype=torch.int32), torch.zeros(0)
+    x = torch.zeros(B, IN_F)
+    y, y0 = torch.zeros(B, OUT_F), torch.zeros(B, OUT_F)
+    kw = {"y0 without y": dict(y0=y0),
+          "y dtype": dict(y=y.bfloat16()),
+          "y shape": dict(y=torch.zeros(B + 1, OUT_F)),
+          "y0 shape": dict(y=y, y0=torch.zeros(B, OUT_F - 1)),
+          "y0 dtype": dict(y=y, y0=y0.double()),
+          "y strided": dict(y=torch.zeros(OUT_F, B).t())}[bad]
+    with pytest.raises(ValueError):
+        spmv.spmv(x, rowptr, cols, vals, OUT_F, **kw)
+
+
+@pytest.mark.parametrize("in_f,density,want", [
+    (4096, 0.0045, 8), (11008, 0.0045, 16), (4096, 0.02, 32),
+    (4096, 0.0, 8)])
+def test_k12_lanes_a_row_follow_the_sidecar_shape(in_f, density, want):
+    """G lanes a CSR row from the mean row length: 8 for LLaMA-2-7B's
+    4096-input sidecars at 0.45%, 16 for down's 11008 inputs, 32 for
+    denser rows; the batch tile is fixed by B alone."""
+    out_f = 4096
+    assert spmv.group_size(int(out_f * in_f * density), out_f) == want
+    assert [spmv.tile_rows(b) for b in (1, 2, 3, 4, 5, 8, 9, 1023)] == [
+        1, 2, 4, 4, 8, 8, 8, 8]
+
+
 def test_wrappers_refuse_on_the_cpu_what_the_card_refuses():
     x = torch.zeros(9, IN_F)
     qwt = torch.zeros(OUT_F, jformats.n_words(IN_F, 4), dtype=torch.int32)
