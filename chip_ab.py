@@ -14,7 +14,9 @@ DIR, this, this, DIR, and reports:
   or 1023 rows);
 * K2 and K5 at chip_smoke.DECODE_LENS valid rows of a 2048-row cache, and
   K3 on bf16 q/k/v at chip_smoke.K3_LENS (mode "bf16" where the wrapper
-  takes a mode), with causal SDPA at the eval stride;
+  takes a mode; by the timer and the profiler, and a digest of its output
+  bits, the same inputs on both sides), with causal SDPA at the eval
+  stride;
 * K4 (w4, the 0.45% sidecar folded in) at the five LLaMA-2-7B shapes in
   bf16 and exact mode, K11 (transposed words) at AB_K11_ROWS in bf16
   mode, and K12 (the sparse sum) on the four 0.45% sidecars at
@@ -35,11 +37,18 @@ DIR, this, this, DIR, and reports:
   profile_spec_window), with K6's and K8's shares, and of its bf16 step at
   8 slots through K1 and with transposed words attached (K11 + K12).
 
+Steps run eagerly on both sides (``graphs=False`` on a side whose engines
+capture CUDA graphs), so the two sides' device times compare. On a side
+whose engines have graphs, the decode steps, the paged steps and the
+speculative window are also read graphed (under "..._graphed": host and
+device time of the replayed steps).
+
 It prints each reading with the card's name and power limit, then one JSON
 line of them all. Kernel times use chip_smoke.Timer (L2 flushed, CUDA
 events), device times the profiler. It calls only what both sides have.
 """
 
+import hashlib
 import inspect
 import json
 import os
@@ -202,7 +211,8 @@ def worker(root):
     _build.lib()
     timer = cs.Timer(torch)
     dev = torch.device("cuda")
-    out = {"root": root, "k1": {}, "k2": {}, "k5": {}, "k3": {}}
+    out = {"root": root, "k1": {}, "k2": {}, "k5": {}, "k3": {},
+           "k3_device": {}, "k3_sha": {}}
     # a decode step passes decode=True where the port has it (the GEMV at
     # any slot count); elsewhere the wrapper's plan picks by the rows
     call_site = "decode" in inspect.signature(
@@ -265,6 +275,14 @@ def worker(root):
         kw = {"mode": "bf16"} if has_mode else {}
         out["k3"][sq] = timer.ms(lambda: flash_attn.flash_attention(
             q, k, v, 0, **kw))
+        out["k3_device"][sq] = cs.flushed_device_ms(
+            torch, timer, lambda: flash_attn.flash_attention(q, k, v, 0,
+                                                             **kw),
+            ("flash_attn",))
+        # the same inputs on both sides (this file's draws): equal digests
+        # mean the two trees' K3 give the same bits
+        out["k3_sha"][sq] = hashlib.sha256(flash_attn.flash_attention(
+            q, k, v, 0, **kw).cpu().numpy().tobytes()).hexdigest()[:16]
         if sq == cs.K3_LENS[-1]:
             qc, kc, vc = (t[:, :, :sq].contiguous() for t in (q, k, v))
             out["k3_causal_sdpa_ms"] = timer.ms(
@@ -275,14 +293,21 @@ def worker(root):
                                                   "llama-2-7b"))
     model = fuse.fuse_for_decode(synthetic.quantized_llama(config, 4,
                                                            seed=4))
-    eng = engine.Engine(model, dtype=torch.bfloat16,
-                        cache_dtype=torch.bfloat16, mode="bf16")
+    # eager steps on both sides; a side with graphs also reads them graphed
+    has_graphs = "graphs" in inspect.signature(engine.Engine).parameters
+    eager = {"graphs": False} if has_graphs else {}
+    variants = (("", eager), ("_graphed", {})) if has_graphs else (("", {}),)
+    bkw = dict(dtype=torch.bfloat16, cache_dtype=torch.bfloat16, mode="bf16")
+    eng = engine.Engine(model, **bkw, **eager)
     ids = (np.arange(cs.BENCH_TOKENS, dtype=np.int64)[None] * 7919
            % config.vocab_size)
     with torch.no_grad():
-        out["decode"] = cs.profile_decode(torch, eng, ids)
-        out["decode_long"] = cs.profile_decode(torch, eng, ids,
-                                               start=cs.LONG_CONTEXT)
+        for sfx, gkw in variants:
+            e = engine.Engine(model, **bkw, **gkw)
+            out["decode" + sfx] = cs.profile_decode(torch, e, ids)
+            out["decode_long" + sfx] = cs.profile_decode(
+                torch, e, ids, start=cs.LONG_CONTEXT)
+            del e
         tokens = data.synthetic_tokens(config.vocab_size, cs.EVAL_SEQLEN,
                                        seed=17)
         with cs.CardSampler() as card:
@@ -294,9 +319,9 @@ def worker(root):
         tmodel = fuse.attach_decode_luts(fuse.fuse_for_decode(
             synthetic.quantized_llama(config, 4, seed=10, structured=True)),
             transposed=True)
-        out["decode_transposed"] = cs.profile_decode(torch, engine.Engine(
-            tmodel, dtype=torch.bfloat16, cache_dtype=torch.bfloat16,
-            mode="bf16"), ids)
+        for sfx, gkw in variants:
+            out["decode_transposed" + sfx] = cs.profile_decode(
+                torch, engine.Engine(tmodel, **bkw, **gkw), ids)
         del tmodel
         torch.cuda.empty_cache()
 
@@ -321,19 +346,28 @@ def worker(root):
                 page_size=cs.PAGE_SIZE, max_seq=cs.PAGED_MAX_SEQ, **kw)
 
         prompts = cs.paged_requests(config)
-        out["paged_step"] = cs.profile_paged_step(torch, paged_engine(),
-                                                  prompts)
-        out["spec_window"] = cs.profile_spec_window(
-            torch, paged_engine(speculative=cs.SPECULATIVE), prompts)
-        bkw = dict(dtype=torch.bfloat16, mode="bf16",
-                   cache_dtype=torch.bfloat16)
-        out["paged_step_bf16"] = cs.profile_paged_step(
-            torch, paged_engine(**bkw), prompts)
+        for sfx, gkw in variants:
+            out["paged_step" + sfx] = cs.profile_paged_step(
+                torch, paged_engine(**gkw), prompts)
+            out["spec_window" + sfx] = cs.profile_spec_window(
+                torch, paged_engine(speculative=cs.SPECULATIVE, **gkw),
+                prompts)
+            out["paged_step_bf16" + sfx] = cs.profile_paged_step(
+                torch, paged_engine(**bkw, **gkw), prompts)
         fuse.attach_decode_luts(model, transposed=True)
-        out["paged_step_bf16_transposed"] = cs.profile_paged_step(
-            torch, paged_engine(**bkw), prompts)
+        for sfx, gkw in variants:
+            out["paged_step_bf16_transposed" + sfx] = cs.profile_paged_step(
+                torch, paged_engine(**bkw, **gkw), prompts)
     print(json.dumps(out))
     return 0
+
+
+def host_device(prof):
+    """(host ms, device ms) of a decode, paged step or window profile."""
+    host = prof.get("host_ms_per_step", prof.get(
+        "step_ms", prof.get("host_ms_per_window")))
+    return host, prof.get("device_ms_per_step",
+                          prof.get("device_ms_per_window"))
 
 
 def main(other):
@@ -376,6 +410,13 @@ def main(other):
                   f"{p.get('ms_per_step_by_kernel')}, device launches a step "
                   f"{p.get('launches_per_step')}), host ms {p['step_ms']}, "
                   f"idle share {p.get('idle_share')} [{smi}]")
+        for k in [k for k in r if k.endswith("_graphed")]:
+            (gh, gd), (eh, ed) = host_device(r[k]), host_device(r[k[:-8]])
+            print(f"{label} ({r['root']}): {k[:-8]} host ms / device ms: "
+                  f"graphed {gh} / {gd} (idle share "
+                  f"{r[k].get('idle_share')}, profile failed: "
+                  f"{r[k].get('profile_failed')}), eager {eh} / {ed} "
+                  f"[{smi}]")
         print(f"{label} ({r['root']}, {r['seconds']:.0f} s): K1 ms {r['k1']} "
               f"K2 ms {r['k2']} K5 ms {r['k5']} K3 ms {r['k3']} (causal "
               f"sdpa at {cs.K3_LENS[-1]}: {r['k3_causal_sdpa_ms']:.4f}); "
@@ -391,6 +432,10 @@ def main(other):
               f"speculative window device ms "
               f"{r['spec_window'].get('device_ms_per_window')} (K8 "
               f"{r['spec_window'].get('paged_attn_ms_per_window')}) [{smi}]")
+    same = len({json.dumps(r["k3_sha"], sort_keys=True) for r in runs}) == 1
+    print(f"K3 device ms a launch (bf16 q/k/v, L2 flushed) by side: "
+          + "; ".join(f"{r['label']} {r['k3_device']}" for r in runs)
+          + f"; K3's output bits equal on every side: {same} [{smi}]")
     print(json.dumps({"card": smi, "runs": runs}))
     return 0
 

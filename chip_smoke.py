@@ -37,6 +37,20 @@ checking after each that it went through its kernels:
   benchmark through K10, the benchmark again with the structured table
   withheld (K1), then with transposed words attached (K11 and K12).
 
+Every per-token step of Engine and of the paged engine runs as a CUDA
+graph captured once and replayed (``squeezellm_tpu_torch/graphs.py``); the
+launch counts include the replays. Beside that, each path named below is
+run again with ``graphs=False`` in the same process and held to the same
+tokens: the w4 and w3 greedy requests, a sampled w4 bf16 request, the
+int8-cache request, the OPT request, the paged f32 run and the paged bf16
+sampled run admitted in reverse. Speculation at full width (w4, f32):
+``generate_speculative`` and ``generate_draft_speculative`` with
+``truncate_for_draft(model, 4)``, device and host loops, each
+token-identical to greedy ``generate`` (the bf16 share reported), and a
+self-draft's acceptance. Host and device time, eager and graphed, side by
+side: the w4 bf16 decode step at both contexts, the paged step at 8 slots
+(f32, bf16, bf16 with transposed words) and the paged speculative window.
+
 The last line is
 ``{"ok": true, "device": {"platform": "gpu", ...}}``; the line before it
 has the card's name and power limit, and the one before that the kernels'
@@ -146,6 +160,11 @@ OPT_PROMPT = 16
 PAGED_SLOTS, PAGED_PAGES, PAGE_SIZE, PAGED_MAX_SEQ = 8, 160, 128, 2048
 PAGED_PREFIX, PAGED_SUFFIX, PAGED_LENS = 256, 44, (100, 37)
 SPECULATIVE = (4, 2)
+# the sampled requests: temperature, top-k, top-p and the seed
+SAMPLED = dict(temperature=0.8, top_k=40, top_p=0.95, seed=5)
+# full-width speculation (w4, f32): a prompt of SPEC_PROMPT tokens, a cache
+# of SPEC_MAX_SEQ rows, the early-exit draft's layers
+SPEC_PROMPT, SPEC_MAX_SEQ, DRAFT_LAYERS = 64, 256, 4
 TRANSPOSED_NEW = 4  # new tokens a request with transposed words attached
 # K6-K9 are timed at 8 slots x 1024 valid rows of a LLaMA-2-7B layer
 PAGED_AT_ROWS = 1024
@@ -246,6 +265,43 @@ def rel_err(a, b):
 
 def abs_err(a, b):
     return float((a.float() - b.float()).abs().max())
+
+
+def hold_equal(label, got, want):
+    """Tokens (arrays, lists of arrays or dicts of lists) equal, or raise
+    naming the first difference."""
+    import numpy as np
+
+    if isinstance(got, dict):
+        bad = [r for r in want if got.get(r) != want[r]]
+        if sorted(got) != sorted(want) or bad:
+            raise AssertionError(f"{label}: requests {bad} differ: "
+                                 f"{[(got.get(r), want[r]) for r in bad[:2]]}")
+        return
+    pairs = (zip(got, want) if isinstance(got, (list, tuple))
+             else [(got, want)])
+    for i, (a, b) in enumerate(pairs):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{label}: case {i}: {a} != {b}")
+
+
+def print_host_device(label, cases, record):
+    """One line: each case's host ms, device ms and idle share (a profile
+    of profile_decode, profile_paged_step or profile_spec_window)."""
+    parts = []
+    for name, prof in cases:
+        host = prof.get("host_ms_per_step", prof.get(
+            "step_ms", prof.get("host_ms_per_window")))
+        dev = prof.get("device_ms_per_step",
+                       prof.get("device_ms_per_window"))
+        if prof.get("profile_failed"):
+            record["profile_failed"].append(f"{label} {name}")
+            parts.append(f"{name}: host {host:.3f} ms, device not measured "
+                         f"({prof['profile_failed']})")
+        else:
+            parts.append(f"{name}: host {host:.3f} ms, device {dev:.3f} ms, "
+                         f"idle share {prof['idle_share']:.3f}")
+    print(f"{label}, host against device: " + "; ".join(parts))
 
 
 def check_k1(torch, timer, record):
@@ -495,6 +551,37 @@ def check_k3(torch, timer, record):
     gen = torch.Generator(device=dev).manual_seed(13)
     H, Hkv, hd, S = 32, 32, 128, 4096
     worst = {"bf16": 0.0, "exact": 0.0}
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    # a speculative verify window (W = 5) at a device offset, as the
+    # graphed window launches it, against the int offset and the plain
+    # version
+    W, at = SPECULATIVE[0] + 1, 1000
+    qw = torch.randn(1, W, H, hd, generator=gen,
+                     device=dev).to(torch.bfloat16).transpose(1, 2)
+    cw = {n: torch.randn(1, S, Hkv * hd, generator=gen,
+                         device=dev).to(torch.bfloat16) for n in ("k", "v")}
+    kw_, vw_ = common.read_kv(cw, torch.bfloat16, Hkv)
+    off = torch.tensor([at], dtype=torch.int32, device=dev)
+    for regime, qq in (("bf16", qw), ("exact", qw.float())):
+        got = flash_attn.flash_attention(qq, kw_, vw_, off, mode=regime)
+        same = torch.equal(got, flash_attn.flash_attention(
+            qq, kw_, vw_, at, mode=regime))
+        want = flash_attn.flash_attention_plain(qq, kw_, vw_, off)
+        err = (abs_err(got, want) / float(vw_[:, :, :at + W].float().abs()
+                                          .max()) if regime == "bf16"
+               else rel_err(got, want))
+        limit = TOL_ATTN_BF16 if regime == "bf16" else TOL_ATTN
+        if not (same and err <= limit):
+            raise AssertionError(f"K3 {regime} window at a device offset: "
+                                 f"equal to the int offset {same}, err "
+                                 f"{err} (limit {limit})")
+        record.setdefault("k3_window", {})[regime] = dict(
+            W=W, offset=at, err=err,
+            ms=timer.ms(lambda: flash_attn.flash_attention(
+                qq, kw_, vw_, off, mode=regime)))
+    print(f"  K3 verify window W={W} at device offset {at}: equal to the int "
+          f"offset's launch, within its tolerance of the plain version; "
+          f"{record['k3_window']}")
     for sq in K3_LENS:
         q = torch.randn(1, sq, H, hd, generator=gen,
                         device=dev).to(torch.bfloat16).transpose(1, 2)
@@ -517,6 +604,11 @@ def check_k3(torch, timer, record):
             torch.cuda.synchronize()
             if flash_attn.flash_attention.regime_launches[regime] != before + 1:
                 raise AssertionError(f"K3 Sq={sq}: not the {regime} kernel")
+            # the offset read from a tensor on the card: the same launch
+            if not torch.equal(got, flash_attn.flash_attention(
+                    qq, k, v, zero, mode=mode)):
+                raise AssertionError(f"K3 {regime} Sq={sq}: a device offset "
+                                     "gives other bits than the int")
             err = abs_err(got, want)
             worst[regime] = max(worst[regime], err)
             if regime == "bf16":
@@ -1060,22 +1152,15 @@ def _per_step(rows, get):
 
 def counters():
     """The twelve wrappers, K1 to K12."""
-    from squeezellm_tpu_torch.ops import (decode_attn, dequant_dense,
-                                          flash_attn, lut_matmul,
-                                          lut_matmul_t, paged_attn, spmv)
+    from squeezellm_tpu_torch import graphs
 
-    return (lut_matmul.lut_matmul, decode_attn.decode_attention,
-            flash_attn.flash_attention, dequant_dense.dequant_dense,
-            decode_attn.decode_attention_q8,
-            paged_attn.paged_decode_attention,
-            paged_attn.paged_decode_attention_q8,
-            paged_attn.paged_verify_attention,
-            paged_attn.paged_verify_attention_q8,
-            lut_matmul.lut_matmul_struct, lut_matmul_t.lut_matmul_t,
-            spmv.spmv)
+    return graphs.counted_wrappers()
 
 
 def reset_counts():
+    from squeezellm_tpu_torch import graphs
+
+    graphs.REPLAYED[:] = [0] * len(graphs.REPLAYED)
     for fn in counters():
         fn.launches = 0
     counters()[1].ropeless_launches = 0
@@ -1093,7 +1178,10 @@ def expect_counts(record, path, want):
     want = list(want) + [0] * (len(got) - len(want))
     if got != want:
         raise AssertionError(f"{path}: launches K1..K12 {got} != {want}")
-    record["paths"].append({"path": path, "launches": got, "variants": {
+    from squeezellm_tpu_torch import graphs
+
+    record["paths"].append({"path": path, "launches": got,
+                            "replayed": list(graphs.REPLAYED), "variants": {
         "K1": dict(counters()[0].variant_launches),
         "K10": dict(counters()[9].variant_launches),
         "K3": dict(counters()[2].regime_launches),
@@ -1137,28 +1225,66 @@ def device_ms_by_kernel(torch, fn, counts=None):
 
 
 def profile_decode(torch, eng, ids, steps=8, start=2):
-    """Device time per decode step and its split by kernel, from a trace
-    of `steps` steps at positions start.. of a cache of start + steps rows
-    (the rows before it zeros: a long context costs its bytes whatever
-    they hold); ``profile_failed`` says why there is none."""
-    cache = eng.new_cache(1, max(BENCH_TOKENS, start + steps))
-    tok = torch.tensor(ids[:, :1], device="cuda")
-    kw = dict(dtype=eng.dtype, mode=eng.mode)
-    for i in range(start - 2, start):
-        eng.model.decode_step(tok, i, cache, **kw)
+    """Host and device time per decode step, and the device time's split
+    by kernel, at positions start.. of a cache of start + steps rows (the
+    rows before it zeros: a long context costs its bytes whatever they
+    hold). The steps are the engine's benchmark step program
+    (``Engine.bench_program``), replayed as a CUDA graph or run eagerly as
+    the engine runs it; an engine without one (an older checkout's) steps
+    its model eagerly. Host ms: `steps` steps back to back and one sync;
+    device ms from a trace of the same steps; ``profile_failed`` says why
+    there is none."""
+    import numpy as np
 
-    def run():
-        for i in range(start, start + steps):
-            eng.model.decode_step(tok, i, cache, **kw)
+    rows = max(BENCH_TOKENS, start + steps)
+    graphed = False
+    with torch.no_grad():
+        if hasattr(eng, "bench_program"):
+            st, step = eng.bench_program(np.resize(ids, (1, start + steps)),
+                                         max_seq=rows)
+            st.pos.fill_(start - 2)
+            step()  # the first call (a graph's warm-up and capture)
+            step()
+            graphed = step.graph is not None
 
-    counts = {}
-    by_name, why = device_ms_by_kernel(torch, run, counts)
+            def reset():
+                st.pos.fill_(start)
+
+            def run():
+                for _ in range(steps):
+                    step()
+        else:
+            cache = eng.new_cache(1, rows)
+            tok = torch.tensor(ids[:, :1], device="cuda")
+            kw = dict(dtype=eng.dtype, mode=eng.mode)
+            for i in range(start - 2, start):
+                eng.model.decode_step(tok, i, cache, **kw)
+
+            def reset():
+                pass
+
+            def run():
+                for i in range(start, start + steps):
+                    eng.model.decode_step(tok, i, cache, **kw)
+
+        reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) / steps * 1e3
+        reset()
+        counts = {}
+        by_name, why = device_ms_by_kernel(torch, run, counts)
     if by_name is None:
-        return {"profile_failed": why}
+        return {"profile_failed": why, "context": start, "graphs": graphed,
+                "host_ms_per_step": host}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     attn = sum(v for k, v in by_name.items() if "decode_attn_kernel" in k)
-    return {"profile_failed": None, "context": start,
-            "device_ms_per_step": sum(by_name.values()) / steps,
+    device = sum(by_name.values()) / steps
+    return {"profile_failed": None, "context": start, "graphs": graphed,
+            "host_ms_per_step": host, "device_ms_per_step": device,
+            "idle_share": 1 - device / host,
             "k2_k5_ms_per_step": attn / steps,
             "top_ms_per_step": [[k[:60], v / steps] for k, v in top],
             **step_shares(by_name, counts, steps)}
@@ -1317,6 +1443,12 @@ def run_model(torch, config, bits, record):
     res["launches"] = expect_counts(record, f"w{bits} requests", [
         want_k1, len(PROMPT_LENS) * (NEW_TOKENS - 1) * config.n_layers,
         len(PROMPT_LENS) * config.n_layers, 0, 0])
+    eager = engine.Engine(model, graphs=False)
+    t0 = time.perf_counter()
+    got_eager = [eager.generate(p, NEW_TOKENS) for p in prompts]
+    res["requests_eager_s"] = time.perf_counter() - t0
+    del eager
+    hold_equal(f"w{bits} requests, graphed vs eager", got, got_eager)
     plain = engine.Engine(model, plain=True)
     ref = [plain.generate(p, NEW_TOKENS) for p in prompts]
     for g, r, n in zip(got, ref, PROMPT_LENS):
@@ -1331,17 +1463,29 @@ def run_model(torch, config, bits, record):
     if not (torch.isfinite(tf).all() and res["tf_exact_rel_err"] <= TOL_TF_EXACT):
         raise AssertionError(f"w{bits} f32 logits: {res['tf_exact_rel_err']}")
     print(f"w{bits} (i) 3 requests (prompts {PROMPT_LENS}, {NEW_TOKENS} new "
-          f"tokens) in {res['requests_s']:.2f} s, tokens identical to the "
-          f"plain path; launches K1..K12 {res['launches']}; f32 "
-          f"teacher-forced logits rel err {res['tf_exact_rel_err']:.3g}")
+          f"tokens) in {res['requests_s']:.2f} s graphed, "
+          f"{res['requests_eager_s']:.2f} s eager, tokens identical to each "
+          f"other and to the plain path; launches K1..K12 "
+          f"{res['launches']} (of them by graph replays "
+          f"{record['paths'][-1]['replayed']}); f32 teacher-forced logits "
+          f"rel err {res['tf_exact_rel_err']:.3g}")
 
     # (ii) the bf16 flagship benchmark: the timed call without the check,
     # the perplexity check in a call of its own
-    bf = engine.Engine(model, dtype=torch.bfloat16,
-                       cache_dtype=torch.bfloat16, mode="bf16")
+    bkw = dict(dtype=torch.bfloat16, cache_dtype=torch.bfloat16, mode="bf16")
+    bf = engine.Engine(model, **bkw)
+    bf_eager = engine.Engine(model, graphs=False, **bkw)
     stats = bf.benchmark(ids, max_seq=BENCH_TOKENS)
+    stats["eager"] = bf_eager.benchmark(ids, max_seq=BENCH_TOKENS)
     stats["check_ppl"] = bf.benchmark(ids, max_seq=BENCH_TOKENS,
                                       check=True)["check_ppl"]
+    if bits == 4:  # a sampled bf16 request, graphed and eager
+        sampled = [e.generate(prompts[-1], NEW_TOKENS, **SAMPLED)
+                   for e in (bf, bf_eager)]
+        hold_equal("w4 bf16 sampled request, graphed vs eager", *sampled)
+        res["sampled_tokens"] = sampled[0][0, PROMPT_LENS[-1]:].tolist()
+        print(f"w4 bf16 sampled request ({SAMPLED}): graphed and eager "
+              f"tokens identical: {res['sampled_tokens'][:8]}...")
     bf_plain = engine.Engine(model, dtype=torch.bfloat16,
                              cache_dtype=torch.bfloat16, mode="bf16",
                              plain=True)
@@ -1363,9 +1507,19 @@ def run_model(torch, config, bits, record):
 
     stats["profile"] = profile_decode(torch, bf, ids)
     if bits == 4:  # the same step at a 2048-row context: K2's row split
+        stats["profile_eager"] = profile_decode(torch, bf_eager, ids)
         stats["profile_long"] = profile_decode(torch, bf, ids,
                                                start=LONG_CONTEXT)
+        stats["profile_long_eager"] = profile_decode(torch, bf_eager, ids,
+                                                     start=LONG_CONTEXT)
         print_long_profile(f"w{bits}", stats, record)
+        print_host_device(f"w{bits} bf16 decode step", [
+            (f"positions 2-9 {k}", stats[f"profile{sfx}"])
+            for k, sfx in (("eager", "_eager"), ("graphed", ""))] + [
+            (f"positions {LONG_CONTEXT}-{LONG_CONTEXT + 7} {k}",
+             stats[f"profile_long{sfx}"])
+            for k, sfx in (("eager", "_eager"), ("graphed", ""))], record)
+    bf_eager.release()
 
     # (iii) launches in one decode step
     cache = bf.new_cache(1, BENCH_TOKENS)
@@ -1379,8 +1533,10 @@ def run_model(torch, config, bits, record):
                                              config.n_layers] + [0] * 10:
         raise AssertionError(f"per-step launches {read_counts()}")
     res["bench"] = stats
-    print(f"w{bits} (ii) bf16 decode: {stats['tokens_per_s']:.2f} tok/s, "
-          f"{stats['median_latency_s'] * 1e3:.3f} ms/token, "
+    print(f"w{bits} (ii) bf16 decode: {stats['tokens_per_s']:.2f} tok/s "
+          f"graphed, {stats['eager']['tokens_per_s']:.2f} eager, "
+          f"{stats['median_latency_s'] * 1e3:.3f} ms/token "
+          f"({stats['eager']['median_latency_s'] * 1e3:.3f} eager), "
           f"{stats['achieved_gb_s']:.1f} GB/s over {stats['param_bytes']} "
           f"param bytes, peak {stats['peak_memory_mib']:.0f} MiB, check ppl "
           f"{stats['check_ppl']:.1f}")
@@ -1396,10 +1552,11 @@ def run_model(torch, config, bits, record):
     record["models"].append(res)
     # nothing of the phases above stays allocated while the next ones read
     # their peak memory
-    del exact, plain, bf, bf_plain, tf, tf_ref, tf_bref, cache
+    del exact, plain, bf, bf_eager, bf_plain, tf, tf_ref, tf_bref, cache
     res["eval"] = run_eval(torch, model, f"w{bits}", record)
     if bits == 4:
         res["int8"] = run_int8(torch, model, ids, stats, record)
+        res["speculation"] = run_speculation(torch, model, record)
     return res
 
 
@@ -1478,6 +1635,10 @@ def run_int8(torch, model, ids, bf16_stats, record):
     launches = expect_counts(record, "w4 int8 request", [
         NEW_TOKENS * (4 * cfg.n_layers + 1), 0, cfg.n_layers, 0,
         (NEW_TOKENS - 1) * cfg.n_layers])
+    eager = engine.Engine(model, cache_dtype="int8", graphs=False)
+    hold_equal("w4 int8 request, graphed vs eager", got,
+               eager.generate(prompt, NEW_TOKENS))
+    del eager
     plain_eng = engine.Engine(model, cache_dtype="int8", plain=True)
     ref = plain_eng.generate(prompt, NEW_TOKENS)
 
@@ -1527,7 +1688,8 @@ def run_int8(torch, model, ids, bf16_stats, record):
     if not math.isfinite(stats["check_ppl"]):
         raise AssertionError(f"int8 bf16 benchmark: {stats}")
     print(f"w4 int8 cache: f32 request (prompt {INT8_PROMPT}, {NEW_TOKENS} "
-          f"new tokens); at full depth (reported, not held) the logits that "
+          f"new tokens; graphed and eager identical); at full depth "
+          f"(reported, not held) the logits that "
           f"choose its tokens lie {rel:.3g} of max |logit| from the plain "
           f"path's, {flips} argmax flips, {same} of {NEW_TOKENS} leading "
           f"tokens identical; launches K1..K12 {launches}; per decode step "
@@ -1546,6 +1708,87 @@ def run_int8(torch, model, ids, bf16_stats, record):
     return {"launches": launches, "bench": stats, "logits_rel_err": rel,
             "leading_tokens_equal": same, "argmax_flips": flips,
             "layer_check": lc}
+
+
+def run_speculation(torch, model, record):
+    """Speculation at full width on the w4 model: in f32 exact mode
+    prompt lookup and a draft of the first DRAFT_LAYERS layers
+    (``truncate_for_draft``), each in its device loop (one graph a window)
+    and its host loop, held token-identical to greedy ``generate`` with
+    their launches held to their windows; the target as its own draft
+    (acceptance reported); in bf16 mode the share of tokens that agree
+    with greedy (the verify window's rows take K1's tensor-core kernel, the
+    decode step the GEMV: reported, not held)."""
+    import numpy as np
+
+    from squeezellm_tpu_torch import engine
+
+    L = model.config.n_layers
+    k1_call, d1_call = 4 * L + 1, 4 * DRAFT_LAYERS + 1
+    K, ngram = SPECULATIVE
+    prompt = np.random.default_rng(12).integers(
+        0, model.config.vocab_size, (1, SPEC_PROMPT))
+    kw = dict(max_seq=SPEC_MAX_SEQ)
+    res = {}
+    t0 = time.perf_counter()
+    for mode in ("exact", "bf16"):
+        dt = torch.float32 if mode == "exact" else torch.bfloat16
+        ekw = dict(dtype=dt, cache_dtype=dt, mode=mode)
+        eng = engine.Engine(model, **ekw)
+        draft = engine.Engine(engine.truncate_for_draft(model, DRAFT_LAYERS),
+                              **ekw)
+        greedy = eng.generate(prompt, NEW_TOKENS, **kw)
+        runs = {}
+        for loop in ("device", "host"):
+            hl = loop == "host"
+            reset_counts()
+            runs[f"lookup {loop}"] = (eng.generate_speculative(
+                prompt, NEW_TOKENS, draft_len=K, ngram=ngram, host_loop=hl,
+                **kw), dict(eng.spec_stats))
+            w = eng.spec_stats["windows"]
+            if mode == "exact":
+                expect_counts(record, f"w4 f32 prompt-lookup speculation, "
+                              f"{loop} loop", [k1_call * (1 + w), 0,
+                                               L * (1 + w)])
+            reset_counts()
+            runs[f"draft {loop}"] = (eng.generate_draft_speculative(
+                prompt, NEW_TOKENS, draft, draft_len=K, host_loop=hl, **kw),
+                dict(eng.spec_stats))
+            w = eng.spec_stats["windows"]
+            if mode == "exact":
+                expect_counts(record, f"w4 f32 draft speculation "
+                              f"({DRAFT_LAYERS} layers), {loop} loop", [
+                                  k1_call * (1 + w) + d1_call * (1 + K * w),
+                                  DRAFT_LAYERS * K * w,
+                                  L * (1 + w) + DRAFT_LAYERS])
+        if mode == "exact":
+            runs["self draft device"] = (eng.generate_draft_speculative(
+                prompt, NEW_TOKENS, eng, draft_len=K, **kw),
+                dict(eng.spec_stats))
+        agree = {k: float(np.mean(v[0][0, SPEC_PROMPT:]
+                                  == greedy[0, SPEC_PROMPT:]))
+                 for k, v in runs.items()}
+        res[mode] = {"agree": agree,
+                     "spec_stats": {k: v[1] for k, v in runs.items()}}
+        if mode == "exact":
+            hold_equal("w4 f32 speculation vs greedy",
+                       [v[0] for v in runs.values()],
+                       [greedy] * len(runs))
+        print(f"w4 {mode} speculation (prompt {SPEC_PROMPT}, {NEW_TOKENS} "
+              f"new, draft_len {K}, ngram {ngram}, draft of {DRAFT_LAYERS} "
+              f"layers): " + ("token-identical to greedy in every run"
+                              if mode == "exact" else
+                              "share of tokens equal to greedy (reported) "
+                              + str({k: round(v, 3)
+                                     for k, v in agree.items()}))
+              + "; spec_stats " + str(res[mode]["spec_stats"]))
+        del eng, draft
+    st = res["exact"]["spec_stats"]["self draft device"]
+    print(f"w4 f32 self-draft (the whole target): accepted "
+          f"{st['accepted']} of {st['drafted']} drafts in {st['windows']} "
+          f"windows [{time.perf_counter() - t0:.1f} s]")
+    record["speculation"] = res
+    return res
 
 
 def flushed_device_ms(torch, timer, fn, kernels=None, n=10):
@@ -1835,8 +2078,9 @@ def run_with_known_drafts(torch, eng, prompts, tokens):
         known[r, : len(row)] = torch.tensor(row, device=dev)
 
     def drafts(ctx, pos, draft_len, ngram):
-        rid = torch.tensor([max(s.request_id, 0) for s in eng._slots],
-                           device=dev)
+        # each slot's request id from the engine's device buffer (0 for an
+        # inactive slot), so a captured window reads it at every replay
+        rid = eng._bufs.rids
         at = (pos.clamp(min=0)[:, None] + 1
               + torch.arange(draft_len, device=dev))
         return known[rid[:, None], at.clamp(max=known.shape[1] - 1)]
@@ -1929,12 +2173,14 @@ def profile_paged_step(torch, eng, prompts, steps=8):
     by_name, why = device_ms_by_kernel(torch, single, counts)
     cancel_all(eng)
     res = {"step_ms": step_ms, "window_step_ms": window_ms,
-           "host_reads_ms": reads, "profile_failed": why}
+           "host_reads_ms": reads, "profile_failed": why,
+           "graphs": bool(getattr(eng, "_capture", False))}
     if by_name is not None:
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
         device = sum(by_name.values()) / steps
         res.update(device_ms_per_step=device,
                    idle_share=1 - device / step_ms,
+                   window_idle_share=1 - device / window_ms,
                    paged_attn_ms_per_step=paged_attn_ms(by_name) / steps,
                    top_ms_per_step=[[k[:60], v / steps] for k, v in top],
                    **step_shares(by_name, counts, steps))
@@ -1981,10 +2227,12 @@ def paged_transposed(torch, model, prompts, engine, record, bkw):
           f"launches K1..K12 {launches}, K12's copies of x "
           f"{record['paths'][-1]['variants']['K12 copies of x']}")
     prof = profile_paged_step(torch, engine(**bkw), prompts)
+    prof_eager = profile_paged_step(torch, engine(graphs=False, **bkw),
+                                    prompts)
     secs = time.perf_counter() - t0
     print(f"[paged with transposed words: {secs:.1f} s of the paged phase]")
     return {"tokens": got, "launches": launches, "seconds": secs,
-            "profile": prof}
+            "profile": prof, "profile_eager": prof_eager}
 
 
 def paged_attn_ms(by_name):
@@ -2000,20 +2248,33 @@ def cancel_all(eng):
 
 
 def profile_spec_window(torch, eng, prompts, windows=4):
-    """Device time of one speculative window at 8 active slots (an engine
-    made with speculative=SPECULATIVE): admit eight requests, run two
-    windows, then trace `windows` windows."""
+    """Host and device time of one speculative window at 8 active slots
+    (an engine made with speculative=SPECULATIVE): admit eight requests,
+    run two windows, time `windows` windows on the host clock (each ends
+    in its sync), then trace as many."""
     eng.add_requests(prompts[:PAGED_SLOTS], 2 * NEW_TOKENS)
     for _ in range(2):
         eng.step_spec_window()
-    by_name, why = device_ms_by_kernel(
-        torch, lambda: [eng.step_spec_window() for _ in range(windows)])
+
+    def run():
+        for _ in range(windows):
+            eng.step_spec_window()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()  # each window ends in its own sync
+    host = (time.perf_counter() - t0) / windows * 1e3
+    by_name, why = device_ms_by_kernel(torch, run)
     cancel_all(eng)
+    graphed = bool(getattr(eng, "_capture", False))
     if by_name is None:
-        return {"profile_failed": why}
+        return {"profile_failed": why, "graphs": graphed,
+                "host_ms_per_window": host}
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
-    return {"profile_failed": None,
-            "device_ms_per_window": sum(by_name.values()) / windows,
+    device = sum(by_name.values()) / windows
+    return {"profile_failed": None, "graphs": graphed,
+            "host_ms_per_window": host, "idle_share": 1 - device / host,
+            "device_ms_per_window": device,
             "paged_attn_ms_per_window": paged_attn_ms(by_name) / windows,
             "top_ms_per_window": [[k[:60], v / windows] for k, v in top]}
 
@@ -2091,6 +2352,8 @@ def run_paged(torch, config, record, smi):
     torch.cuda.reset_peak_memory_stats()
     step = timed("f32 step", engine(), run)
     res["peak_mib_f32_pool"] = torch.cuda.max_memory_allocated() / 2**20
+    hold_equal("paged f32 step, graphed vs eager",
+               timed("f32 step, eager", engine(graphs=False), run), step)
     window = timed("f32 step_window(8)", engine(),
                    lambda e: run(e, window=8))
     spec = timed(f"f32 speculative={SPECULATIVE}",
@@ -2164,13 +2427,20 @@ def run_paged(torch, config, record, smi):
         raise AssertionError(f"paged bf16 sampled: reverse admission differs "
                              f"in requests {bad}: "
                              f"{[(ab[r], cb[r]) for r in bad[:2]]}")
+    hold_equal("paged bf16 sampled, admitted in reverse, graphed vs eager",
+               timed("bf16 sampled, admitted in reverse, eager",
+                     engine(seed=5, graphs=False, **bkw),
+                     lambda e: serve_in_order(e, prompts, order[::-1], sp)),
+               cb)
     res["bf16_sampled_tokens"] = ab
     print("paged bf16 sampled: the same tokens for each of the "
           f"{len(prompts)} requests when admitted in reverse order, one at a "
-          "time")
-    res["profile_f32"] = profile_paged_step(torch, engine(), prompts)
-    res["profile_spec_f32"] = profile_spec_window(
-        torch, engine(speculative=SPECULATIVE), prompts)
+          "time, graphed and eager")
+    for sfx, g in (("", True), ("_eager", False)):
+        res["profile_f32" + sfx] = profile_paged_step(
+            torch, engine(graphs=g), prompts)
+        res["profile_spec_f32" + sfx] = profile_spec_window(
+            torch, engine(speculative=SPECULATIVE, graphs=g), prompts)
 
     # (iii) the bf16 regime and the int8 pool: per layer against the plain
     # path; full-depth token agreement reported only
@@ -2212,9 +2482,21 @@ def run_paged(torch, config, record, smi):
         if label == "bf16":
             res["profile_bf16"] = profile_paged_step(torch, engine(**kw),
                                                      prompts)
+            res["profile_bf16_eager"] = profile_paged_step(
+                torch, engine(graphs=False, **kw), prompts)
     res["transposed"] = paged_transposed(torch, model, prompts, engine,
                                          record, bkw)
     res["profile_bf16_transposed"] = res["transposed"].pop("profile")
+    res["profile_bf16_transposed_eager"] = res["transposed"].pop(
+        "profile_eager")
+    print_host_device("paged step at 8 slots", [
+        (f"{label} {kind}", res[f"profile_{label}{sfx}"])
+        for label in ("f32", "bf16", "bf16_transposed")
+        for kind, sfx in (("eager", "_eager"), ("graphed", ""))], record)
+    print_host_device(f"paged f32 speculative window (W = "
+                      f"{SPECULATIVE[0] + 1}) at 8 slots", [
+        (kind, res[f"profile_spec_f32{sfx}"])
+        for kind, sfx in (("eager", "_eager"), ("graphed", ""))], record)
     for label in ("f32", "bf16", "bf16_transposed"):
         prof = res[f"profile_{label}"]
         if prof["profile_failed"]:
@@ -2285,6 +2567,8 @@ def run_opt(torch, record):
     if ropeless != res["launches"][1]:
         raise AssertionError(f"OPT: {ropeless} of {res['launches'][1]} K2 "
                              "launches ran without rope rows")
+    hold_equal("OPT request, graphed vs eager", got, engine.Engine(
+        model, graphs=False).generate(prompt, NEW_TOKENS))
     ref = engine.Engine(model, plain=True).generate(prompt, NEW_TOKENS)
     if got.shape != (1, OPT_PROMPT + NEW_TOKENS) or not np.array_equal(got,
                                                                       ref):
@@ -2292,7 +2576,8 @@ def run_opt(torch, record):
                              f"tokens {ref}")
     res["tokens"] = got[0, OPT_PROMPT:].tolist()
     print(f"opt-6.7b w4 request (prompt {OPT_PROMPT}, {NEW_TOKENS} new "
-          f"tokens, f32) identical to the plain path; launches K1..K12 "
+          f"tokens, f32) identical to the plain path and graphed to eager; "
+          f"launches K1..K12 "
           f"{res['launches']}, all {ropeless} K2 launches without rope")
     record["opt"] = res
 
@@ -2651,6 +2936,9 @@ def kernel_lines(record):
     # every path's run: counts set to 0 just before it, read just after
     launches = [sum(p["launches"][i] for p in record["paths"])
                 for i in range(len(counters()))]
+    # of them, added by CUDA graph replays
+    replayed = [sum(p["replayed"][i] for p in record["paths"])
+                for i in range(len(counters()))]
     k3_launches = {regime: sum(p["variants"]["K3"][regime]
                                for p in record["paths"])
                    for regime in ("bf16", "exact")}
@@ -2740,10 +3028,13 @@ def kernel_lines(record):
     ]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     lines = []
+    names = [fn.__name__ for fn in counters()]
     for name, src, rep, n, err, r, at in rows:
         line = {"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": n, "max_abs_err": err, **{k: r[k] for k in keys},
                 "at": at}
+        if name in names:  # K3's regimes share one wrapper's count
+            line["launches_replayed"] = replayed[names.index(name)]
         if "device_ms" in r:  # the profiler's, beside the timer's ms
             line["device_ms"] = r["device_ms"]
         if name in long_:

@@ -51,9 +51,9 @@ SIGNATURES = {
                         _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                         _I, _P],
     # q, k, v, out, 9 strides, q_bf16, kv_bf16, tensor_cores, B, H, Hkv,
-    # Sq, Sk, hd, offset, window, scale, stream
-    "slt_flash_attn": [_P, _P, _P, _P] + [_I] * 9 + [_I] * 3 + [_I] * 8
-                      + [_F, _P],
+    # Sq, Sk, hd, offset (an int32 on the card), window, scale, stream
+    "slt_flash_attn": [_P, _P, _P, _P] + [_I] * 9 + [_I] * 3 + [_I] * 6
+                      + [_P, _I, _F, _P],
     # qweight, lut, rowptr, cols, vals, w, in, out, bits, w_bf16, stream
     "slt_dequant_dense": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     # x, x_bf16, xt, qweight, A, d, rowptr, cols, vals, y0, y0_bf16, y,

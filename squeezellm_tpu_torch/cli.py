@@ -6,7 +6,8 @@
   eval       perplexity (GPTQ stride protocol) on ``synthetic`` tokens or a
              ``.npy`` token file
   benchmark  batch-1 decode latency, tok/s, peak memory
-  generate   greedy generation from comma-separated prompt token ids
+  generate   greedy or sampled generation from comma-separated prompt token
+             ids, or greedy with prompt-lookup or draft-model speculation
 
 ``quantize`` and ``fisher`` take the JAX package's arguments (``--model``
 an HF directory with ``config.json`` and its weights). ``eval``,
@@ -34,14 +35,18 @@ import torch
 CALIB_SAMPLES = 128  # sizes the synthetic corpus as the JAX CLI's default
 
 
-def _load_model(args):
+def _load_model(args, path=None):
+    """The --model checkpoint or the --synthetic model; `path` (a draft
+    model's) is read as a checkpoint directory when it holds a
+    manifest.json, else as a config like --synthetic's."""
     from squeezellm_tpu_torch import checkpoint, synthetic
     from squeezellm_tpu_torch.models import fuse, registry
 
-    if args.model:
-        _, model = checkpoint.load_quantized(args.model, args.device)
+    ckpt = args.model if path is None else path
+    if ckpt and os.path.exists(os.path.join(ckpt, "manifest.json")):
+        _, model = checkpoint.load_quantized(ckpt, args.device)
     else:
-        path = args.synthetic
+        path = path or args.synthetic
         model_dir = os.path.dirname(path) if os.path.isfile(path) else path
         model_type, config = registry.load_config(model_dir)
         make = (synthetic.quantized_opt if model_type == "opt"
@@ -146,12 +151,40 @@ def cmd_benchmark(args):
 
 
 def cmd_generate(args):
+    from squeezellm_tpu_torch import engine
+
+    if args.draft_model or args.draft_layers:
+        if args.temperature > 0:
+            raise SystemExit("draft speculation is greedy-only (exactness)")
+        if args.draft_model and args.draft_layers:
+            raise SystemExit("--draft-model and --draft-layers are "
+                             "mutually exclusive")
+    elif args.speculative and args.temperature > 0:
+        raise SystemExit("--speculative is greedy-only (exactness)")
     model = _load_model(args)
+    eng = _engine(args, model)
     prompt = np.asarray([int(t) for t in args.prompt_tokens.split(",")],
                         np.int64)[None]
-    out = _engine(args, model).generate(prompt, args.max_new_tokens,
-                                        temperature=args.temperature)
-    print(json.dumps({"tokens": out[0].tolist()}))
+    if args.draft_model or args.draft_layers:
+        # a second checkpoint, or the early-exit draft: the target's first
+        # layers, weights shared
+        dmodel = (_load_model(args, args.draft_model) if args.draft_model
+                  else engine.truncate_for_draft(model, args.draft_layers))
+        draft = _engine(args, dmodel)
+        out = eng.generate_draft_speculative(prompt, args.max_new_tokens,
+                                             draft, draft_len=args.draft_len)
+    elif args.speculative:
+        out = eng.generate_speculative(prompt, args.max_new_tokens,
+                                       draft_len=args.draft_len,
+                                       ngram=args.ngram)
+    else:
+        out = eng.generate(prompt, args.max_new_tokens,
+                           temperature=args.temperature, top_k=args.top_k,
+                           top_p=args.top_p, seed=args.seed)
+        print(json.dumps({"tokens": out[0].tolist()}))
+        return
+    print(json.dumps({"tokens": out[0].tolist(),
+                      "spec_stats": eng.spec_stats}))
 
 
 def main(argv=None):
@@ -168,7 +201,9 @@ def main(argv=None):
                         help="bit width of a --synthetic model")
         sp.add_argument("--device", default="cuda")
         sp.add_argument("--mode", default="exact", choices=["exact", "bf16"])
-        sp.add_argument("--seed", type=int, default=0)
+        sp.add_argument("--seed", type=int, default=0,
+                        help="seed of a --synthetic model's weights (and of "
+                             "generate's sampler)")
 
     def tokens(sp):
         sp.add_argument("--dataset", default="synthetic",
@@ -238,13 +273,27 @@ def main(argv=None):
                         "perplexity inside the timed loop (check_ppl)")
     b.set_defaults(fn=cmd_benchmark)
 
-    g = sub.add_parser("generate", help="greedy generation")
+    g = sub.add_parser("generate", help="generate tokens")
     common(g)
     decode(g)
     g.add_argument("--prompt-tokens", required=True,
                    help="comma-separated ids")
     g.add_argument("--max-new-tokens", type=int, default=32)
     g.add_argument("--temperature", type=float, default=0.0)
+    g.add_argument("--top-k", type=int, default=0)
+    g.add_argument("--top-p", type=float, default=1.0)
+    g.add_argument("--speculative", action="store_true",
+                   help="prompt-lookup speculative decoding (greedy-exact)")
+    g.add_argument("--draft-model", default=None,
+                   help="a smaller model of the same vocabulary, a "
+                        "checkpoint directory or (with --synthetic) a "
+                        "config: two-model speculative decoding "
+                        "(greedy-exact)")
+    g.add_argument("--draft-layers", type=int, default=0,
+                   help="early-exit draft: speculate with the target's "
+                        "first K layers (weights shared, greedy-exact)")
+    g.add_argument("--draft-len", type=int, default=8)
+    g.add_argument("--ngram", type=int, default=2)
     g.set_defaults(fn=cmd_generate)
 
     args = p.parse_args(argv)

@@ -4,7 +4,10 @@
 // kpos <= qpos and kpos > qpos - window of kv head h / g, with an online
 // softmax; only rows < min(offset + Sq, Sk) of k/v are read. q, k, v and
 // out are addressed through strides, so k/v may be head-major views of the
-// token-major cache and out may be a token-major buffer.
+// token-major cache and out may be a token-major buffer. Each block reads
+// the offset from device memory (one int32, as the TPU kernel reads its
+// scalar-prefetched offset), and the grid depends on Sq and Sk alone, so
+// one launch captured in a CUDA graph serves every position.
 //
 // Replaces the TPU kernel `_flash_kernel` (squeezellm_tpu/ops/flash_attn.py,
 // launched by `flash_attention`).
@@ -64,7 +67,8 @@ __global__ void __launch_bounds__(kThreads)
                       const TKV* __restrict__ v, float* __restrict__ out,
                       int qs_b, int qs_h, int qs_s, int ks_b, int ks_h,
                       int ks_s, int os_b, int os_h, int os_s, int g, int Sq,
-                      int Sk, int offset, int window, float scale) {
+                      int Sk, const int* __restrict__ offset_p, int window,
+                      float scale) {
   constexpr int hd = D * 32;
   constexpr int KC = kTileFloats / hd;  // keys per tile
   constexpr int KPL = KC / 32;          // keys per lane
@@ -78,6 +82,8 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int q_first = blockIdx.x * kBQ;
   const int q_last = min(q_first + kBQ, Sq) - 1;
+  // the offset's load is issued before q is staged, which hides its latency
+  const int offset = *offset_p;
 
   for (int t = threadIdx.x; t < kBQ * hd; t += kThreads) {
     const int r = t / hd, d = t % hd;
@@ -236,7 +242,8 @@ __global__ void __launch_bounds__(kMmaThreads)
                           float* __restrict__ out, int qs_b, int qs_h,
                           int qs_s, int ks_b, int ks_h, int ks_s, int os_b,
                           int os_h, int os_s, int g, int Sq, int Sk,
-                          int offset, int window, float scale_log2) {
+                          const int* __restrict__ offset_p, int window,
+                          float scale_log2) {
   using S = MmaShape<HD>;
   constexpr int LD = S::LD, KD = HD / 16, ND = HD / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -251,6 +258,11 @@ __global__ void __launch_bounds__(kMmaThreads)
   // the last row tile first: under the causal mask it has the most keys
   const int q_first = (gridDim.x - 1 - blockIdx.x) * kMmaRows;
   const int q_last = min(q_first + kMmaRows, Sq) - 1;
+  // Q's copies are issued first: they do not need the offset, so its
+  // load's latency overlaps theirs
+  stage_tile<HD>(Qs, q + (size_t)b * qs_b + (size_t)h * qs_h, qs_s, q_first,
+                 Sq);
+  const int offset = *offset_p;
   // tiles start at multiples of kMmaKeys from key 0, whatever the block's
   // first row: a row meets the same tiles, summed in the same order, in
   // every cohort (the keys of the first tile below the window are masked)
@@ -262,8 +274,6 @@ __global__ void __launch_bounds__(kMmaThreads)
   const __nv_bfloat16* kb = k + (size_t)b * ks_b + (size_t)kh * ks_h;
   const __nv_bfloat16* vb = v + (size_t)b * ks_b + (size_t)kh * ks_h;
 
-  stage_tile<HD>(Qs, q + (size_t)b * qs_b + (size_t)h * qs_h, qs_s, q_first,
-                 Sq);
   if (nt > 0) {
     stage_tile<HD>(Ks(0), kb, ks_s, kv_lo, kv_hi);
     stage_tile<HD>(Vs(0), vb, ks_s, kv_lo, kv_hi);
@@ -403,8 +413,8 @@ __global__ void __launch_bounds__(kMmaThreads)
 template <int HD>
 cudaError_t launch_mma(dim3 grid, cudaStream_t s, const void* q,
                        const void* k, const void* v, float* out,
-                       const int* st, int g, int Sq, int Sk, int offset,
-                       int window, float scale) {
+                       const int* st, int g, int Sq, int Sk,
+                       const int* offset, int window, float scale) {
   constexpr int smem = MmaShape<HD>::SMEM;
   static bool done = false;
   const cudaError_t e =
@@ -422,7 +432,7 @@ cudaError_t launch_mma(dim3 grid, cudaStream_t s, const void* q,
 template <typename TQ, typename TKV>
 void launch_t(int D, dim3 grid, cudaStream_t s, const void* q, const void* k,
               const void* v, float* out, const int* st, int g, int Sq,
-              int Sk, int offset, int window, float scale) {
+              int Sk, const int* offset, int window, float scale) {
 #define SLT_FA_CASE(D_)                                                     \
   case D_:                                                                  \
     flash_attn_kernel<TQ, TKV, D_><<<grid, kThreads, 0, s>>>(               \
@@ -445,14 +455,15 @@ void launch_t(int D, dim3 grid, cudaStream_t s, const void* q, const void* k,
 // in elements (batch, head, row); the last dim is contiguous. hd in
 // {32, 64, 128}. tensor_cores: the bf16 regime's kernel (q and k/v bf16,
 // pointers 16-byte aligned, row strides multiples of 8), else the exact
-// regime's. Returns cudaGetLastError().
+// regime's. offset: one int32 in device memory, the position of query row
+// 0 (>= 0). Returns cudaGetLastError().
 extern "C" int slt_flash_attn(const void* q, const void* k, const void* v,
                               void* out, int qs_b, int qs_h, int qs_s,
                               int ks_b, int ks_h, int ks_s, int os_b,
                               int os_h, int os_s, int q_bf16, int kv_bf16,
                               int tensor_cores, int B, int H, int Hkv,
-                              int Sq, int Sk, int hd, int offset, int window,
-                              float scale, void* stream) {
+                              int Sq, int Sk, int hd, const int* offset,
+                              int window, float scale, void* stream) {
   if (B <= 0 || H <= 0 || Sq <= 0) return (int)cudaSuccess;
   if (Hkv <= 0 || H % Hkv != 0 || (hd != 32 && hd != 64 && hd != 128))
     return (int)cudaErrorInvalidValue;

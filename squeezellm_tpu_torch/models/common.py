@@ -230,17 +230,31 @@ def decode_mask(max_seq: int, pos: torch.Tensor,
 
 
 def write_kv_rows(cache: Dict[str, torch.Tensor], k: torch.Tensor,
-                  v: torch.Tensor, start: int = 0) -> None:
+                  v: torch.Tensor, start=0) -> None:
     """Prefill: write k/v (B, s, H_kv, D) into rows [start, start + s), in
     place, cast to the cache dtype; an int8 cache quantizes each row at
-    insert."""
+    insert. start: a python int, or an int tensor of one element on the
+    cache's device (the rows are then written by an index copy, so a step
+    captured in a CUDA graph writes wherever the tensor points at each
+    replay)."""
     b, s = k.shape[:2]
+    rows = None
+    if torch.is_tensor(start):
+        rows = start.reshape(()).long() + torch.arange(s, device=k.device)
     for name, new in (("k", k), ("v", v)):
         if "ks" in cache:
             new, scale = kv_quant.quantize_rows(new)
-            cache[name + "s"][:, :, start: start + s] = (
-                scale[..., 0].transpose(1, 2))
-        cache[name][:, start: start + s] = new.reshape(b, s, -1)
+            scale = scale[..., 0].transpose(1, 2)  # (B, H_kv, s)
+            if rows is None:
+                cache[name + "s"][:, :, start: start + s] = scale
+            else:
+                cache[name + "s"].index_copy_(2, rows, scale.contiguous())
+        c = cache[name]
+        new = new.reshape(b, s, -1).to(c.dtype)
+        if rows is None:
+            c[:, start: start + s] = new
+        else:
+            c.index_copy_(1, rows, new)
 
 
 def init_paged_pool(n_layers: int, n_pages: int, page_size: int,

@@ -117,7 +117,9 @@ class Step:
     plain: bool
     cos: Optional[torch.Tensor] = None  # (S, hd) in dtype
     sin: Optional[torch.Tensor] = None
-    start: int = 0  # prefill: position of the first token
+    # prefill: position of the first token, an int or an int tensor of one
+    # element on the device (read by K3 and the cache write there)
+    start: object = 0
     # decode (one token per slot, with a cache): K2/K5/K6/K7 operands
     lengths: Optional[torch.Tensor] = None  # (B,) int32
     rope_cos: Optional[torch.Tensor] = None  # (B, hd) f32; (B, W, hd)
@@ -312,7 +314,7 @@ class Llama(nn.Module):
     def device(self) -> torch.device:
         return self.embed.device
 
-    def _step(self, dtype, mode, plain, *, positions=None, start: int = 0,
+    def _step(self, dtype, mode, plain, *, positions=None, start=0,
               decode_pos=None, window_pos=None, cache=None) -> Step:
         """Per-call state, shared by every layer: rope cos/sin at
         ``positions`` (``start + arange(s)`` for a prefill); or for a decode
@@ -361,23 +363,27 @@ class Llama(nn.Module):
         return self._finish(x, step)
 
     def prefill(self, tokens: torch.Tensor, cache, *, dtype=torch.float32,
-                mode: str = "exact", plain: bool = False, start: int = 0,
+                mode: str = "exact", plain: bool = False, start=0,
                 all_logits: bool = False) -> torch.Tensor:
         """Process the prompt and fill the cache (in place); returns the
         last token's logits (B, 1, V) f32, or every position's (B, S, V)
         with ``all_logits``.
 
-        start: position of ``tokens[:, 0]``. A continuation prefill (the
-        cache already holds rows [0, start)) attends the cached prefix
-        through the offset causal mask."""
+        start: position of ``tokens[:, 0]``, a python int or an int tensor
+        of one element on the device (a step captured in a CUDA graph then
+        serves every position). A continuation prefill (the cache already
+        holds rows [0, start)) attends the cached prefix through the
+        offset causal mask."""
         b, s = tokens.shape
         x = self.embed[tokens].to(dtype)
+        if torch.is_tensor(start):
+            start = start.reshape(()).long()
         if s == 1:
             # a one-token prompt is a decode step at position start
-            step = self._step(dtype, mode, plain,
-                              decode_pos=torch.full((b,), start,
-                                                    dtype=torch.long,
-                                                    device=self.device))
+            pos = (start.expand(b).contiguous() if torch.is_tensor(start)
+                   else torch.full((b,), start, dtype=torch.long,
+                                   device=self.device))
+            step = self._step(dtype, mode, plain, decode_pos=pos)
         else:
             step = self._step(
                 dtype, mode, plain, start=start,

@@ -189,20 +189,25 @@ class OPT(nn.Module):
         return step
 
     def prefill(self, tokens: torch.Tensor, cache, *, dtype=torch.float32,
-                mode: str = "exact", plain: bool = False, start: int = 0,
+                mode: str = "exact", plain: bool = False, start=0,
                 all_logits: bool = False) -> torch.Tensor:
         """Process the prompt and fill the cache (in place); returns the
         last token's logits (B, 1, V) f32, or every position's (B, S, V)
-        with ``all_logits``. start: position of ``tokens[:, 0]`` (a
-        continuation prefill attends the rows the cache already holds)."""
+        with ``all_logits``. start: position of ``tokens[:, 0]``, a python
+        int or an int tensor of one element on the device (a continuation
+        prefill attends the rows the cache already holds)."""
         b, s = tokens.shape
+        if torch.is_tensor(start):
+            start = start.reshape(()).long()
         x = self._embed(tokens, start + torch.arange(s, device=self.device),
                         dtype)
         step = Step(dtype=dtype, mode=mode, plain=plain, start=start)
         if s == 1:
             # a one-token prompt is a decode step at position start
-            step.lengths = torch.full((b,), start + 1, dtype=torch.int32,
-                                      device=self.device)
+            step.lengths = ((start + 1).to(torch.int32).expand(b).contiguous()
+                            if torch.is_tensor(start) else
+                            torch.full((b,), start + 1, dtype=torch.int32,
+                                       device=self.device))
         for layer, layer_cache in zip(self.layers, cache):
             x = layer(x, step, layer_cache)
         return self._finish(x if all_logits else x[:, -1:], step)

@@ -118,17 +118,29 @@ def plan(M: int, in_f: int, out_f: int, bits: int, mode: str,
 
 
 _COUNTERS = {}
+# every workspace a wrapper has outgrown (K1/K10's counters, K11's
+# partials, K12's copy of x): a CUDA graph captured before the growth still
+# reads and writes the old buffer at each replay, so none is ever freed
+RETIRED = []
+
+
+def grown(store: dict, device, n: int, make) -> torch.Tensor:
+    """``store[device]``, replaced by ``make(n)`` when it holds fewer than
+    n elements; the buffer it replaces is kept alive in RETIRED."""
+    t = store.get(device)
+    if t is None or t.numel() < n:
+        if t is not None:
+            RETIRED.append(t)
+        t = store[device] = make(n)
+    return t
 
 
 def _counters(device, n: int) -> torch.Tensor:
     """The tile counters of the k-split on `device`: zeros, and left zero
     by every launch (the last block of a tile resets its own), so one
     buffer serves every call on the device's stream."""
-    t = _COUNTERS.get(device)
-    if t is None or t.numel() < n:
-        t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-        _COUNTERS[device] = t
-    return t
+    return grown(_COUNTERS, device, n, lambda m: torch.zeros(
+        max(m, 4096), dtype=torch.int32, device=device))
 
 
 def _launch(fn, name, x, qweight, tables, bits, mode, rowptr, cols, vals,

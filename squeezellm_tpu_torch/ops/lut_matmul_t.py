@@ -30,7 +30,8 @@ import torch
 from squeezellm_tpu_torch import _build, formats
 from squeezellm_tpu_torch.ops import plain_ops
 from squeezellm_tpu_torch.ops.lut_matmul import (MODES, SMS, _check,
-                                                 _counters, _round_bf16)
+                                                 _counters, _round_bf16,
+                                                 grown)
 
 MAX_ROWS = 8  # quant_linear takes this route at 8 rows and fewer
 COLS = 128  # output channels a block (kCols in csrc/lut_matmul_t.cu)
@@ -59,11 +60,8 @@ _WORKSPACE = {}
 def _workspace(device, n: int) -> torch.Tensor:
     """The k-split's f32 partials on `device`, kept between calls: each
     launch writes and reads its own part within itself, in stream order."""
-    t = _WORKSPACE.get(device)
-    if t is None or t.numel() < n:
-        t = torch.empty(n, dtype=torch.float32, device=device)
-        _WORKSPACE[device] = t
-    return t
+    return grown(_WORKSPACE, device, n, lambda m: torch.empty(
+        m, dtype=torch.float32, device=device))
 
 
 def lut_matmul_t_plain(x: torch.Tensor, qweight_t: torch.Tensor,

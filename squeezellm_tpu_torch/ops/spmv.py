@@ -27,7 +27,7 @@ import torch
 
 from squeezellm_tpu_torch import _build
 from squeezellm_tpu_torch.ops import plain_ops
-from squeezellm_tpu_torch.ops.lut_matmul import MAX_ROWS, _check
+from squeezellm_tpu_torch.ops.lut_matmul import MAX_ROWS, _check, grown
 
 # entries a lane has in flight (kUnroll in csrc/spmv.cu); group_size reads
 # it to pick G, so a mismatch would cost speed, never a wrong sum
@@ -56,11 +56,8 @@ _WORKSPACE = {}
 def _workspace(device, nbytes: int) -> torch.Tensor:
     """Bytes on `device` for the copy of x, kept between calls: each call
     writes them and reads them back in stream order."""
-    t = _WORKSPACE.get(device)
-    if t is None or t.numel() < nbytes:
-        t = torch.empty(nbytes, dtype=torch.uint8, device=device)
-        _WORKSPACE[device] = t
-    return t
+    return grown(_WORKSPACE, device, nbytes, lambda m: torch.empty(
+        m, dtype=torch.uint8, device=device))
 
 
 def spmv_plain(x: torch.Tensor, rowptr: torch.Tensor, cols: torch.Tensor,

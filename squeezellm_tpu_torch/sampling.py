@@ -54,12 +54,19 @@ def _mix32(x: torch.Tensor) -> torch.Tensor:
     return x ^ (x >> 16)
 
 
-def stream_uniforms(seed: int, rids: torch.Tensor, pos: torch.Tensor,
+def stream_uniforms(seed, rids: torch.Tensor, pos: torch.Tensor,
                     n: int = MAX_TOPK) -> torch.Tensor:
     """(B, n) f32 uniforms in (0, 1): draw j of the stream of
-    (seed, rids[b], pos[b]), a pure function of those four integers."""
-    h = _mix32(torch.full_like(rids, (int(seed) ^ 0x9E3779B9) & _M32,
-                               dtype=torch.int64))
+    (seed, rids[b], pos[b]), a pure function of those four integers. seed:
+    a python int, or an int tensor of one element on the device (a step
+    captured in a CUDA graph then reads it at each replay)."""
+    if torch.is_tensor(seed):
+        h = ((seed.reshape(()).long() ^ 0x9E3779B9) & _M32).expand(
+            rids.shape[0])
+    else:
+        h = torch.full_like(rids, (int(seed) ^ 0x9E3779B9) & _M32,
+                            dtype=torch.int64)
+    h = _mix32(h)
     h = _mix32(h ^ _mix32((rids.long() + 0x7F4A7C15) & _M32))
     h = _mix32(h ^ _mix32((pos.long() + 0x94D049BB) & _M32))
     j = torch.arange(n, device=rids.device, dtype=torch.int64)
@@ -87,7 +94,7 @@ def candidates(logits, temperature, top_k, top_p):
     return idx, logp, keep
 
 
-def sample_tokens(logits, temperature, top_k, top_p, rids, pos, seed: int):
+def sample_tokens(logits, temperature, top_k, top_p, rids, pos, seed):
     """Draw one token per slot from (B, V) logits.
 
     Args:
@@ -97,7 +104,7 @@ def sample_tokens(logits, temperature, top_k, top_p, rids, pos, seed: int):
       top_p: (B,) f32, nucleus mass; 1.0 disables.
       rids: (B,) int request ids (the stream's identity).
       pos: (B,) int current positions (the stream's step).
-      seed: python int engine seed.
+      seed: python int engine seed, or an int tensor of one element.
 
     Returns:
       (B,) int64 sampled token ids.

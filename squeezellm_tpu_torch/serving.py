@@ -10,9 +10,17 @@ speculation verified through the page table. Decode attention runs K6/K7,
 a speculative verify window K8/K9 (``ops/paged_attn``), the admission
 prefill K3.
 
-Pools are updated in place. A decode window enqueues its steps with token
-and position advanced on the device and waits for the host once, for the
-window's tokens.
+Pools are updated in place. The per-token decode step (greedy and sampled
+are two programs) and the speculative window are step programs
+(``graphs.StepGraph``): captured once as CUDA graphs over persistent
+device buffers and replayed, the counterparts of the JAX engine's jitted
+``_decode_adv`` and ``_spec_window_fn``. The page table, the positions, the
+current tokens and the four sampler arrays live in those buffers; the host
+keeps its own copies and uploads one only when admission, release or
+``_collect`` changed it in a way the device did not. A decode window
+replays its step k times and waits for the host once, for the window's
+tokens; a speculative window waits once. Admission stays eager: its
+prefill, prime and scatter are shaped by the prompt.
 
 What the JAX engine does only to keep XLA from recompiling is not carried
 over, since eager PyTorch has no trace to protect: the 16-token bucket
@@ -27,11 +35,13 @@ same-length prompts stays: the weights stream once.
 from __future__ import annotations
 
 import dataclasses
+from types import SimpleNamespace
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from squeezellm_tpu_torch import graphs
 from squeezellm_tpu_torch import sampling as sampling_mod
 from squeezellm_tpu_torch.models import common
 from squeezellm_tpu_torch.ops import kv_quant, paged_attn
@@ -75,11 +85,6 @@ def _clear_slot_sampling(eng, idx: int) -> None:
     eng._topk[idx] = 0
     eng._topp[idx] = 1.0
     eng._rids[idx] = 0
-
-
-def _sampler_args(eng):
-    return tuple(torch.as_tensor(a, device=eng.device)
-                 for a in (eng._temp, eng._topk, eng._topp, eng._rids))
 
 
 def _prompt_lookup_draft(ctx: torch.Tensor, pos: torch.Tensor, K: int,
@@ -328,6 +333,57 @@ class PagedKVPool:
                 self._lru.append(key)
 
 
+# the slot arrays whose device copies the step programs read
+_UPLOADED = ("pos", "pt", "temp", "topk", "topp", "rids")
+
+
+def _decode_body(model, kw, b, sampled: bool, seed: int):
+    """The paged decode step (``_decode_adv``): every slot decodes its
+    current token at its position (pos -1: inactive), the next token is
+    chosen (greedy, or sampled by (seed, request id, position)), written
+    into row ``widx`` of the window's tokens, and the position advances."""
+
+    def step():
+        pos = b.pos
+        logits = model.decode_step(b.cur, pos, b.caches, **kw)[:, -1]
+        if sampled:
+            nxt = sampling_mod.sample_tokens(
+                logits.float(), b.temp, b.topk, b.topp, b.rids,
+                pos.clamp(min=0), seed)
+        else:
+            nxt = torch.argmax(logits, dim=-1)
+        b.toks.index_copy_(0, b.widx, nxt[None])
+        b.widx.add_(1)
+        # inactive slots (pos < 0) must NOT advance: at pos 0 they would
+        # write through their zeroed page table into page 0, which likely
+        # belongs to an active slot
+        pos.copy_(torch.where(pos < 0, pos, pos + 1))
+        b.cur.copy_(nxt[:, None])
+
+    return step
+
+
+def _spec_body(model, kw, b, speculative):
+    """One slot-batched speculative window (``_spec_window_fn``): the
+    prompt-lookup drafts, the verify window through the page table, the
+    greedy-exact acceptance; the emitted tokens and accepted counts into
+    ``spec``, the current tokens and the positions advanced."""
+    draft_len, ngram = speculative
+
+    def window():
+        pos = b.pos
+        draft = _prompt_lookup_draft(b.ctx, pos, draft_len, ngram)
+        logits = model.verify_window(torch.cat([b.cur, draft], dim=1), pos,
+                                     b.caches, **kw)
+        emit, n_acc, cur, _ = _accept_drafts(logits, draft, b.ctx, pos)
+        b.spec[:, :-1] = emit
+        b.spec[:, -1] = n_acc
+        b.cur.copy_(cur)
+        pos.copy_(torch.where(pos < 0, pos, pos + n_acc + 1))
+
+    return window
+
+
 class PagedContinuousBatchEngine:
     """Continuous batching over a shared KV page pool. Prompts sharing
     full-page prefixes reuse pages AND skip recomputing them: admission
@@ -336,16 +392,19 @@ class PagedContinuousBatchEngine:
     model: the port's Llama or OPT; the engine runs on the model's device.
     dtype: activation dtype; cache_dtype: the pool's dtype, or "int8";
     mode: 'exact' or 'bf16' (the quantized linears' regime); plain: run
-    each kernel's plain PyTorch version whatever the device.
+    each kernel's plain PyTorch version whatever the device, eagerly.
     speculative: (draft_len, ngram) turns on prompt-lookup speculation;
-    prefill_chunk: admit a long suffix that many tokens per engine step."""
+    prefill_chunk: admit a long suffix that many tokens per engine step;
+    graphs: capture the decode step and the speculative window as CUDA
+    graphs on a CUDA device (False runs the same steps eagerly)."""
 
     def __init__(self, model, *, slots: int = 8, n_pages: int = 256,
                  page_size: int = 128, dtype=torch.float32,
                  cache_dtype=torch.bfloat16, mode: str = "exact",
                  max_seq: Optional[int] = None, seed: int = 0,
                  speculative: Optional[Tuple[int, int]] = None,
-                 prefill_chunk: Optional[int] = None, plain: bool = False):
+                 prefill_chunk: Optional[int] = None, plain: bool = False,
+                 graphs: bool = True):
         config = model.config
         self.model = model
         self.config = config
@@ -379,18 +438,37 @@ class PagedContinuousBatchEngine:
         self._slot_pages: List[List[int]] = [[] for _ in range(slots)]
         self._slot_shared: List[int] = [0] * slots
         self._next_id = 0
-        self._cur = torch.zeros((slots, 1), dtype=torch.long,
-                                device=self.device)
         # inactive slots carry pos = -1 -> kernel length 0: no page reads
         # AND no pool write. A stale pos would write through the freed page
         # table into pages that may already belong to another slot.
         self._pos = np.full(slots, -1, np.int64)
         self._pt = np.zeros((slots, self.maxp), np.int32)
-        # device token history for speculative drafting (stale rows only
-        # lower the accept rate)
-        self._ctx = (torch.zeros((slots, self.max_seq), dtype=torch.long,
-                                 device=self.device)
-                     if speculative else None)
+        dev = self.device
+        # the step programs' persistent device buffers: the host arrays'
+        # counterparts (uploaded by _upload), the current tokens, the token
+        # history for speculative drafting (stale rows only lower the
+        # accept rate), a window's tokens by step, the step index, and a
+        # speculative window's emitted tokens with their accepted counts
+        self._sent = {n: getattr(self, "_" + n).copy() for n in _UPLOADED}
+        b = self._bufs = SimpleNamespace(
+            **{n: torch.from_numpy(getattr(self, "_" + n).copy()).to(dev)
+               for n in _UPLOADED})
+        b.cur = self._cur = torch.zeros((slots, 1), dtype=torch.long,
+                                        device=dev)
+        b.ctx = self._ctx = (torch.zeros((slots, self.max_seq),
+                                         dtype=torch.long, device=dev)
+                             if speculative else None)
+        b.toks = torch.zeros((self.max_seq, slots), dtype=torch.long,
+                             device=dev)
+        b.widx = torch.zeros(1, dtype=torch.long, device=dev)
+        if speculative:
+            b.spec = torch.zeros((slots, speculative[0] + 2),
+                                 dtype=torch.long, device=dev)
+        b.caches = [dict(c, pt=b.pt) for c in self.pool.pools]
+        self._capture = graphs and not plain
+        self._pool = (torch.cuda.graph_pool_handle()
+                      if self._capture and dev.type == "cuda" else None)
+        self._steps = {}  # name -> graphs.StepGraph
         # what the engine has run so far: model calls by kind, and the
         # speculation's drafts proposed and accepted
         self.stats = {"prefills": 0, "decode_steps": 0, "spec_windows": 0,
@@ -402,10 +480,25 @@ class PagedContinuousBatchEngine:
     def free_slots(self) -> int:
         return sum(not s.active for s in self._slots)
 
-    def _layer_caches(self):
-        """The pools with the page table, as the model reads them."""
-        pt = torch.as_tensor(self._pt, device=self.device)
-        return [dict(c, pt=pt) for c in self.pool.pools]
+    def _upload(self) -> None:
+        """Copy each host slot array to its device buffer where it differs
+        from what the device holds (``_sent``)."""
+        for name in _UPLOADED:
+            host, sent = getattr(self, "_" + name), self._sent[name]
+            if not np.array_equal(host, sent):
+                getattr(self._bufs, name).copy_(torch.from_numpy(host))
+                sent[...] = host
+
+    def _program(self, name: str):
+        """The step program `name` ("greedy", "sampled" or "spec"), made at
+        its first use."""
+        if name not in self._steps:
+            args = (self.model, self._run(), self._bufs)
+            body = (_spec_body(*args, self.speculative) if name == "spec"
+                    else _decode_body(*args, name == "sampled", self.seed))
+            self._steps[name] = graphs.StepGraph(
+                body, self.device, capture=self._capture, pool=self._pool)
+        return self._steps[name]
 
     def _reserve(self) -> int:
         # speculative verify windows write draft_len+1 rows past the last
@@ -611,13 +704,6 @@ class PagedContinuousBatchEngine:
     def _decoding(self) -> List[_Slot]:
         return [s for s in self._slots if s.active and not s.prefilling]
 
-    def _next_tokens(self, logits, pos, sargs, sampled: bool):
-        """The next token of every slot from (B, V) logits, on the device."""
-        if sampled:
-            return sampling_mod.sample_tokens(
-                logits.float(), *sargs, pos.clamp(min=0), self.seed)
-        return torch.argmax(logits, dim=-1)
-
     def _collect(self, toks_of) -> Dict[int, Any]:
         """Host bookkeeping after a window: ``toks_of(i)`` are slot i's
         candidate tokens."""
@@ -657,24 +743,17 @@ class PagedContinuousBatchEngine:
     def _decode_window(self, k: int) -> Dict[int, Any]:
         if not self._decoding():
             return {}
-        pos = torch.as_tensor(self._pos, device=self.device)
-        caches = self._layer_caches()
+        self._upload()
         sampled = bool((self._temp > 0).any())
-        sargs = _sampler_args(self) if sampled else None
-        cur = self._cur
-        toks = []
+        step = self._program("sampled" if sampled else "greedy")
+        self._bufs.widx.zero_()
         for _ in range(k):
-            logits = self.model.decode_step(cur, pos, caches, **self._run())
+            step()
             self.stats["decode_steps"] += 1
-            nxt = self._next_tokens(logits[:, -1], pos, sargs, sampled)
-            # inactive slots (pos < 0) must NOT advance: at pos 0 they
-            # would write through their zeroed page table into page 0,
-            # which likely belongs to an active slot
-            pos = torch.where(pos < 0, pos, pos + 1)
-            cur = nxt[:, None]
-            toks.append(nxt)
-        self._cur = cur
-        toks_host = torch.stack(toks).cpu().numpy()  # the window's one sync
+        # the window's one sync
+        toks_host = self._bufs.toks[:k].cpu().numpy()
+        sent = self._sent["pos"]
+        sent[sent >= 0] += k  # as the device advanced them
         return self._collect(lambda i: toks_host[:, i])
 
     @torch.no_grad()
@@ -692,17 +771,14 @@ class PagedContinuousBatchEngine:
         self._advance_prefill()
         if not self._decoding():
             return {}
-        draft_len, ngram = self.speculative
-        pos = torch.as_tensor(self._pos, device=self.device)
-        draft = _prompt_lookup_draft(self._ctx, pos, draft_len, ngram)
-        window = torch.cat([self._cur, draft], dim=1)  # (B, K+1)
-        logits = self.model.verify_window(window, pos, self._layer_caches(),
-                                          **self._run())
+        draft_len = self.speculative[0]
+        self._upload()
+        self._program("spec")()
         self.stats["spec_windows"] += 1
-        emit, n_acc, self._cur, self._ctx = _accept_drafts(
-            logits, draft, self._ctx, pos)
-        emit_h = emit.cpu().numpy()
-        nacc_h = n_acc.cpu().numpy()
+        spec = self._bufs.spec.cpu().numpy()  # the window's one sync
+        emit_h, nacc_h = spec[:, :-1], spec[:, -1]
+        sent = self._sent["pos"]
+        sent[sent >= 0] += nacc_h[sent >= 0] + 1  # as the device did
         for i, s in enumerate(self._slots):
             if s.active and not s.prefilling:
                 self.stats["drafted"] += draft_len

@@ -57,6 +57,32 @@ def test_flash_offset_into_cache_matches_pallas(kv_dtype):
                                atol=TOL)
 
 
+@pytest.mark.parametrize("form", ["0-d int64", "(1,) int32"])
+@pytest.mark.parametrize("window", [None, 5])
+def test_flash_offset_read_from_a_tensor_matches_pallas(form, window):
+    """The offset as a tensor (the form a captured verify window reads on
+    the card) gives the int offset's output, and the Pallas kernel's with
+    its traced offset."""
+    rng = np.random.default_rng(2)
+    B, Hkv, g, Sq, Sk, hd, off = 1, 2, 2, 16, 64, 32, 37
+    q = rng.normal(size=(B, Hkv * g, Sq, hd)).astype(np.float32)
+    k = rng.normal(size=(B, Hkv, Sk, hd)).astype(np.float32)
+    v = rng.normal(size=(B, Hkv, Sk, hd)).astype(np.float32)
+    want = jfa.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               jnp.asarray(off, jnp.int32),
+                               sliding_window=window, interpret=True)
+    t = (torch.tensor(off) if form == "0-d int64"
+         else torch.tensor([off], dtype=torch.int32))
+    args = [torch.from_numpy(a) for a in (q, k, v)]
+    got = flash_attn.flash_attention(*args, t, sliding_window=window)
+    assert torch.equal(got, flash_attn.flash_attention(
+        *args, off, sliding_window=window))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0,
+                               atol=TOL)
+    with pytest.raises(ValueError, match="offset"):
+        flash_attn.flash_attention(*args, torch.tensor([1.0]))
+
+
 @pytest.mark.parametrize("window", [None, 9])
 def test_flash_bf16_mode_on_the_cpu_runs_the_plain_version(window):
     """mode="bf16" picks the tensor-core kernel only on the card: on CPU

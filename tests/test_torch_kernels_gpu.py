@@ -1062,3 +1062,166 @@ def test_hybrid_matmul_rows_do_not_depend_on_the_batch(dev):
     for a, b in ((0, 1), (74, 111), (256, 300), (3, 11)):
         part = plain_ops.hybrid_matmul(x[a:b].contiguous(), w, idx, 4096)
         assert torch.equal(part, full[a:b]), (a, b)
+
+
+# ---------------------------------------------------------------------------
+# Step programs captured as CUDA graphs (graphs.StepGraph)
+# ---------------------------------------------------------------------------
+
+
+def _tiny_llama(dev, **kw):
+    cfg = llama.LlamaConfig(vocab_size=512, hidden_size=256,
+                            intermediate_size=384, n_layers=2, n_heads=4,
+                            n_kv_heads=2, max_seq=128)
+    return fuse.fuse_for_decode(synthetic.quantized_llama(
+        cfg, 4, sparsity=0.01, topx=3, seed=3, device=dev, **kw))
+
+
+@pytest.mark.parametrize("regime", ["exact", "bf16"])
+def test_flash_attention_reads_its_offset_from_the_card(dev, regime):
+    """K3 with its offset in a tensor (int32 or int64, 0-d or (1,)) equals
+    the launch at the python int bit for bit, in both regimes, at a verify
+    window's shape and a prompt's."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    B, H, Hkv, hd, S = 1, 4, 2, 128, 256
+    dt = torch.bfloat16 if regime == "bf16" else torch.float32
+    cache = {n: torch.randn(B, S, Hkv * hd, generator=gen,
+                            device=dev).to(dt) for n in ("k", "v")}
+    k, v = common.read_kv(cache, dt, Hkv)
+    for sq, offset in ((5, 0), (5, 123), (40, 77)):
+        q = torch.randn(B, sq, H, hd, generator=gen,
+                        device=dev).to(dt).transpose(1, 2)
+        want = flash_attn.flash_attention(q, k, v, offset, mode=regime)
+        for off in (torch.tensor(offset, device=dev),
+                    torch.tensor([offset], dtype=torch.int32, device=dev)):
+            got = flash_attn.flash_attention(q, k, v, off, mode=regime)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (sq, offset)
+        plain = flash_attn.flash_attention_plain(
+            q, k, v, torch.tensor([offset], device=dev))
+        tol = TOL_ATTN_BF16 * float(v.float().abs().max()) if (
+            regime == "bf16") else 1e-4
+        assert float((want - plain).abs().max()) <= tol
+
+
+@pytest.mark.parametrize("mode", ["exact", "bf16"])
+def test_captured_verify_window_replays_at_any_position(dev, mode):
+    """A verify window (prefill at a device start: K3's offset and the
+    cache write read from the card) captured once and replayed at three
+    positions equals the eager window at each position, logits and cache
+    bit for bit."""
+    from squeezellm_tpu_torch import graphs
+
+    model = _tiny_llama(dev)
+    dt = torch.bfloat16 if mode == "bf16" else torch.float32
+    kw = dict(dtype=dt, mode=mode)
+    c = model.config
+    cache = common.init_kv_cache(1, 128, c.n_layers, c.n_kv_heads,
+                                 c.head_dim, dt, dev)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    with torch.no_grad():
+        model.prefill(torch.randint(0, 512, (1, 40), generator=gen,
+                                    device=dev), cache, **kw)
+        win = torch.zeros((1, 5), dtype=torch.long, device=dev)
+        start = torch.zeros(1, dtype=torch.long, device=dev)
+        out = torch.zeros((1, 5, c.vocab_size), device=dev)
+
+        def body():
+            out.copy_(model.prefill(win, cache, start=start,
+                                    all_logits=True, **kw))
+
+        step = graphs.StepGraph(body, dev)
+        for p in (40, 43, 51, 60):
+            w = torch.randint(0, 512, (1, 5), generator=gen, device=dev)
+            ref_cache = [{n: t.clone() for n, t in lc.items()}
+                         for lc in cache]
+            ref = model.prefill(w, ref_cache, start=p, all_logits=True, **kw)
+            win.copy_(w)
+            start.fill_(p)
+            step()
+            torch.cuda.synchronize()
+            assert torch.equal(out, ref), p
+            for a, b_ in zip(cache, ref_cache):
+                assert all(torch.equal(a[n], b_[n]) for n in a), p
+    assert step.graph is not None and step.replays == 3
+
+
+def test_graph_replays_after_the_workspaces_grow(dev):
+    """A graph captured while K11's partials and K12's copy of x are small
+    replays the same tokens after calls at larger shapes replaced those
+    workspaces (and K1's tile counters): the old buffers stay alive."""
+    model = fuse.attach_decode_luts(_tiny_llama(dev), transposed=True)
+    prompt = np.array([[5, 9, 200, 31], [7, 77, 101, 3]])
+    stores = (lut_matmul._COUNTERS, lut_matmul_t._WORKSPACE, spmv._WORKSPACE)
+    for store in stores:  # start from the tiny model's own sizes
+        lut_matmul.RETIRED.extend(store.values())
+        store.clear()
+    want = engine.Engine(model, graphs=False).generate(prompt, 12)
+    eng = engine.Engine(model)
+    np.testing.assert_array_equal(eng.generate(prompt, 12), want)
+    held = [dict(s) for s in stores]
+    assert held[1] and held[2]  # the graph holds K11's and K12's
+    g = torch.Generator(device=dev).manual_seed(1)
+    in_f, out_f = 4096, 32000
+    nw = lut_matmul.formats.n_words(in_f, 4)
+    qw = torch.randint(-2**31, 2**31 - 1, (nw, out_f), generator=g,
+                       dtype=torch.int64, device=dev).to(torch.int32)
+    lut = torch.randn(out_f, 16, generator=g, device=dev)
+    lut_matmul.lut_matmul(torch.randn(1023, in_f, generator=g, device=dev),
+                          qw, lut, 4, variant="gemv")
+    lut_matmul_t.lut_matmul_t(torch.randn(8, in_f, generator=g, device=dev),
+                              qw.t().contiguous(), lut)
+    rowptr = torch.ones(17, dtype=torch.int32, device=dev)
+    rowptr[0] = 0
+    spmv.spmv(torch.randn(8, 11008, generator=g, device=dev), rowptr,
+              torch.zeros(1, dtype=torch.int32, device=dev),
+              torch.ones(1, device=dev), 16)
+    for old, store in zip(held, stores):
+        for d, t in old.items():
+            assert store[d] is not t
+            assert any(r is t for r in lut_matmul.RETIRED)
+    np.testing.assert_array_equal(eng.generate(prompt, 12), want)
+
+
+def test_tiny_model_graphs_match_eager(dev):
+    """Every step program of the Engine and of the paged engine, captured
+    and replayed, gives the eager steps' tokens, and the launch counts
+    (replays included) equal the eager run's."""
+    from squeezellm_tpu_torch import graphs
+
+    model = _tiny_llama(dev)
+    prompt = np.array([[5, 9, 200, 31, 5, 9, 200]])
+    sp = dict(temperature=0.8, top_k=40, top_p=0.95, seed=7)
+
+    def runs(graphed):
+        eng = engine.Engine(model, graphs=graphed)
+        draft = engine.Engine(engine.truncate_for_draft(model, 1),
+                              graphs=graphed)
+        before = graphs.read_counts()
+        out = [eng.generate(prompt, 12), eng.generate(prompt, 12, **sp),
+               eng.generate_speculative(prompt, 12, draft_len=3),
+               eng.generate_draft_speculative(prompt, 12, draft,
+                                              draft_len=3)]
+        for kw in ({}, {"speculative": (3, 2)}):
+            paged = serving.PagedContinuousBatchEngine(
+                model, slots=3, n_pages=40, page_size=16,
+                cache_dtype=torch.float32, graphs=graphed, **kw)
+            out.append(paged.run([[1, 2, 3], [4, 5, 4, 5, 4], [9] * 20],
+                                 max_new_tokens=10, window=4))
+        out.append(serving.PagedContinuousBatchEngine(
+            model, slots=3, n_pages=40, page_size=16, seed=2,
+            cache_dtype=torch.float32, graphs=graphed).run(
+                [[1, 2, 3], [4, 5, 6]], max_new_tokens=8,
+                sampling=SamplingParams(temperature=0.8, top_k=40)))
+        return out, graphs.count_increase(before, graphs.read_counts())
+
+    eager, eager_counts = runs(False)
+    graphed, graphed_counts = runs(True)
+    for a, b_ in zip(eager, graphed):
+        if isinstance(a, np.ndarray):
+            np.testing.assert_array_equal(a, b_)
+        else:
+            assert a == b_
+    np.testing.assert_array_equal(eager[2], eager[0])
+    np.testing.assert_array_equal(eager[3], eager[0])
+    assert graphed_counts == eager_counts

@@ -187,12 +187,17 @@ def test_port_matches_jax(reference, route):
 
 
 def test_engine_refuses_sampling():
+    """The engine samples (tests/test_torch_engine.py); it refuses the
+    sampling parameters the on-device sampler cannot honour, as
+    SamplingParams does."""
     config, bits = CONFIGS["gqa"]
     specs, params = _jax_tree(config, bits, seed=1)
     model = carry.from_tree("llama", dataclasses.asdict(config),
                             _module_meta(specs), params, "cpu")
-    with pytest.raises(NotImplementedError, match="sampling slice"):
-        engine.Engine(model).generate(PROMPT, 2, temperature=0.7)
+    with pytest.raises(ValueError, match="top_k"):
+        engine.Engine(model).generate(PROMPT, 2, temperature=0.7, top_k=65)
+    with pytest.raises(ValueError, match="top_p"):
+        engine.Engine(model).generate(PROMPT, 2, temperature=0.7, top_p=0.0)
 
 
 def test_benchmark_checks_perplexity_only_when_asked(monkeypatch):
@@ -218,7 +223,9 @@ def test_benchmark_checks_perplexity_only_when_asked(monkeypatch):
     assert "check_ppl" not in stats and not calls
     assert stats["tokens"] == 10 and stats["tokens_per_s"] > 0
     checked = eng.benchmark(ids, max_seq=32, check=True)
-    assert len(calls) == ids.shape[1] - 1
+    # one log-softmax a step run: the first call, the warmup steps and the
+    # timed ones (the step masks the last position's term on the device)
+    assert len(calls) == ids.shape[1] + 1 + engine.WARMUP_STEPS
     monkeypatch.undo()
     logits = eng.teacher_forced_logits(ids, max_seq=32)
     nll = -torch.log_softmax(logits[:-1], -1).gather(
