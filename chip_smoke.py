@@ -28,6 +28,15 @@ checking after each that it went through its kernels:
   bf16 and int8 pools (K7, K9), then with transposed words attached: eight
   f32 requests against the plain path and the bf16 step profiled (K11,
   K12);
+* serving.ContinuousBatchEngine on the w4 model, 8 slots of a 512-row dense
+  cache, the same 16 requests: f32 greedy by steps, windows, speculation
+  and the plain path (K1, K2, K3; K4 where six 300-token prompts are
+  admitted together), bf16 sampled admitted in reverse, the int8 cache
+  (K5), one bf16 decode step at 8 slots held to 129 K1 (GEMV) and 32 K2
+  launches, the step's host and device time beside the paged engine's;
+  then server.serve over the bf16 engine answering eight concurrent HTTP
+  completions (greedy answers held to a fresh engine's run()), and the
+  serve-bench command, dense and --paged;
 * offline quantization on the card: a dense LLaMA-2-7B at full width
   (QUANT_LAYERS deep), Fisher gradients, quantize_model w4 structured and
   w3 free (its first W3_LAYERS layers: the host's k-means) with a 0.45%
@@ -42,12 +51,14 @@ graph captured once and replayed (``squeezellm_tpu_torch/graphs.py``); the
 launch counts include the replays. Beside that, each path named below is
 run again with ``graphs=False`` in the same process and held to the same
 tokens: the w4 and w3 greedy requests, a sampled w4 bf16 request, the
-int8-cache request, the OPT request, the paged f32 run and the paged bf16
-sampled run admitted in reverse. Speculation at full width (w4, f32):
+int8-cache request, the OPT request, the paged f32 run, the paged bf16
+sampled run admitted in reverse, and the dense-slot f32 steps,
+speculation and bf16 sampled run. Speculation at full width (w4, f32):
 ``generate_speculative`` and ``generate_draft_speculative`` with
 ``truncate_for_draft(model, 4)``, device and host loops, each
-token-identical to greedy ``generate`` (the bf16 share reported), and a
-self-draft's acceptance. Host and device time, eager and graphed, side by
+token-identical to greedy ``generate`` (the bf16 share reported, also
+with the verify windows on K1's tensor-core kernel), and a self-draft's
+acceptance. Host and device time, eager and graphed, side by
 side: the w4 bf16 decode step at both contexts, the paged step at 8 slots
 (f32, bf16, bf16 with transposed words) and the paged speculative window.
 
@@ -97,7 +108,8 @@ K3_LENS = PROMPT_LENS + (2048,)  # and the eval stride
 K1_ROWS = (1, 8, 16, 40, 100)
 K10_ROWS = K1_ROWS
 # the rows a decode step gives K1 (one token a slot: the GEMV in bf16
-# mode, as the model asks); the others are prompts and verify windows
+# mode, as the model asks, as it does for a verify window of up to 16
+# rows); the others are prompts and the 40-row verify window of 8 slots
 # (the tensor-core kernel in bf16 mode)
 K1_DECODE_ROWS = (1, 8, 16)
 # bf16 mode: both K1 kernels (GEMV, tensor cores) are timed at these rows
@@ -168,6 +180,13 @@ SPEC_PROMPT, SPEC_MAX_SEQ, DRAFT_LAYERS = 64, 256, 4
 TRANSPOSED_NEW = 4  # new tokens a request with transposed words attached
 # K6-K9 are timed at 8 slots x 1024 valid rows of a LLaMA-2-7B layer
 PAGED_AT_ROWS = 1024
+# dense-slot serving: the paged phase's 16 requests over PAGED_SLOTS slots
+# of a DENSE_MAX_SEQ-row dense cache. The HTTP sub-phase's eight prompts
+# have SERVE_LENS tokens: each admission stays below 1024 rows, so K1
+# serves every prefill (from 1024 rows K4 and a library GEMM take over,
+# whose rounding differs)
+DENSE_MAX_SEQ = 512
+SERVE_LENS = (16, 23, 37, 50, 64, 77, 90, 100)
 
 
 def sh(cmd):
@@ -1717,8 +1736,13 @@ def run_speculation(torch, model, record):
     and its host loop, held token-identical to greedy ``generate`` with
     their launches held to their windows; the target as its own draft
     (acceptance reported); in bf16 mode the share of tokens that agree
-    with greedy (the verify window's rows take K1's tensor-core kernel, the
-    decode step the GEMV: reported, not held)."""
+    with greedy, reported, not held: a verify window's linears take the
+    decode step's GEMV (``Step.lin``), but its attention is K3 (rope in
+    bf16, P rounded to bf16) where a decode step's is K2, as the JAX
+    package splits them. The share is also taken with the windows on K1's
+    tensor-core kernel (``window_gemv=False``), the routing before windows
+    took the GEMV, and one bf16 prompt-lookup window (5 rows) is timed
+    with either routing."""
     import numpy as np
 
     from squeezellm_tpu_torch import engine
@@ -1765,6 +1789,29 @@ def run_speculation(torch, model, record):
             runs["self draft device"] = (eng.generate_draft_speculative(
                 prompt, NEW_TOKENS, eng, draft_len=K, **kw),
                 dict(eng.spec_stats))
+        if mode == "bf16":
+            # a fresh engine: a captured window replays the kernels it
+            # was captured with
+            tc = engine.Engine(model, **ekw, window_gemv=False)
+            for name, fn, args in (
+                    ("lookup", tc.generate_speculative, ()),
+                    ("draft", tc.generate_draft_speculative, (draft,))):
+                kw2 = {} if args else dict(ngram=ngram)
+                runs[f"{name} device, windows on the tensor cores"] = (
+                    fn(prompt, NEW_TOKENS, *args, draft_len=K, **kw2, **kw),
+                    dict(tc.spec_stats))
+            res["bf16_lookup_window"] = {}
+            for label, e in (("GEMV", eng), ("tensor cores", tc)):
+                # after a call every token is emitted: each replay of the
+                # window verifies its 5 rows at one position
+                e.generate_speculative(prompt, NEW_TOKENS, draft_len=K,
+                                       ngram=ngram, **kw)
+                res["bf16_lookup_window"][label] = window_ms(
+                    torch, e._state[2]["window"], f"Engine bf16 prompt-"
+                    f"lookup window, {label}", k1_call, label == "GEMV")
+            print_window_ms(f"w4 bf16 Engine prompt-lookup window ({K + 1} "
+                            f"rows)", res["bf16_lookup_window"])
+            del tc
         agree = {k: float(np.mean(v[0][0, SPEC_PROMPT:]
                                   == greedy[0, SPEC_PROMPT:]))
                  for k, v in runs.items()}
@@ -1789,6 +1836,48 @@ def run_speculation(torch, model, record):
           f"windows [{time.perf_counter() - t0:.1f} s]")
     record["speculation"] = res
     return res
+
+
+def window_ms(torch, window, label, k1_call, gemv, n=8):
+    """Host and device ms of one call of `window` (one verify window: an
+    Engine's step program, or a serving engine's ``step_spec_window``)
+    over `n` calls after a warm-up call, each of the `n` on the host clock
+    together, then traced. Holds its K1 launches to `k1_call` a window,
+    all through the GEMV when `gemv`, else none."""
+    window()
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        window()
+    torch.cuda.synchronize()
+    host = (time.perf_counter() - t0) / n * 1e3
+    k1 = counters()[0]
+    on_gemv = k1.variant_launches.get("gemv", 0)
+    if k1.launches != k1_call * n or on_gemv != (k1.launches if gemv else 0):
+        raise AssertionError(f"{label}: {k1.launches} K1 launches in {n} "
+                             f"windows, {on_gemv} of them the GEMV")
+
+    def run():
+        for _ in range(n):
+            window()
+
+    by_name, why = device_ms_by_kernel(torch, run)
+    return {"host_ms": host, "profile_failed": why,
+            "device_ms": None if by_name is None
+            else sum(by_name.values()) / n,
+            "k1_ms": None if by_name is None else sum(
+                v for k, v in by_name.items()
+                if re.search(r"\b(gemv|mma)_kernel\b", k)) / n}
+
+
+def print_window_ms(label, reads, smi=""):
+    print(f"{label}, linears through K1's GEMV against its tensor-core "
+          f"kernel: " + "; ".join(
+              f"{k} {r['host_ms']:.3f} ms on the host clock, device "
+              + ("not measured" if r["device_ms"] is None else
+                 f"{r['device_ms']:.3f} (K1 {r['k1_ms']:.3f})")
+              for k, r in reads.items()) + (f" [{smi}]" if smi else ""))
 
 
 def flushed_device_ms(torch, timer, fn, kernels=None, n=10):
@@ -2143,7 +2232,8 @@ def paged_layer_check(torch, model, dtype, mode, cache_dtype):
 
 
 def profile_paged_step(torch, eng, prompts, steps=8):
-    """Wall and device time of one decode step at 8 active slots: admit
+    """Wall and device time of one decode step of a serving engine (paged
+    or dense) at 8 active slots: admit
     eight requests, warm up, then time `steps` single steps (each ends in
     its own sync) and one window of `steps` steps (one sync), in the order
     steps, window, window, steps, on the host clock; then trace `steps`
@@ -2182,6 +2272,9 @@ def profile_paged_step(torch, eng, prompts, steps=8):
                    idle_share=1 - device / step_ms,
                    window_idle_share=1 - device / window_ms,
                    paged_attn_ms_per_step=paged_attn_ms(by_name) / steps,
+                   decode_attn_ms_per_step=sum(
+                       v for k, v in by_name.items()
+                       if "decode_attn_kernel" in k) / steps,
                    top_ms_per_step=[[k[:60], v / steps] for k, v in top],
                    **step_shares(by_name, counts, steps))
     return res
@@ -2535,6 +2628,367 @@ def run_paged(torch, config, record, smi):
           f"pool {res['peak_mib_bf16']:.0f}, int8 pool "
           f"{res['peak_mib_int8 pool']:.0f} [{smi}]")
     record["paged"] = res
+
+
+def run_dense_slots(torch, config, record, smi):
+    """ContinuousBatchEngine on LLaMA-2-7B w4 at full width and depth: 8
+    slots of a 512-row dense cache, the paged phase's 16 requests with 32
+    new tokens each (300-token prompts admitted six at a time reach 1024
+    rows: K4 and a library GEMM serve that prefill)."""
+    import numpy as np
+
+    from squeezellm_tpu_torch import serving, synthetic
+    from squeezellm_tpu_torch.models import common, fuse
+    from squeezellm_tpu_torch.sampling import SamplingParams
+
+    L = config.n_layers
+    k1_call = 4 * L + 1
+    t0 = time.perf_counter()
+    model = fuse.fuse_for_decode(synthetic.quantized_llama(config, 4, seed=4))
+    prompts = paged_requests(config)
+    n_new = len(prompts) * NEW_TOKENS
+    res = {"runs": {}}
+
+    def engine(**kw):
+        kw.setdefault("cache_dtype", torch.float32)
+        return serving.ContinuousBatchEngine(
+            model, slots=PAGED_SLOTS, max_seq=DENSE_MAX_SEQ, **kw)
+
+    def timed(label, eng, serve):
+        """One run of the 16 requests: tokens by request id. Holds the
+        launch counts to the engine's own count of model calls (a prefill
+        of 1024 rows and more: K4 for the layers' linears)."""
+        rows = []
+        prefill = eng._prefill
+
+        def counted(tokens, dense, start):
+            rows.append(tokens.numel())
+            prefill(tokens, dense, start)
+
+        eng._prefill = counted
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = serve(eng)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        st = eng.stats
+        want = [0] * 12
+        if not eng.plain:
+            big = sum(n >= 1024 for n in rows)
+            want[0] = (k1_call * (len(rows) + st["decode_steps"]
+                                  + st["spec_windows"]) - 4 * L * big)
+            want[2] = L * len(rows)
+            want[3] = 4 * L * big
+            want[4 if common.is_int8(eng.cache_dtype) else 1] = (
+                L * st["decode_steps"])
+        launches = expect_counts(record, f"dense {label}", want)
+        if (sorted(out) != list(range(len(prompts)))
+                or any(len(t) != NEW_TOKENS for t in out.values())
+                or eng.free_slots() != PAGED_SLOTS
+                or (eng._pos != -1).any()):
+            raise AssertionError(f"dense {label}: requests {sorted(out)}, "
+                                 f"free slots {eng.free_slots()}")
+        res["runs"][label] = dict(seconds=secs, tok_s=n_new / secs,
+                                  launches=launches, stats=dict(st),
+                                  prefill_rows=rows)
+        acc = (f", accept rate {st['accepted'] / max(st['drafted'], 1):.3f}"
+               f" ({st['accepted']} of {st['drafted']} drafts, "
+               f"{st['spec_windows']} windows)" if st["spec_windows"] else "")
+        print(f"dense {label}: {n_new} tokens in {secs:.2f} s, "
+              f"{n_new / secs:.1f} generated tok/s{acc}; {len(rows)} "
+              f"prefills of {rows} rows, {st['decode_steps']} decode steps; "
+              f"launches K1..K12 {launches} [{smi}]")
+        return out
+
+    def run(eng, **kw):
+        return eng.run(prompts, max_new_tokens=NEW_TOKENS, **kw)
+
+    # (i) f32 greedy: single steps graphed and eager, windows of 8,
+    # speculation graphed and eager, the plain path
+    step = timed("f32 step", engine(), lambda e: run(e, window=1))
+    hold_equal("dense f32 step, graphed vs eager",
+               timed("f32 step, eager", engine(graphs=False),
+                     lambda e: run(e, window=1)), step)
+    runs = {"step_window(8)": timed("f32 step_window(8)", engine(),
+                                    lambda e: run(e, window=8))}
+    for sfx, g in (("", True), (", eager", False)):
+        runs[f"speculative{sfx}"] = timed(
+            f"f32 speculative={SPECULATIVE}{sfx}",
+            engine(speculative=SPECULATIVE, graphs=g), run)
+    runs["plain"] = timed("f32 step, plain", engine(plain=True),
+                          lambda e: run(e, window=1))
+    for label, got in runs.items():
+        hold_equal(f"dense f32 greedy, {label} vs step", got, step)
+    res["tokens"] = step
+    print(f"dense f32 greedy: step (graphed and eager), step_window(8), "
+          f"speculative (graphed and eager) and the plain path give the "
+          f"same {NEW_TOKENS} tokens for each of the {len(prompts)} requests")
+    if "paged" in record and record["paged"].get("tokens") is not None:
+        same = sum(record["paged"]["tokens"][r] == step[r] for r in step)
+        print(f"dense f32 greedy equals the paged engine's in {same} of "
+              f"{len(step)} requests (reported)")
+
+    # (ii) bf16 sampled, admitted one at a time in reverse order: graphed
+    # and eager give the same tokens
+    sp = SamplingParams(temperature=0.8, top_k=40, top_p=0.95)
+    bkw = dict(dtype=torch.bfloat16, mode="bf16", cache_dtype=torch.bfloat16)
+    order = list(range(len(prompts)))[::-1]
+    sampled = timed("bf16 sampled, admitted in reverse",
+                    engine(seed=5, **bkw),
+                    lambda e: serve_in_order(e, prompts, order, sp))
+    hold_equal("dense bf16 sampled, admitted in reverse, graphed vs eager",
+               timed("bf16 sampled, admitted in reverse, eager",
+                     engine(seed=5, graphs=False, **bkw),
+                     lambda e: serve_in_order(e, prompts, order, sp)),
+               sampled)
+    print("dense bf16 sampled (temperature 0.8, top-k 40, top-p 0.95), "
+          "admitted in reverse one at a time: graphed equals eager")
+
+    # (iii) the int8 cache (K5); its tokens against f32's reported
+    q8 = timed("int8 cache step_window(8)", engine(cache_dtype="int8"),
+               lambda e: run(e, window=8))
+    res["int8_tokens_equal_f32"] = sum(
+        int(a == b) for r in step for a, b in zip(q8[r], step[r]))
+    print(f"dense int8 cache: {res['int8_tokens_equal_f32']} of {n_new} "
+          f"tokens equal the f32 cache's (reported)")
+
+    # (iv) one bf16 decode step at 8 active slots: 129 K1 launches, all the
+    # GEMV, and 32 K2
+    eng = engine(**bkw)
+    eng.add_requests(prompts[:PAGED_SLOTS], 8)
+    eng.step()  # the capture
+    reset_counts()
+    eng.step()
+    torch.cuda.synchronize()
+    gemv = counters()[0].variant_launches.get("gemv", 0)
+    res["decode_step_launches"] = expect_counts(
+        record, "dense bf16 decode step at 8 slots", [k1_call, L])
+    if gemv != k1_call:
+        raise AssertionError(f"dense decode step: {gemv} of {k1_call} K1 "
+                             f"launches ran the GEMV")
+    cancel_all(eng)
+    print(f"dense bf16 decode step at {PAGED_SLOTS} slots: launches K1..K12 "
+          f"{res['decode_step_launches']}, all {gemv} K1 launches the GEMV")
+    del eng
+
+    # (v) host and device time a step at 8 active slots, beside the paged
+    # engine's from its phase
+    for label, kw in (("f32", {}), ("bf16", bkw)):
+        for sfx, g in (("_eager", False), ("", True)):
+            res[f"profile_{label}{sfx}"] = profile_paged_step(
+                torch, engine(graphs=g, **kw), prompts)
+    cases = [(f"dense {label} {kind}", res[f"profile_{label}{sfx}"])
+             for label in ("f32", "bf16")
+             for kind, sfx in (("eager", "_eager"), ("graphed", ""))]
+    paged = record.get("paged", {})
+    cases += [(f"paged {label} graphed", paged[f"profile_{label}"])
+              for label in ("f32", "bf16") if f"profile_{label}" in paged]
+    print_host_device("serving step at 8 slots", cases, record)
+    for label in ("f32", "bf16"):
+        prof = res[f"profile_{label}"]
+        if prof["profile_failed"]:
+            continue
+        print(f"dense {label} step at 8 slots: {prof['step_ms']:.2f} ms on "
+              f"the host clock ({prof['window_step_ms']:.2f} in a window of "
+              f"8), device busy {prof['device_ms_per_step']:.3f} ms (idle "
+              f"share {prof['idle_share']:.3f}; K2 "
+              f"{prof['decode_attn_ms_per_step']:.3f}; " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in
+                  prof["ms_per_step_by_kernel"].items())
+              + f"); top: " + "; ".join(
+                  f"{k} {v:.3f}" for k, v in prof["top_ms_per_step"])
+              + f" [{smi}]")
+    # one speculative window of an engine of 2 slots (10 rows), its
+    # linears through K1's GEMV (the default) and its tensor-core kernel
+    res["spec_window_2_slots"] = {}
+    for label, g in (("GEMV", True), ("tensor cores", False)):
+        eng = serving.ContinuousBatchEngine(
+            model, slots=2, max_seq=DENSE_MAX_SEQ, speculative=SPECULATIVE,
+            window_gemv=g, **bkw)
+        eng.add_requests(prompts[:2], 3 * NEW_TOKENS)
+        eng.step_spec_window()  # the capture
+        res["spec_window_2_slots"][label] = window_ms(
+            torch, eng.step_spec_window, f"dense bf16 speculative window at "
+            f"2 slots, {label}", k1_call, g)
+        cancel_all(eng)
+        del eng
+    print_window_ms(f"dense bf16 speculative window at 2 slots "
+                    f"({2 * (SPECULATIVE[0] + 1)} rows)",
+                    res["spec_window_2_slots"], smi)
+    # admission into a free slot (a prefill into a staging cache of the
+    # prompt's rows, then the rows into the slot): host and device ms
+    eng = engine(**bkw)
+    rng = np.random.default_rng(43)
+    res["admission"] = {}
+    for n in (16, 300):
+        prompt = rng.integers(0, config.vocab_size, n).tolist()
+
+        def admit():
+            eng.add_request(prompt, 4)
+            torch.cuda.synchronize()
+            cancel_all(eng)
+
+        admit()  # the first admission of this length
+        t1 = time.perf_counter()
+        admit()
+        host = (time.perf_counter() - t1) * 1e3
+        by_name, why = device_ms_by_kernel(torch, admit)
+        dev = None if by_name is None else sum(by_name.values())
+        res["admission"][n] = {"host_ms": host, "device_ms": dev,
+                               "profile_failed": why}
+    del eng
+    print("dense bf16 admission of one prompt into a free slot: " + "; ".join(
+        f"{n} tokens {a['host_ms']:.2f} ms on the host clock, device "
+        + ("not measured" if a["device_ms"] is None
+           else f"{a['device_ms']:.2f} ms")
+        for n, a in res["admission"].items()) + f" [{smi}]")
+    served = {lab: res["runs"][lab]["tok_s"] for lab in
+              ("f32 step", "f32 step_window(8)",
+               f"f32 speculative={SPECULATIVE}")}
+    paged_runs = paged.get("runs", {})
+    print("served tok/s, dense against paged (16 requests, 32 new tokens, 8 "
+          "slots): " + "; ".join(
+              f"{lab} {v:.1f} against "
+              + (f"{paged_runs[lab]['tok_s']:.1f}" if lab in paged_runs
+                 else "not measured") for lab, v in served.items())
+          + f" [{smi}]")
+
+    # (vi) the HTTP front end over the bf16 engine, then (vii) serve-bench
+    res["serve"] = serve_over_http(torch, model, bkw, record, smi)
+    del model
+    torch.cuda.empty_cache()
+    res["serve_bench"] = serve_bench_in_process(torch, smi)
+    print(f"[dense-slot serving, model made and served: "
+          f"{time.perf_counter() - t0:.1f} s]")
+    record["dense_slots"] = res
+
+
+def serve_over_http(torch, model, bkw, record, smi):
+    """server.serve over the bf16 dense engine (8 slots): eight concurrent
+    completions from threads through urllib (one streamed, one sampled
+    with every eighth token id a stop token, six greedy), each greedy answer
+    held token-identical to the same prompt through run() on a fresh
+    engine; /health answers; the launches held to the engine's calls (the
+    warm-up's one-token prompt included, a decode step's); a failed loop
+    fails the phase."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from squeezellm_tpu_torch import server, serving
+
+    L = model.config.n_layers
+    k1_call = 4 * L + 1
+    vocab = model.config.vocab_size
+    rng = np.random.default_rng(41)
+    prompts = [rng.integers(0, vocab, n).tolist() for n in SERVE_LENS]
+    stop = list(range(0, vocab, 8))  # ~1 in 8 draws stops the request
+    bodies = [dict(prompt_tokens=p, max_tokens=NEW_TOKENS) for p in prompts]
+    bodies[0]["stream"] = True
+    bodies[1].update(temperature=0.8, top_k=40, top_p=0.95, stop=stop)
+    eng = serving.ContinuousBatchEngine(model, slots=PAGED_SLOTS,
+                                        max_seq=DENSE_MAX_SEQ, **bkw)
+    reset_counts()
+    t0 = time.perf_counter()
+    srv = server.serve(eng, port=0, window=8)
+    warm = time.perf_counter() - t0
+    url = f"http://127.0.0.1:{srv.server_port}"
+    out, errors = {}, []
+
+    def post(i):
+        try:
+            req = urllib.request.Request(
+                url + "/v1/completions", data=json.dumps(bodies[i]).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(req, timeout=600) as r:
+                if bodies[i].get("stream"):
+                    toks = []
+                    for line in r.read().decode().splitlines():
+                        if line.startswith("data: {"):
+                            toks += json.loads(line[6:])["tokens"]
+                    out[i] = {"tokens": toks, "finish_reason": "length"}
+                else:
+                    out[i] = json.load(r)
+        except Exception as e:  # the phase fails below
+            errors.append(f"request {i}: {type(e).__name__}: {e}")
+
+    try:
+        t1 = time.perf_counter()
+        threads = [threading.Thread(target=post, args=(i,))
+                   for i in range(len(bodies))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=900)
+        secs = time.perf_counter() - t1
+        with urllib.request.urlopen(url + "/health", timeout=60) as r:
+            health = json.load(r)
+    finally:
+        srv.serving_loop.shutdown()
+        srv.shutdown()
+    if srv.serving_loop.failed or errors or len(out) != len(bodies):
+        raise AssertionError(f"serve: loop failed {srv.serving_loop.failed}"
+                             f", errors {errors}, answers {sorted(out)}")
+    st = eng.stats
+    launches = expect_counts(record, "dense bf16 over HTTP", [
+        k1_call * (st["prefills"] + st["decode_steps"]),
+        L * (st["decode_steps"] + 1), L * (st["prefills"] - 1)])
+    greedy = [i for i in range(len(bodies)) if i != 1]
+    fresh = serving.ContinuousBatchEngine(model, slots=PAGED_SLOTS,
+                                          max_seq=DENSE_MAX_SEQ, **bkw)
+    want = fresh.run([prompts[i] for i in greedy], max_new_tokens=NEW_TOKENS)
+    hold_equal("serve: greedy answers vs run() on a fresh engine",
+               {i: out[i]["tokens"] for i in greedy},
+               {i: [int(t) for t in want[j]] for j, i in enumerate(greedy)})
+    s = out[1]["tokens"]
+    stopped = out[1]["finish_reason"] == "stop"
+    if (any(t in stop for t in s[:-1]) or (s[-1] in stop) != stopped
+            or (not stopped and len(s) != NEW_TOKENS)):
+        raise AssertionError(f"serve: sampled request with stop tokens "
+                             f"gave {out[1]}")
+    if health != {"status": "ok", "free_slots": PAGED_SLOTS,
+                  "served": len(bodies)}:
+        raise AssertionError(f"serve: /health {health}")
+    n = sum(len(o["tokens"]) for o in out.values())
+    print(f"serve (bf16 dense engine, {PAGED_SLOTS} slots): warm-up "
+          f"{warm:.1f} s; {len(bodies)} concurrent completions (prompts "
+          f"{SERVE_LENS[0]}-{SERVE_LENS[-1]} tokens; one streamed, one "
+          f"sampled: {len(s)} tokens, finish {out[1]['finish_reason']}) in "
+          f"{secs:.2f} s, "
+          f"{n / secs:.1f} tok/s; the {len(greedy)} greedy answers equal "
+          f"run() on a fresh engine; /health {health}; launches K1..K12 "
+          f"{launches} [{smi}]")
+    return {"warmup_s": warm, "seconds": secs, "tokens": n,
+            "launches": launches, "health": health,
+            "sampled_tokens": len(s)}
+
+
+def serve_bench_in_process(torch, smi):
+    """The serve-bench command in this process, on a random LLaMA-2-7B w4
+    in bf16 mode (its defaults: 8 slots, 32 requests of 4-31 prompt tokens,
+    32 new tokens, windows of 8), dense and --paged: its JSON lines."""
+    import contextlib
+    import io
+
+    from squeezellm_tpu_torch import cli
+
+    out = {}
+    cfg = os.path.join(HERE, "models", "llama-2-7b", "config.json")
+    for name, flags in (("dense", []), ("paged", ["--paged"])):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            cli.main(["serve-bench", "--synthetic", cfg, "--wbits", "4",
+                      "--mode", "bf16", *flags])
+        line = buf.getvalue().strip().splitlines()[-1]
+        out[name] = json.loads(line)
+        print(f"serve-bench {' '.join(flags) or '(dense)'} "
+              f"[{time.perf_counter() - t0:.1f} s, model made]: {line} "
+              f"[{smi}]")
+        torch.cuda.empty_cache()
+    return out
 
 
 def run_opt(torch, record):
@@ -3159,6 +3613,8 @@ def main():
                for b in (4, 3)]
     phases += [("paged serving",
                 lambda: run_paged(torch, config, record, smi)),
+               ("dense-slot serving",
+                lambda: run_dense_slots(torch, config, record, smi)),
                ("opt-6.7b w4", lambda: run_opt(torch, record)),
                ("dense bf16", lambda: run_dense(torch, config, record)),
                ("quantize on the card",

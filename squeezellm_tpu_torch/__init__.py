@@ -22,9 +22,14 @@ Layer map:
                 (free and structured), outliers, quantize_model
   utils/hf      dense HF checkpoints (.bin, .safetensors)
   models        LLaMA-family and OPT decoders, decode-time fusion, registry
-  engine        prefill + greedy decode, decode benchmark
-  serving       paged continuous batching: page pool, prefix sharing,
-                decode windows, prompt-lookup speculation
+  engine        prefill + greedy and sampled decode, speculation, decode
+                benchmark
+  graphs        step programs captured as CUDA graphs and replayed
+  serving       continuous batching over dense slots or a page pool
+                (prefix sharing): decode windows, prompt-lookup
+                speculation, cohort and chunked admission
+  server        HTTP front end (/v1/completions, /health) over either
+                serving engine
   sampling      per-request temperature / top-k / top-p on the device
   eval          perplexity (GPTQ stride protocol)
   cli           ``python -m squeezellm_tpu_torch

@@ -5,13 +5,20 @@
   fisher     grad^2 sensitivity chunks of a dense HF checkpoint
   eval       perplexity (GPTQ stride protocol) on ``synthetic`` tokens or a
              ``.npy`` token file
-  benchmark  batch-1 decode latency, tok/s, peak memory
+  benchmark  batch-1 decode latency, tok/s, peak memory; ``--profile DIR``
+             also writes a torch.profiler trace there and prints its
+             per-kernel device time table
   generate   greedy or sampled generation from comma-separated prompt token
              ids, or greedy with prompt-lookup or draft-model speculation
+  serve-bench  continuous-batching throughput and latency over random
+             prompts: the dense-slot engine, or ``--paged``
+  serve      the HTTP front end (``/v1/completions``, ``/health``) over
+             either engine
 
 ``quantize`` and ``fisher`` take the JAX package's arguments (``--model``
 an HF directory with ``config.json`` and its weights). ``eval``,
-``benchmark`` and ``generate`` take ``--model DIR`` (a quantized checkpoint
+``benchmark``, ``generate``, ``serve-bench`` and ``serve`` take ``--model
+DIR`` (a quantized checkpoint
 directory, which either package's ``save_quantized`` writes) or
 ``--synthetic CONFIG --wbits N`` (a random Dense-and-Sparse model of an HF
 ``config.json``, e.g. ``models/llama-2-7b/config.json``). Every command
@@ -19,8 +26,8 @@ takes ``--device`` (default ``cuda``). ``--mode exact`` runs f32
 throughout; ``--mode bf16`` the flagship regime (bf16 activations and
 cache, bf16-rounded LUT and x with f32 accumulation). The counterpart of
 the JAX package's ``cli.py`` commands of the same names; its staged
-commands (chunk, outlier-config, nuq, pack) and ``convert`` are not
-ported.
+commands (chunk, outlier-config, nuq, pack), ``convert`` and tensor-
+parallel serving (``--tp`` above 1) are not ported.
 """
 
 from __future__ import annotations
@@ -66,15 +73,40 @@ def _tokens(args, config) -> np.ndarray:
     return np.asarray(test)
 
 
+def _dtypes(args):
+    """(activation dtype, cache dtype) of --mode and --kv-dtype."""
+    dtype = torch.bfloat16 if args.mode == "bf16" else torch.float32
+    return dtype, {None: dtype, "bf16": torch.bfloat16,
+                   "f32": torch.float32, "int8": "int8"}[args.kv_dtype]
+
+
 def _engine(args, model):
     from squeezellm_tpu_torch import engine
 
-    bf16 = args.mode == "bf16"
-    dtype = torch.bfloat16 if bf16 else torch.float32
-    cache = {None: dtype, "bf16": torch.bfloat16, "f32": torch.float32,
-             "int8": "int8"}[args.kv_dtype]
+    dtype, cache = _dtypes(args)
     return engine.Engine(model, dtype=dtype, cache_dtype=cache,
                          mode=args.mode)
+
+
+def _build_serving_engine(args, model):
+    """The engine of serve-bench and serve: the dense-slot one, or the
+    paged one with --paged (a pool of ceil(seqlen / page size) pages a
+    slot), with speculation and chunked admission as asked."""
+    from squeezellm_tpu_torch import serving
+
+    if args.tp > 1:
+        raise SystemExit("--tp above 1: tensor-parallel serving is not "
+                         "ported yet (ROADMAP, queue 1, tensor parallel)")
+    dtype, cache = _dtypes(args)
+    kw = dict(slots=args.slots, dtype=dtype, cache_dtype=cache,
+              mode=args.mode, max_seq=args.seqlen, seed=args.seed,
+              speculative=tuple(args.speculative) if args.speculative
+              else None, prefill_chunk=args.prefill_chunk)
+    if args.paged:
+        return serving.PagedContinuousBatchEngine(
+            model, page_size=args.page_size,
+            n_pages=-(-args.seqlen // args.page_size) * args.slots, **kw)
+    return serving.ContinuousBatchEngine(model, **kw)
 
 
 def cmd_quantize(args):
@@ -146,8 +178,105 @@ def cmd_eval(args):
 def cmd_benchmark(args):
     model = _load_model(args)
     ids = _tokens(args, model.config)[:, : args.tokens]
-    print(json.dumps(_engine(args, model).benchmark(ids, check=args.check),
-                     indent=2))
+    eng = _engine(args, model)
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+
+        from squeezellm_tpu_torch.utils import profiling
+
+        acts = [ProfilerActivity.CPU]
+        if model.device.type == "cuda":
+            acts.append(ProfilerActivity.CUDA)
+        with profile(activities=acts) as prof:
+            stats = eng.benchmark(ids, check=args.check)
+        os.makedirs(args.profile, exist_ok=True)
+        path = os.path.join(args.profile, "trace.json")
+        prof.export_chrome_trace(path)
+        print(f"profile trace written to {path}")
+        # the per-kernel self-time table (the reference's --torch_profile)
+        profiling.print_trace_summary(args.profile)
+    else:
+        stats = eng.benchmark(ids, check=args.check)
+    print(json.dumps(stats, indent=2))
+
+
+def cmd_serve_bench(args):
+    """Continuous-batching throughput: generated tokens a second across a
+    pool of concurrent requests (the latency side is `benchmark`), with
+    each request's time to first token and to completion."""
+    import time
+
+    model = _load_model(args)
+    eng = _build_serving_engine(args, model)
+    rng = np.random.default_rng(args.seed)
+    prompts = [rng.integers(0, model.config.vocab_size,
+                            rng.integers(4, 32)).tolist()
+               for _ in range(args.requests)]
+    # warm up: the first calls capture the step programs
+    eng.run(prompts[:1], max_new_tokens=2, window=args.window)
+
+    # per request: admission (before its prefill), first token, done. A
+    # cohort's requests share its admission time, so time to first token
+    # includes the cohort's batched prefill
+    admit, first, done = {}, {}, {}
+    add = eng.add_requests
+
+    def timed_add(prompts_, max_new_tokens, **akw):
+        t = time.perf_counter()
+        rids = add(prompts_, max_new_tokens, **akw)
+        for rid in rids:
+            admit[rid] = t
+        return rids
+
+    eng.add_requests = timed_add
+
+    def on_token(rid, new, is_done):
+        now = time.perf_counter()  # after the window's host sync
+        first.setdefault(rid, now)
+        if is_done:
+            done[rid] = now
+
+    t0 = time.perf_counter()
+    results = eng.run(prompts, max_new_tokens=args.max_new_tokens,
+                      window=args.window, on_token=on_token)
+    dt = time.perf_counter() - t0
+    total = sum(len(t) for t in results.values())
+    ttft = sorted(first[r] - admit[r] for r in first)
+    lat = sorted(done[r] - admit[r] for r in done)
+
+    def pct(xs, p):
+        return round(xs[min(len(xs) - 1, int(p * len(xs)))], 4) if xs else None
+
+    print(json.dumps({
+        "engine": type(eng).__name__,
+        "requests": args.requests, "slots": args.slots,
+        "total_tokens": total, "elapsed_s": round(dt, 3),
+        "throughput_tok_s": round(total / dt, 2),
+        "ttft_s_p50": pct(ttft, 0.50), "ttft_s_p95": pct(ttft, 0.95),
+        "request_latency_s_p50": pct(lat, 0.50),
+        "request_latency_s_p95": pct(lat, 0.95),
+    }))
+
+
+def cmd_serve(args):
+    import time
+
+    from squeezellm_tpu_torch import server
+
+    model = _load_model(args)
+    eng = _build_serving_engine(args, model)
+    httpd = server.serve(eng, host=args.host, port=args.port,
+                         window=args.window)
+    print(json.dumps({"listening": f"http://{args.host}:"
+                                   f"{httpd.server_port}",
+                      "slots": args.slots, "paged": args.paged}),
+          flush=True)
+    try:
+        while True:
+            time.sleep(3600)
+    except KeyboardInterrupt:
+        httpd.serving_loop.shutdown()
+        httpd.shutdown()
 
 
 def cmd_generate(args):
@@ -271,7 +400,49 @@ def main(argv=None):
     b.add_argument("--check", action="store_true",
                    help="also compute the fed sequence's next-token "
                         "perplexity inside the timed loop (check_ppl)")
+    b.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the benchmark "
+                        "to DIR/trace.json and print its per-kernel "
+                        "device time")
     b.set_defaults(fn=cmd_benchmark)
+
+    def serving_args(sp, seqlen):
+        sp.add_argument("--slots", type=int, default=8)
+        sp.add_argument("--seqlen", type=int, default=seqlen,
+                        help="the engine's max_seq")
+        sp.add_argument("--window", type=int, default=8,
+                        help="decode steps a host sync")
+        sp.add_argument("--paged", action="store_true",
+                        help="the paged KV pool with prefix sharing")
+        sp.add_argument("--page-size", type=int, default=128)
+        sp.add_argument("--speculative", nargs=2, type=int, default=None,
+                        metavar=("DRAFT_LEN", "NGRAM"),
+                        help="slot-batched prompt-lookup speculation "
+                             "(greedy-exact)")
+        sp.add_argument("--prefill-chunk", type=int, default=None,
+                        help="admit long prompts N tokens an engine step, "
+                             "interleaved with decode")
+        sp.add_argument("--tp", type=int, default=0,
+                        help="tensor-parallel degree (not ported: above 1 "
+                             "is refused)")
+
+    sb = sub.add_parser("serve-bench",
+                        help="continuous-batching throughput benchmark")
+    common(sb)
+    decode(sb)
+    serving_args(sb, 256)
+    sb.add_argument("--requests", type=int, default=32)
+    sb.add_argument("--max-new-tokens", type=int, default=32)
+    sb.set_defaults(fn=cmd_serve_bench)
+
+    sv = sub.add_parser("serve", help="HTTP serving front end "
+                        "(/v1/completions and /health)")
+    common(sv)
+    decode(sv)
+    serving_args(sv, 2048)
+    sv.add_argument("--host", default="127.0.0.1")
+    sv.add_argument("--port", type=int, default=8000)
+    sv.set_defaults(fn=cmd_serve)
 
     g = sub.add_parser("generate", help="generate tokens")
     common(g)

@@ -77,13 +77,17 @@ class Engine:
     PyTorch version whatever the device (the reference the kernels are
     held against), always eagerly; graphs: capture every per-token step
     program as a CUDA graph on a CUDA device (False runs the same steps
-    eagerly: the comparison of the two in one process). The Engine runs
+    eagerly: the comparison of the two in one process); window_gemv: a
+    speculative verify window of at most ``WINDOW_DECODE_ROWS`` rows runs
+    its linears through K1/K10's GEMV, as a decode step (False: the mode's
+    kernel, the tensor cores in bf16 mode). The Engine runs
     the model as it is given; fusing q|k|v and gate|up is the loader's or
     caller's step (``models.fuse.fuse_for_decode``)."""
 
     def __init__(self, model, *, dtype=torch.float32,
                  cache_dtype=torch.float32, mode: str = "exact",
-                 plain: bool = False, graphs: bool = True):
+                 plain: bool = False, graphs: bool = True,
+                 window_gemv: bool = True):
         self.model = model
         self.config = model.config
         self.dtype = dtype
@@ -91,12 +95,18 @@ class Engine:
         self.mode = mode
         self.plain = plain
         self.graphs = graphs
+        self.window_gemv = window_gemv
         self.device = model.device
         self.spec_stats: Dict[str, int] = {}
         self._state = None  # (key, buffers, step programs)
 
     def _run(self):
         return dict(dtype=self.dtype, mode=self.mode, plain=self.plain)
+
+    def _verify(self):
+        """The keyword arguments of a verify window's ``prefill``."""
+        return dict(self._run(), all_logits=True,
+                    window_gemv=self.window_gemv)
 
     def _rows(self, max_seq: Optional[int]) -> int:
         """Cache rows for max_seq: the token axis rounds up to 16 rows (128
@@ -272,7 +282,7 @@ class Engine:
     def _lookup_state(self, rows: int, K: int, ngram: int):
         st = self._spec_buffers(rows, K)
         st.cache = self.new_cache(1, rows)
-        model, kw = self.model, self._run()
+        model, kw = self.model, self._verify()
 
         def window():
             """One window of ``_spec_loop``: the n-gram draft from ctx, the
@@ -280,7 +290,7 @@ class Engine:
             draft = serving._prompt_lookup_draft(st.ctx, st.pos, K, ngram)
             cur = st.ctx.gather(1, st.pos[:, None])
             logits = model.prefill(torch.cat([cur, draft], dim=1), st.cache,
-                                   start=st.pos, all_logits=True, **kw)
+                                   start=st.pos, **kw)
             _accept(st, draft, logits)
 
         return st, {"window": window}
@@ -324,7 +334,7 @@ class Engine:
                 window[0, 0] = tok
                 window[0, 1: 1 + len(draft)] = draft
                 logits = self.model.prefill(self._tensor(window), cache,
-                                            start=pos, all_logits=True, **kw)
+                                            start=pos, **self._verify())
                 greedy = torch.argmax(logits[0], dim=-1).tolist()
                 n_acc = 0
                 while n_acc < len(draft) and draft[n_acc] == greedy[n_acc]:
@@ -357,7 +367,7 @@ class Engine:
         st = self._spec_buffers(rows, K)
         st.cache = self.new_cache(1, rows)
         st.dcache = draft.new_cache(1, rows)
-        tmodel, tkw = self.model, self._run()
+        tmodel, tkw = self.model, self._verify()
         dmodel, dkw = draft.model, draft._run()
 
         def window():
@@ -373,8 +383,7 @@ class Engine:
                 p = p + 1
             draft_toks = torch.cat(toks, dim=1)
             logits = tmodel.prefill(torch.cat([cur, draft_toks], dim=1),
-                                    st.cache, start=st.pos, all_logits=True,
-                                    **tkw)
+                                    st.cache, start=st.pos, **tkw)
             _accept(st, draft_toks, logits)
 
         return st, {"window": window}
@@ -423,7 +432,7 @@ class Engine:
                     p += 1
                 logits = self.model.prefill(
                     self._tensor([[cur] + draft_toks]), tcache, start=pos,
-                    all_logits=True, **kw)
+                    **self._verify())
                 greedy = torch.argmax(logits[0], dim=-1).tolist()
                 n_acc = 0
                 while (n_acc < draft_len

@@ -229,6 +229,47 @@ def decode_mask(max_seq: int, pos: torch.Tensor,
     return m[:, None, None, :]
 
 
+def window_mask(sq: int, max_seq: int, pos: torch.Tensor,
+                sliding_window: Optional[int] = None) -> torch.Tensor:
+    """Mask for an sq-token query window per slot: slot b's rows sit at
+    positions pos[b] .. pos[b] + sq - 1, each attending the cache columns
+    at or before its own position. (B, 1, sq, max_seq) bool."""
+    kpos = torch.arange(max_seq, device=pos.device)[None, None, None, :]
+    qpos = (pos.reshape(-1, 1, 1, 1)
+            + torch.arange(sq, device=pos.device)[None, None, :, None])
+    m = kpos <= qpos
+    if sliding_window is not None:
+        m = m & (kpos > qpos - sliding_window)
+    return m
+
+
+def update_kv_window(cache: Dict[str, torch.Tensor], k_new: torch.Tensor,
+                     v_new: torch.Tensor, pos: torch.Tensor) -> None:
+    """Write an s-token window's k/v (B, s, H_kv, D) at per-slot positions
+    pos (B,), in place: slot b's rows land at [pos[b], pos[b] + s), cast
+    to the cache dtype; an int8 cache quantizes each row
+    (``ops/kv_quant.quantize_rows``) into its (B, H_kv, S) scales. A slot
+    with pos < 0 writes nothing. The window must fit in the cache (the
+    engines reserve its rows). Only device tensors index, so a CUDA graph
+    can capture the write."""
+    B, s = k_new.shape[:2]
+    S = cache["k"].shape[1]
+    pos = pos.reshape(-1).long()
+    live = (pos >= 0)[:, None, None]
+    # an inactive slot writes its own rows [0, s) back: no change
+    rows = (pos[:, None] + torch.arange(s, device=pos.device)).clamp(0, S - 1)
+    b_idx = torch.arange(B, device=pos.device)[:, None]
+    for name, new in (("k", k_new), ("v", v_new)):
+        if "ks" in cache:
+            new, scale = kv_quant.quantize_rows(new)
+            sc = cache[name + "s"]
+            sc[b_idx, :, rows] = torch.where(live, scale[..., 0],
+                                             sc[b_idx, :, rows])
+        c = cache[name]
+        c[b_idx, rows] = torch.where(live, new.reshape(B, s, -1).to(c.dtype),
+                                     c[b_idx, rows])
+
+
 def write_kv_rows(cache: Dict[str, torch.Tensor], k: torch.Tensor,
                   v: torch.Tensor, start=0) -> None:
     """Prefill: write k/v (B, s, H_kv, D) into rows [start, start + s), in

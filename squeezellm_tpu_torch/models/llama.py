@@ -4,9 +4,11 @@ The counterpart of the JAX package's ``models/llama.py`` for one device:
 GQA, optional sliding window, a token-major KV cache (f32, bf16 or int8),
 dense or a shared page pool. Decode attention goes through K2, or K5 over
 an int8 cache (``ops/decode_attn``); over a page pool decode goes through
-K6/K7 and a speculative verify window through K8/K9 (``ops/paged_attn``);
-prefill and full-sequence attention through K3 (``ops/flash_attn``) for
-every prompt length; every quantized linear through K1
+K6/K7 and a speculative verify window through K8/K9 (``ops/paged_attn``),
+over a dense cache a verify window through plain attention (the JAX
+package's XLA chain: it runs no kernel there); prefill and full-sequence
+attention through K3 (``ops/flash_attn``) for every prompt length; every
+quantized linear through K1
 (``ops/lut_matmul``) below 1024 rows and K4 (``ops/dequant_dense``) from
 there. ``plain=True`` runs each kernel's
 plain PyTorch version instead, whatever the device: the reference the
@@ -107,6 +109,13 @@ def from_torch_state_dict(config: LlamaConfig, sd, dtype=torch.float32):
             "final_norm": g("model.norm.weight"), "lm_head": {"w": g(head)}}
 
 
+# a verify window of at most this many rows runs its linears as a decode
+# step does (unless its caller passes window_gemv=False): the JAX package's
+# quantized linear takes one kernel and one sidecar fold for every call of
+# up to SQUEEZELLM_SGB_MAX = 16 rows (``squeezellm_tpu/ops/quant_linear.py``)
+WINDOW_DECODE_ROWS = 16
+
+
 @dataclasses.dataclass
 class Step:
     """Per-call state shared by every layer of one forward. A model
@@ -123,19 +132,28 @@ class Step:
     # decode (one token per slot, with a cache): K2/K5/K6/K7 operands
     lengths: Optional[torch.Tensor] = None  # (B,) int32
     rope_cos: Optional[torch.Tensor] = None  # (B, hd) f32; (B, W, hd)
-    rope_sin: Optional[torch.Tensor] = None  # for a verify window
-    # a verify window per slot over a page pool: K8/K9 operand
+    rope_sin: Optional[torch.Tensor] = None  # for a paged verify window
+    # a verify window per slot (over a page pool the K8/K9 operand; over a
+    # dense cache where the window's rows are written)
     starts: Optional[torch.Tensor] = None  # (B,) int32, < 0: inactive
     # a page pool's table, shared by every layer
     page_table: Optional[torch.Tensor] = None  # (B, maxp) int32
+    # a speculative verify window (``verify_window``, or ``prefill`` with
+    # ``all_logits``) called with window_gemv: its rows in all, B * W; 0
+    # for any other call
+    window_rows: int = 0
 
     def lin(self) -> dict:
-        """The linears' keyword arguments: the regime, and whether this is
-        a one-token-a-slot decode step (K1/K10 run their GEMV there, the
-        tensor-core kernel elsewhere in bf16 mode: the call site, not the
-        row count, picks the kernel)."""
+        """The linears' keyword arguments: the regime, and whether K1/K10
+        run their GEMV (``decode``). The call site picks the kernel, not
+        the row count: a one-token-a-slot decode step takes the GEMV, and
+        so does a verify window of at most WINDOW_DECODE_ROWS rows, as the
+        JAX package runs such a window through its decode step's kernel
+        and fold; every other call takes the mode's kernel (the tensor
+        cores in bf16 mode)."""
+        window = 0 < self.window_rows <= WINDOW_DECODE_ROWS
         return dict(mode=self.mode, plain=self.plain,
-                    decode=self.lengths is not None)
+                    decode=self.lengths is not None or window)
 
 
 # (one token per slot, int8 pool) -> (kernel wrapper, plain version)
@@ -219,24 +237,38 @@ class AttnBlock(nn.Module):
             if step.cos is not None:
                 q = common.apply_rope_tm(q, step.cos, step.sin)
                 k = common.apply_rope_tm(k, step.cos, step.sin)
-            if cache is not None:
-                # prefill writes rows [start, start + s) (an int8 cache
-                # quantizes them at insert), then attends the cache as it
-                # holds them, the rows before start included: the history
-                # decode will read
-                common.write_kv_rows(cache, k, v, step.start)
+            qh = q.transpose(1, 2)
+            if step.starts is not None:
+                # a verify window per slot over a dense cache: the JAX
+                # package's XLA chain (it runs no kernel there either):
+                # the rows written at each slot's own start, attention
+                # under the per-slot causal mask
+                common.update_kv_window(cache, k, v, step.starts)
                 kh, vh = common.read_kv(cache, step.dtype, nkv)
+                mask = common.window_mask(s, kh.shape[2], step.starts,
+                                          cfg.sliding_window)
+                out = common.attention(qh, common.repeat_kv(kh, nh // nkv),
+                                       common.repeat_kv(vh, nh // nkv), mask)
             else:
-                if k.stride() != v.stride():
-                    # a roped k is a new tensor while v is still a column
-                    # slice of the fused q|k|v output: K3 reads k and v
-                    # through one set of strides
-                    k, v = k.contiguous(), v.contiguous()
-                kh, vh = k.transpose(1, 2), v.transpose(1, 2)
-            attend = (flash_attn.flash_attention_plain if step.plain
-                      else flash_attn.flash_attention)
-            out = attend(q.transpose(1, 2), kh, vh, step.start,
-                         sliding_window=cfg.sliding_window, mode=step.mode)
+                if cache is not None:
+                    # prefill writes rows [start, start + s) (an int8 cache
+                    # quantizes them at insert), then attends the cache as
+                    # it holds them, the rows before start included: the
+                    # history decode will read
+                    common.write_kv_rows(cache, k, v, step.start)
+                    kh, vh = common.read_kv(cache, step.dtype, nkv)
+                else:
+                    if k.stride() != v.stride():
+                        # a roped k is a new tensor while v is still a
+                        # column slice of the fused q|k|v output: K3 reads
+                        # k and v through one set of strides
+                        k, v = k.contiguous(), v.contiguous()
+                    kh, vh = k.transpose(1, 2), v.transpose(1, 2)
+                attend = (flash_attn.flash_attention_plain if step.plain
+                          else flash_attn.flash_attention)
+                out = attend(qh, kh, vh, step.start,
+                             sliding_window=cfg.sliding_window,
+                             mode=step.mode)
             out = out.to(step.dtype).transpose(1, 2).reshape(b, s, nh * hd)
         return self.proj["o"](out, y0=residual, **lin)
 
@@ -335,8 +367,11 @@ class Llama(nn.Module):
                 step.lengths = (decode_pos + 1).to(torch.int32)
             else:
                 step.starts = window_pos[:, 0].to(torch.int32)
-            step.rope_cos = cos.float().contiguous()
-            step.rope_sin = sin.float().contiguous()
+            if window_pos is not None and step.page_table is None:
+                step.cos, step.sin = cos, sin  # a dense window ropes itself
+            else:
+                step.rope_cos = cos.float().contiguous()
+                step.rope_sin = sin.float().contiguous()
         else:
             step.cos, step.sin = common.rope_cos_sin(
                 positions, cfg.head_dim, cfg.rope_theta, dtype)
@@ -364,10 +399,13 @@ class Llama(nn.Module):
 
     def prefill(self, tokens: torch.Tensor, cache, *, dtype=torch.float32,
                 mode: str = "exact", plain: bool = False, start=0,
-                all_logits: bool = False) -> torch.Tensor:
+                all_logits: bool = False,
+                window_gemv: bool = True) -> torch.Tensor:
         """Process the prompt and fill the cache (in place); returns the
         last token's logits (B, 1, V) f32, or every position's (B, S, V)
-        with ``all_logits``.
+        with ``all_logits`` (a verify window: with window_gemv, one of at
+        most WINDOW_DECODE_ROWS rows runs its linears as a decode step,
+        ``Step.lin``; False keeps the mode's kernel).
 
         start: position of ``tokens[:, 0]``, a python int or an int tensor
         of one element on the device (a step captured in a CUDA graph then
@@ -388,27 +426,30 @@ class Llama(nn.Module):
             step = self._step(
                 dtype, mode, plain, start=start,
                 positions=start + torch.arange(s, device=self.device))
+        if all_logits and window_gemv:  # a verify window (``Step.lin``)
+            step.window_rows = b * s
         for layer, layer_cache in zip(self.layers, cache):
             x = layer(x, step, layer_cache)
         return self._finish(x if all_logits else x[:, -1:], step)
 
     def verify_window(self, tokens: torch.Tensor, pos: torch.Tensor, cache,
                       *, dtype=torch.float32, mode: str = "exact",
-                      plain: bool = False) -> torch.Tensor:
-        """A speculative verify window per slot over a page pool: tokens
-        (B, W), slot b's window starting at its own position pos[b] (< 0:
-        an inactive slot, which writes nothing). Writes the W rows through
-        the page table and returns the logits of every window position
-        (B, W, V) f32."""
-        if "pk" not in cache[0]:
-            raise NotImplementedError(
-                "verify_window over a dense cache comes with the dense-slot "
-                "serving slice of the port; this one takes a page pool")
+                      plain: bool = False,
+                      window_gemv: bool = True) -> torch.Tensor:
+        """A speculative verify window per slot: tokens (B, W), slot b's
+        window starting at its own position pos[b] (< 0: an inactive slot,
+        which writes nothing). Writes the W rows, through the page table
+        of a page pool (K8/K9) or at the slot's rows of a dense cache
+        (``common.update_kv_window``, then plain attention as in the JAX
+        package), and returns the logits of every window position
+        (B, W, V) f32. window_gemv: as for :meth:`prefill`."""
         w = tokens.shape[1]
         positions = pos.reshape(-1, 1) + torch.arange(w, device=self.device)
         x = self.embed[tokens].to(dtype)
         step = self._step(dtype, mode, plain, window_pos=positions,
                           cache=cache)
+        if window_gemv:
+            step.window_rows = positions.numel()
         for layer, layer_cache in zip(self.layers, cache):
             x = layer(x, step, layer_cache)
         return self._finish(x, step)

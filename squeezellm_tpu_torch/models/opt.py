@@ -5,8 +5,9 @@ pre-LN layers, learned positional embeddings (HF offset +2), a ReLU MLP,
 biases on all six linears, none on the lm_head. No rope, no GQA, no
 sliding window: the attention block is the LLaMA one with no rope rows,
 so decode runs K2 (K5 over an int8 cache) with ``rope_cos=None``, over a
-page pool K6/K7 and a verify window K8/K9 likewise, prefill and
-full-sequence attention K3, and every quantized linear K1 or K4.
+page pool K6/K7 and a verify window K8/K9 likewise (over a dense cache a
+verify window's plain attention), prefill and full-sequence attention K3,
+and every quantized linear K1 or K4.
 Unlike LLaMA, the residual is added after each block, not folded into a
 linear's output init, as in the JAX package.
 """
@@ -190,12 +191,14 @@ class OPT(nn.Module):
 
     def prefill(self, tokens: torch.Tensor, cache, *, dtype=torch.float32,
                 mode: str = "exact", plain: bool = False, start=0,
-                all_logits: bool = False) -> torch.Tensor:
+                all_logits: bool = False,
+                window_gemv: bool = True) -> torch.Tensor:
         """Process the prompt and fill the cache (in place); returns the
         last token's logits (B, 1, V) f32, or every position's (B, S, V)
-        with ``all_logits``. start: position of ``tokens[:, 0]``, a python
-        int or an int tensor of one element on the device (a continuation
-        prefill attends the rows the cache already holds)."""
+        with ``all_logits`` (window_gemv as for ``Llama.prefill``). start:
+        position of ``tokens[:, 0]``, a python int or an int tensor of one
+        element on the device (a continuation prefill attends the rows the
+        cache already holds)."""
         b, s = tokens.shape
         if torch.is_tensor(start):
             start = start.reshape(()).long()
@@ -208,26 +211,28 @@ class OPT(nn.Module):
                             if torch.is_tensor(start) else
                             torch.full((b,), start + 1, dtype=torch.int32,
                                        device=self.device))
+        if all_logits and window_gemv:  # a verify window (``Step.lin``)
+            step.window_rows = b * s
         for layer, layer_cache in zip(self.layers, cache):
             x = layer(x, step, layer_cache)
         return self._finish(x if all_logits else x[:, -1:], step)
 
     def verify_window(self, tokens: torch.Tensor, pos: torch.Tensor, cache,
                       *, dtype=torch.float32, mode: str = "exact",
-                      plain: bool = False) -> torch.Tensor:
-        """A speculative verify window per slot over a page pool: tokens
-        (B, W) from each slot's own position pos[b] (< 0: inactive).
-        Returns the logits of every window position (B, W, V) f32."""
-        if "pk" not in cache[0]:
-            raise NotImplementedError(
-                "verify_window over a dense cache comes with the dense-slot "
-                "serving slice of the port; this one takes a page pool")
-        w = tokens.shape[1]
+                      plain: bool = False,
+                      window_gemv: bool = True) -> torch.Tensor:
+        """A speculative verify window per slot, over a page pool or a
+        dense cache: tokens (B, W) from each slot's own position pos[b]
+        (< 0: inactive, which writes nothing). Returns the logits of every
+        window position (B, W, V) f32 (window_gemv as for
+        ``Llama.prefill``)."""
+        b, w = tokens.shape
         pos = pos.reshape(-1)
         positions = pos[:, None] + torch.arange(w, device=self.device)
         x = self._embed(tokens, positions, dtype)
         step = self._cache_step(dtype, mode, plain, cache,
-                                starts=pos.to(torch.int32))
+                                starts=pos.to(torch.int32),
+                                window_rows=b * w if window_gemv else 0)
         for layer, layer_cache in zip(self.layers, cache):
             x = layer(x, step, layer_cache)
         return self._finish(x, step)

@@ -17,10 +17,11 @@ Two device kernels serve both wrappers; :func:`plan` lays one out per call
 bf16 mode where the caller asks for it; 1-16 rows a tile) and the
 tensor-core kernel (``mma.sync`` bf16 with f32 accumulation; bf16 mode
 only). The CALLER picks the kernel, never the row count: the model's
-one-token-a-slot decode step asks for the GEMV at any slot count, and
-every other call (prefill, chunks, verify windows, an eval forward below
-1024 rows) takes the tensor-core kernel in bf16 mode
-(``quant_linear_apply(decode=...)``). Both kernels split the packed words
+one-token-a-slot decode step asks for the GEMV at any slot count, and so
+does a verify window of at most 16 rows; every other call (prefill,
+chunks, larger verify windows, an eval forward below 1024 rows) takes
+the tensor-core kernel in bf16 mode (``quant_linear_apply(decode=...)``,
+``models.llama.Step.lin``). Both kernels split the packed words
 across blocks (``splits``) and sum the partials in a fixed order, and the
 split follows the layer's shape only, so a row's bits do not depend on the
 rows batched with it, nor a sampled token on its cohort. On the H100 the

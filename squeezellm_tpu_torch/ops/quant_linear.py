@@ -35,9 +35,10 @@ this order:
    ``y0`` add; fewer rows: K1 (``ops/lut_matmul``).
 
 Inside K1 and K10 the call site picks the device kernel: ``decode=True``
-(the model's one-token-a-slot decode step) takes the GEMV at any row
-count, every other call the mode's kernel (the tensor cores in bf16 mode),
-so a row's result does not depend on how many rows share its call.
+(the model's one-token-a-slot decode step, and a verify window of at most
+16 rows) takes the GEMV at any row count, every other call the mode's
+kernel (the tensor cores in bf16 mode), so a row's result does not depend
+on how many rows share its call.
 """
 
 from __future__ import annotations

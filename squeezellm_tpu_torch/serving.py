@@ -1,35 +1,56 @@
-"""Paged continuous-batching serving loop.
+"""Continuous-batching serving loops: dense slots and a paged pool.
 
-The counterpart of the JAX package's ``serving.py``
-``PagedContinuousBatchEngine``: a fixed pool of decode slots stepped by one
-batched decode per token over a shared KV page pool, with requests joining
-(a prefill on a dense temporary cache, scattered into the slot's pages) and
-leaving independently; prompts that share full-page prefixes reuse the
-pages and skip recomputing them; per-request sampling; prompt-lookup
-speculation verified through the page table. Decode attention runs K6/K7,
-a speculative verify window K8/K9 (``ops/paged_attn``), the admission
-prefill K3.
+The counterparts of the JAX package's ``serving.py``
+``ContinuousBatchEngine`` and ``PagedContinuousBatchEngine``: a fixed pool
+of decode slots stepped by one batched decode per token, with requests
+joining (a prefill, whose rows then move into the slot's cache) and leaving
+independently; per-request sampling; prompt-lookup speculation verified in
+one slot-batched window; cohort admission (one batched prefill for prompts
+of one length); chunked admission (``prefill_chunk`` tokens of a long
+prompt per engine step, interleaved with decode).
 
-Pools are updated in place. The per-token decode step (greedy and sampled
+* :class:`ContinuousBatchEngine` keeps one dense token-major cache row
+  block per slot, f32, bf16 or int8. Decode attention runs K2 (K5 over an
+  int8 cache) with per-slot lengths, an admission prefill K3; a
+  speculative verify window writes its rows with
+  ``common.update_kv_window`` and attends in plain PyTorch, as the JAX
+  package does (it runs no Pallas kernel there either).
+* :class:`PagedContinuousBatchEngine` keeps a shared KV page pool (a
+  prefill on a dense temporary cache, scattered into the slot's pages);
+  prompts that share full-page prefixes reuse the pages and skip
+  recomputing them. Decode attention runs K6/K7, a speculative verify
+  window K8/K9 (``ops/paged_attn``), the admission prefill K3.
+
+Caches are updated in place. The per-token decode step (greedy and sampled
 are two programs) and the speculative window are step programs
-(``graphs.StepGraph``): captured once as CUDA graphs over persistent
-device buffers and replayed, the counterparts of the JAX engine's jitted
-``_decode_adv`` and ``_spec_window_fn``. The page table, the positions, the
-current tokens and the four sampler arrays live in those buffers; the host
+(``graphs.StepGraph``): captured once as CUDA graphs over persistent device
+buffers and replayed, the counterparts of the JAX engines' jitted decode
+and spec-window steps. The positions, the current tokens, the four sampler
+arrays (and the paged engine's page table) live in those buffers; the host
 keeps its own copies and uploads one only when admission, release or
 ``_collect`` changed it in a way the device did not. A decode window
 replays its step k times and waits for the host once, for the window's
 tokens; a speculative window waits once. Admission stays eager: its
-prefill, prime and scatter are shaped by the prompt.
+prefill is shaped by the prompt. What both engines share (slot
+bookkeeping, sampler state, the step programs, the windows, ``run``) is
+:class:`_SlotEngine`.
 
-What the JAX engine does only to keep XLA from recompiling is not carried
+An inactive slot carries position -1: its kernels' length is 0, so it
+writes nothing and reads nothing (K2/K5/K6/K7), and a verify window writes
+none of its rows. The JAX dense engine instead decodes garbage in inactive
+slots and never emits it; the tokens come out the same either way. Over a
+page pool a stale position would write through the freed page table into
+pages that may already belong to another slot, so there it is required.
+
+What the JAX engines do only to keep XLA from recompiling is not carried
 over, since eager PyTorch has no trace to protect: the 16-token bucket
-padding of a prompt's suffix, and the power-of-two padding of page-id lists
-and of a cohort. Rows of a prompt's last page beyond its length therefore
-hold zeros here (the JAX pool holds the padding tokens' k/v there); they
-are masked until decode overwrites them. The temporary cache spans the
-prompt's pages, not ``max_seq``. A cohort's single batched prefill of
-same-length prompts stays: the weights stream once.
+padding of a prompt (or of its suffix), and the power-of-two padding of
+page-id lists, of a cohort and of a decode window's length. Rows of a
+prompt's last page beyond its length therefore hold zeros here (the JAX
+pool holds the padding tokens' k/v there); they are masked until decode
+overwrites them. A prompt prefills into a staging cache of its own length
+(the paged engine's: its pages), not ``max_seq``. A cohort's single
+batched prefill of same-length prompts stays: the weights stream once.
 """
 
 from __future__ import annotations
@@ -165,7 +186,7 @@ def _admit_cohort(eng, requests, max_new_tokens, sampling, stop_tokens):
     if len(prompts) > eng.free_slots():
         raise RuntimeError("cohort exceeds free slots")
     for prompt in prompts:
-        eng._validate(len(prompt), max_new_tokens)
+        eng._validate(prompt, max_new_tokens)
     groups: Dict[Any, List[int]] = {}
     single: List[int] = []
     for j, prompt in enumerate(prompts):
@@ -333,15 +354,12 @@ class PagedKVPool:
                 self._lru.append(key)
 
 
-# the slot arrays whose device copies the step programs read
-_UPLOADED = ("pos", "pt", "temp", "topk", "topp", "rids")
-
-
 def _decode_body(model, kw, b, sampled: bool, seed: int):
-    """The paged decode step (``_decode_adv``): every slot decodes its
-    current token at its position (pos -1: inactive), the next token is
-    chosen (greedy, or sampled by (seed, request id, position)), written
-    into row ``widx`` of the window's tokens, and the position advances."""
+    """The decode step (the JAX engines' ``_decode_adv``): every slot
+    decodes its current token at its position (pos -1: inactive), the next
+    token is chosen (greedy, or sampled by (seed, request id, position)),
+    written into row ``widx`` of the window's tokens, and the position
+    advances."""
 
     def step():
         pos = b.pos
@@ -354,9 +372,9 @@ def _decode_body(model, kw, b, sampled: bool, seed: int):
             nxt = torch.argmax(logits, dim=-1)
         b.toks.index_copy_(0, b.widx, nxt[None])
         b.widx.add_(1)
-        # inactive slots (pos < 0) must NOT advance: at pos 0 they would
-        # write through their zeroed page table into page 0, which likely
-        # belongs to an active slot
+        # inactive slots (pos < 0) must NOT advance: at pos 0 a paged slot
+        # would write through its zeroed page table into page 0, which
+        # likely belongs to an active slot
         pos.copy_(torch.where(pos < 0, pos, pos + 1))
         b.cur.copy_(nxt[:, None])
 
@@ -365,9 +383,10 @@ def _decode_body(model, kw, b, sampled: bool, seed: int):
 
 def _spec_body(model, kw, b, speculative):
     """One slot-batched speculative window (``_spec_window_fn``): the
-    prompt-lookup drafts, the verify window through the page table, the
-    greedy-exact acceptance; the emitted tokens and accepted counts into
-    ``spec``, the current tokens and the positions advanced."""
+    prompt-lookup drafts, the verify window (through the page table, or at
+    the slots' rows of a dense cache), the greedy-exact acceptance; the
+    emitted tokens and accepted counts into ``spec``, the current tokens
+    and the positions advanced."""
     draft_len, ngram = speculative
 
     def window():
@@ -384,27 +403,25 @@ def _spec_body(model, kw, b, speculative):
     return window
 
 
-class PagedContinuousBatchEngine:
-    """Continuous batching over a shared KV page pool. Prompts sharing
-    full-page prefixes reuse pages AND skip recomputing them: admission
-    runs a continuation prefill on the suffix only.
+class _SlotEngine:
+    """What the dense and the paged engine share: the slots and their
+    sampler state, the persistent buffers and step programs, validation,
+    cohort and chunked admission, the decode and speculative windows,
+    ``cancel`` and ``run``. A subclass makes its cache, then calls
+    :meth:`_init_buffers` and sets ``self._bufs.caches`` (what the model
+    calls take); it provides ``add_request``, ``_cohort_key``,
+    ``_admit_group`` and ``_finish_admission``."""
 
-    model: the port's Llama or OPT; the engine runs on the model's device.
-    dtype: activation dtype; cache_dtype: the pool's dtype, or "int8";
-    mode: 'exact' or 'bf16' (the quantized linears' regime); plain: run
-    each kernel's plain PyTorch version whatever the device, eagerly.
-    speculative: (draft_len, ngram) turns on prompt-lookup speculation;
-    prefill_chunk: admit a long suffix that many tokens per engine step;
-    graphs: capture the decode step and the speculative window as CUDA
-    graphs on a CUDA device (False runs the same steps eagerly)."""
+    # the host slot arrays whose device copies the step programs read
+    _uploaded = ("pos", "temp", "topk", "topp", "rids")
+    # run()'s decode steps a host sync, as the JAX engine's run() has it
+    default_window = 1
 
-    def __init__(self, model, *, slots: int = 8, n_pages: int = 256,
-                 page_size: int = 128, dtype=torch.float32,
-                 cache_dtype=torch.bfloat16, mode: str = "exact",
-                 max_seq: Optional[int] = None, seed: int = 0,
-                 speculative: Optional[Tuple[int, int]] = None,
-                 prefill_chunk: Optional[int] = None, plain: bool = False,
-                 graphs: bool = True):
+    def _init_slots(self, model, *, slots: int, dtype, mode: str,
+                    max_seq: Optional[int], seed: int,
+                    speculative: Optional[Tuple[int, int]],
+                    prefill_chunk: Optional[int], plain: bool,
+                    window_gemv: bool) -> None:
         config = model.config
         self.model = model
         self.config = config
@@ -414,58 +431,42 @@ class PagedContinuousBatchEngine:
         self.dtype = dtype
         self.mode = mode
         self.plain = plain
-        # chunked admission: the non-shared suffix prefills prefill_chunk
-        # tokens per engine step interleaved with decode windows (the
-        # staging dense cache scatters into the pool only when complete)
+        self.window_gemv = window_gemv
+        # chunked admission: a prompt longer than this prefills that many
+        # tokens per engine step into a staging cache, interleaved with
+        # decode windows; the slot joins decode when the last chunk is in
         self.prefill_chunk = prefill_chunk
         self._staging: Dict[int, list] = {}
-        if speculative and speculative[0] + 1 > paged_attn.MAX_WINDOW_TOKENS:
-            raise ValueError(
-                f"speculative draft_len {speculative[0]} exceeds the verify "
-                f"kernels' window of {paged_attn.MAX_WINDOW_TOKENS} tokens")
         self.speculative = speculative
         _init_sampler_state(self, slots, seed)
-        self.ps = page_size
-        self.maxp = -(-self.max_seq // page_size)
-        self.pool = PagedKVPool(config.n_layers, n_pages, config.n_kv_heads,
-                                page_size, config.head_dim, cache_dtype,
-                                self.device)
-        # an int8 pool's prefill temp cache stays full precision; rows
-        # quantize at the pool scatter
-        self._dense_dtype = (torch.bfloat16 if self.pool.quantized
-                             else self.pool.pools[0]["pk"].dtype)
         self._slots = [_Slot() for _ in range(slots)]
-        self._slot_pages: List[List[int]] = [[] for _ in range(slots)]
-        self._slot_shared: List[int] = [0] * slots
         self._next_id = 0
-        # inactive slots carry pos = -1 -> kernel length 0: no page reads
-        # AND no pool write. A stale pos would write through the freed page
-        # table into pages that may already belong to another slot.
-        self._pos = np.full(slots, -1, np.int64)
-        self._pt = np.zeros((slots, self.maxp), np.int32)
-        dev = self.device
-        # the step programs' persistent device buffers: the host arrays'
-        # counterparts (uploaded by _upload), the current tokens, the token
-        # history for speculative drafting (stale rows only lower the
-        # accept rate), a window's tokens by step, the step index, and a
-        # speculative window's emitted tokens with their accepted counts
-        self._sent = {n: getattr(self, "_" + n).copy() for n in _UPLOADED}
+        self._pos = np.full(slots, -1, np.int64)  # -1: inactive
+
+    def _init_buffers(self, graphs: bool) -> None:
+        """The step programs' persistent device buffers: the host arrays'
+        counterparts (uploaded by _upload), the current tokens, the token
+        history for speculative drafting (stale rows only lower the accept
+        rate), a window's tokens by step, the step index, and a
+        speculative window's emitted tokens with their accepted counts."""
+        dev, slots = self.device, self.n_slots
+        self._sent = {n: getattr(self, "_" + n).copy()
+                      for n in self._uploaded}
         b = self._bufs = SimpleNamespace(
             **{n: torch.from_numpy(getattr(self, "_" + n).copy()).to(dev)
-               for n in _UPLOADED})
+               for n in self._uploaded})
         b.cur = self._cur = torch.zeros((slots, 1), dtype=torch.long,
                                         device=dev)
         b.ctx = self._ctx = (torch.zeros((slots, self.max_seq),
                                          dtype=torch.long, device=dev)
-                             if speculative else None)
+                             if self.speculative else None)
         b.toks = torch.zeros((self.max_seq, slots), dtype=torch.long,
                              device=dev)
         b.widx = torch.zeros(1, dtype=torch.long, device=dev)
-        if speculative:
-            b.spec = torch.zeros((slots, speculative[0] + 2),
+        if self.speculative:
+            b.spec = torch.zeros((slots, self.speculative[0] + 2),
                                  dtype=torch.long, device=dev)
-        b.caches = [dict(c, pt=b.pt) for c in self.pool.pools]
-        self._capture = graphs and not plain
+        self._capture = graphs and not self.plain
         self._pool = (torch.cuda.graph_pool_handle()
                       if self._capture and dev.type == "cuda" else None)
         self._steps = {}  # name -> graphs.StepGraph
@@ -483,7 +484,7 @@ class PagedContinuousBatchEngine:
     def _upload(self) -> None:
         """Copy each host slot array to its device buffer where it differs
         from what the device holds (``_sent``)."""
-        for name in _UPLOADED:
+        for name in self._uploaded:
             host, sent = getattr(self, "_" + name), self._sent[name]
             if not np.array_equal(host, sent):
                 getattr(self._bufs, name).copy_(torch.from_numpy(host))
@@ -493,28 +494,407 @@ class PagedContinuousBatchEngine:
         """The step program `name` ("greedy", "sampled" or "spec"), made at
         its first use."""
         if name not in self._steps:
-            args = (self.model, self._run(), self._bufs)
-            body = (_spec_body(*args, self.speculative) if name == "spec"
-                    else _decode_body(*args, name == "sampled", self.seed))
+            model, kw, b = self.model, self._run(), self._bufs
+            body = (_spec_body(model, dict(kw, window_gemv=self.window_gemv),
+                               b, self.speculative) if name == "spec"
+                    else _decode_body(model, kw, b, name == "sampled",
+                                      self.seed))
             self._steps[name] = graphs.StepGraph(
                 body, self.device, capture=self._capture, pool=self._pool)
         return self._steps[name]
 
     def _reserve(self) -> int:
         # speculative verify windows write draft_len+1 rows past the last
-        # real token: those rows must stay inside the slot's own pages
+        # real token: those rows must stay inside the slot's cache
         return (self.speculative[0] + 1) if self.speculative else 0
 
-    def _validate(self, plen: int, max_new_tokens: int) -> None:
+    def _validate(self, prompt, max_new_tokens: int) -> None:
+        plen = len(prompt)
         if max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
         if plen < 1:
             raise ValueError("empty prompt")
+        if min(prompt) < 0 or max(prompt) >= self.config.vocab_size:
+            raise ValueError(f"prompt token outside the vocabulary of "
+                             f"{self.config.vocab_size}")
         reserve = self._reserve()
         if plen + max_new_tokens + reserve > self.max_seq:
             raise ValueError("prompt + max_new_tokens exceeds max_seq"
                              + (" (incl. speculative window reserve)"
                                 if reserve else ""))
+
+    def _free_slot(self) -> int:
+        idx = next((i for i, s in enumerate(self._slots) if not s.active),
+                   None)
+        if idx is None:
+            raise RuntimeError("no free slot")
+        return idx
+
+    def _take_id(self, rid: Optional[int]) -> int:
+        if rid is None:
+            rid = self._next_id
+            self._next_id += 1
+        return rid
+
+    def _prefill(self, tokens, dense, start: int) -> None:
+        self.model.prefill(tokens, dense, start=start, **self._run())
+        self.stats["prefills"] += 1
+
+    def _tokens(self, rows) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(rows, np.int64), device=self.device)
+
+    def _seed_slot(self, idx: int, prompt: List[int]) -> None:
+        """Seed slot idx for decode at pos = plen - 1 with the prompt's
+        last token, which the first step decodes again (its k/v rewritten,
+        its logits the first token's)."""
+        plen = len(prompt)
+        self._cur[idx, 0] = int(prompt[-1])
+        if self._ctx is not None:
+            row_t = torch.zeros(self.max_seq, dtype=torch.long)
+            row_t[:plen] = torch.as_tensor(prompt, dtype=torch.long)
+            self._ctx[idx] = row_t.to(self.device)
+        self._pos[idx] = plen - 1
+
+    def add_requests(self, requests, max_new_tokens: int,
+                     sampling: Optional[SamplingParams] = None,
+                     stop_tokens: Sequence[int] = ()) -> List[int]:
+        """Admit a cohort; returns request ids in input order. Prompts of
+        one length (and, in the paged engine, no shared-prefix hit) admit
+        through ONE batched prefill; chunked admissions, prefix-sharing
+        hits and singleton groups go through add_request. Every prompt is
+        validated before anything is admitted."""
+        return _admit_cohort(self, requests, max_new_tokens, sampling,
+                             stop_tokens)
+
+    @torch.no_grad()
+    def _advance_prefill(self) -> None:
+        """One chunk per mid-prefill slot into its staging cache (a
+        continuation prefill from the rows already in); the final chunk
+        hands the staging cache to _finish_admission, which moves its rows
+        into the slot's cache and seeds the slot for decode."""
+        if not self._staging:
+            return
+        for i, s in enumerate(self._slots):
+            if not (s.active and s.prefilling):
+                continue
+            entry = self._staging[i]  # [staging, prompt, offset, ...]
+            staging, prompt, off = entry[:3]
+            r = min(self.prefill_chunk, len(prompt) - off)
+            self._prefill(self._tokens([prompt[off:off + r]]), staging, off)
+            off += r
+            if off < len(prompt):
+                entry[2] = off
+                continue
+            self._finish_admission(i, prompt, staging, 0, *entry[3:])
+            s.prefilling = False
+            del self._staging[i]
+
+    def _decoding(self) -> List[_Slot]:
+        return [s for s in self._slots if s.active and not s.prefilling]
+
+    def _collect(self, toks_of) -> Dict[int, Any]:
+        """Host bookkeeping after a window: ``toks_of(i)`` are slot i's
+        candidate tokens."""
+        out: Dict[int, Any] = {}
+        for i, s in enumerate(self._slots):
+            if not s.active or s.prefilling:
+                continue
+            new, done = _emit_tokens(s, toks_of(i))
+            self._pos[i] = s.pos
+            out[s.request_id] = {"token": new[-1], "new_tokens": new,
+                                 "done": done}
+            if done:
+                out[s.request_id]["tokens"] = s.tokens
+                self._release(i)
+        return out
+
+    def step(self) -> Dict[int, Any]:
+        """One decode step of every decoding slot (after advancing chunked
+        prefills by one chunk). Returns {request_id: {'token',
+        'new_tokens', 'done', 'tokens'?}} and releases finished slots."""
+        self._advance_prefill()
+        return self._decode_window(1)
+
+    def step_window(self, max_window: int = 8) -> Dict[int, Any]:
+        """Up to max_window decode steps with ONE host sync: the window
+        enqueues its steps back to back, token and positions advance on the
+        device, the cache is written in place, and only the stacked window
+        tokens are fetched. A slot that stops mid-window discards the
+        window's tail."""
+        self._advance_prefill()
+        active = self._decoding()
+        if not active:
+            return {}
+        remaining = min(s.max_new - s.generated for s in active)
+        return self._decode_window(min(max_window, remaining))
+
+    @torch.no_grad()
+    def _decode_window(self, k: int) -> Dict[int, Any]:
+        if not self._decoding():
+            return {}
+        self._upload()
+        sampled = bool((self._temp > 0).any())
+        step = self._program("sampled" if sampled else "greedy")
+        self._bufs.widx.zero_()
+        for _ in range(k):
+            step()
+            self.stats["decode_steps"] += 1
+        # the window's one sync
+        toks_host = self._bufs.toks[:k].cpu().numpy()
+        sent = self._sent["pos"]
+        sent[sent >= 0] += k  # as the device advanced them
+        return self._collect(lambda i: toks_host[:, i])
+
+    @torch.no_grad()
+    def step_spec_window(self) -> Dict[int, Any]:
+        """One slot-batched speculative window (engine constructed with
+        ``speculative=(draft_len, ngram)``): prompt-lookup drafts from each
+        slot's device token history, one W = draft_len + 1 verify forward
+        for every slot, greedy-exact acceptance, so one weight pass can
+        yield several tokens a slot. Greedy only: run() steps decode
+        windows instead while any active slot samples. Inactive slots
+        (pos < 0) write nothing; their emitted rows are skipped on the
+        host."""
+        if not self.speculative:
+            raise RuntimeError("engine not constructed with speculative=")
+        self._advance_prefill()
+        if not self._decoding():
+            return {}
+        draft_len = self.speculative[0]
+        self._upload()
+        self._program("spec")()
+        self.stats["spec_windows"] += 1
+        spec = self._bufs.spec.cpu().numpy()  # the window's one sync
+        emit_h, nacc_h = spec[:, :-1], spec[:, -1]
+        sent = self._sent["pos"]
+        sent[sent >= 0] += nacc_h[sent >= 0] + 1  # as the device did
+        for i, s in enumerate(self._slots):
+            if s.active and not s.prefilling:
+                self.stats["drafted"] += draft_len
+                self.stats["accepted"] += int(nacc_h[i])
+        return self._collect(lambda i: emit_h[i, : int(nacc_h[i]) + 1])
+
+    def cancel(self, request_id: int) -> bool:
+        """Abort an in-flight request (e.g. the HTTP client went away) and
+        free its slot. Returns False if the id is not active."""
+        for i, s in enumerate(self._slots):
+            if s.active and s.request_id == request_id:
+                self._release(i)
+                return True
+        return False
+
+    def _release(self, idx: int) -> None:
+        self._staging.pop(idx, None)
+        self._slots[idx] = _Slot()
+        _clear_slot_sampling(self, idx)
+        self._pos[idx] = -1  # length 0: the slot writes nothing again
+
+    def step_any(self, window: int) -> Dict[int, Any]:
+        """What run() and the HTTP server's loop step: a speculative
+        window when the engine has them and no active slot samples, else
+        `window` decode steps a host sync (:meth:`step` for 1)."""
+        if self.speculative and not bool((self._temp > 0).any()):
+            return self.step_spec_window()
+        return self.step_window(window) if window > 1 else self.step()
+
+    def run(self, requests, max_new_tokens: int = 16,
+            window: Optional[int] = None,
+            sampling: Optional[SamplingParams] = None,
+            stop_tokens: Sequence[int] = (),
+            on_token=None) -> Dict[int, List[int]]:
+        """Serve ``requests`` (token lists) to completion: admit as slots
+        free up, step until every request is done; returns the generated
+        tokens by request id. window: decode steps a host sync
+        (``default_window`` when None). An engine made with
+        ``speculative=`` takes speculative windows while no active slot
+        samples. on_token(rid, new_tokens, done) streams each window's
+        tokens as they are fetched."""
+        window = self.default_window if window is None else window
+        pending = list(requests)
+        results: Dict[int, List[int]] = {}
+        while pending or any(s.active for s in self._slots):
+            n = min(len(pending), self.free_slots())
+            if n:  # cohort admission: one batched prefill per length group
+                self.add_requests(pending[:n], max_new_tokens,
+                                  sampling=sampling, stop_tokens=stop_tokens)
+                del pending[:n]
+            for rid, r in self.step_any(window).items():
+                if on_token is not None:
+                    on_token(rid, r["new_tokens"], r["done"])
+                if r["done"]:
+                    results[rid] = r["tokens"]
+        return results
+
+
+class ContinuousBatchEngine(_SlotEngine):
+    """Continuous batching over fixed slots of one dense token-major KV
+    cache (B = slots rows of ``max_seq`` rounded up to 16, or to 128 for an
+    int8 cache, as the JAX engine rounds them).
+
+    model: the port's Llama or OPT; the engine runs on the model's device.
+    dtype: activation dtype; cache_dtype: the cache's dtype, or "int8";
+    mode: 'exact' or 'bf16' (the quantized linears' regime); plain: run
+    each kernel's plain PyTorch version whatever the device, eagerly.
+    speculative: (draft_len, ngram) turns on prompt-lookup speculation;
+    prefill_chunk: admit a long prompt that many tokens per engine step;
+    graphs: capture the decode step and the speculative window as CUDA
+    graphs on a CUDA device (False runs the same steps eagerly);
+    window_gemv: a speculative window of at most 16 rows runs its linears
+    as a decode step (``models.llama.Step.lin``; False: the mode's kernel).
+
+    A prompt prefills into a staging cache of its own length (one batched
+    prefill for a cohort of one length), whose rows then move into the
+    slot's; rows a slot's earlier request left beyond its position stay,
+    masked until decode overwrites them."""
+
+    default_window = 8
+
+    def __init__(self, model, *, slots: int = 8, dtype=torch.float32,
+                 cache_dtype=torch.float32, mode: str = "exact",
+                 max_seq: Optional[int] = None, seed: int = 0,
+                 speculative: Optional[Tuple[int, int]] = None,
+                 prefill_chunk: Optional[int] = None, plain: bool = False,
+                 graphs: bool = True, window_gemv: bool = True):
+        self._init_slots(model, slots=slots, dtype=dtype, mode=mode,
+                         max_seq=max_seq, seed=seed, speculative=speculative,
+                         prefill_chunk=prefill_chunk, plain=plain,
+                         window_gemv=window_gemv)
+        c = self.config
+        self.cache_dtype = cache_dtype
+        # the token axis rounds to 16 rows, to 128 for int8 (the JAX
+        # engine's tile alignment; the kernels take any row count)
+        align = 128 if common.is_int8(cache_dtype) else 16
+        self.cache = common.init_kv_cache(
+            slots, -(-self.max_seq // align) * align, c.n_layers,
+            c.n_kv_heads, c.head_dim, cache_dtype, self.device)
+        self._init_buffers(graphs)
+        self._bufs.caches = self.cache
+
+    def _staging_cache(self, batch: int, rows: int):
+        c = self.config
+        return common.init_kv_cache(batch, rows, c.n_layers, c.n_kv_heads,
+                                    c.head_dim, self.cache_dtype,
+                                    self.device)
+
+    @torch.no_grad()
+    def add_request(self, prompt_tokens, max_new_tokens: int,
+                    sampling: Optional[SamplingParams] = None,
+                    stop_tokens: Sequence[int] = (),
+                    _rid: Optional[int] = None) -> int:
+        """Prefill the prompt and occupy a slot; returns the request id.
+
+        sampling: per-request temperature/top-k/top-p (None: greedy),
+        drawn on the device in the decode step. stop_tokens: generation
+        ends when one is emitted (it is kept in the output). The first
+        token comes from the next step. _rid: a request id reserved by
+        add_requests."""
+        prompt = [int(t) for t in np.asarray(prompt_tokens).reshape(-1)]
+        plen = len(prompt)
+        self._validate(prompt, max_new_tokens)
+        idx = self._free_slot()
+        rid = self._take_id(_rid)
+        _set_slot_sampling(self, idx, rid, sampling)
+        staging = self._staging_cache(1, plen)
+        chunked = bool(self.prefill_chunk and plen > self.prefill_chunk)
+        if chunked:  # the slot stays at pos -1 until its last chunk is in
+            self._staging[idx] = [staging, prompt, 0]
+        else:
+            self._prefill(self._tokens([prompt]), staging, 0)
+            self._finish_admission(idx, prompt, staging, 0)
+        self._slots[idx] = _Slot(active=True, request_id=rid, pos=plen - 1,
+                                 max_new=max_new_tokens, generated=0,
+                                 tokens=[], stop=tuple(stop_tokens),
+                                 prefilling=chunked)
+        return rid
+
+    def _cohort_key(self, prompt):
+        plen = len(prompt)
+        if self.prefill_chunk and plen > self.prefill_chunk:
+            return None
+        return plen
+
+    @torch.no_grad()
+    def _admit_group(self, prompts, rids, max_new_tokens: int, sampling,
+                     stop_tokens) -> None:
+        """Admit same-length prompts through one batched prefill."""
+        plen = len(prompts[0])
+        idxs = [i for i, s in enumerate(self._slots) if not s.active]
+        staging = self._staging_cache(len(prompts), plen)
+        self._prefill(self._tokens(np.stack(prompts)), staging, 0)
+        for r, p in enumerate(prompts):
+            idx = idxs[r]
+            _set_slot_sampling(self, idx, rids[r], sampling)
+            self._finish_admission(idx, [int(t) for t in p], staging, r)
+            self._slots[idx] = _Slot(active=True, request_id=rids[r],
+                                     pos=plen - 1, max_new=max_new_tokens,
+                                     generated=0, tokens=[],
+                                     stop=tuple(stop_tokens))
+
+    def _finish_admission(self, idx, prompt, staging, row) -> None:
+        """Move row ``row`` of the prefilled staging cache (the prompt's
+        rows; for an int8 cache its codes and scales) into slot idx's
+        rows, and seed the slot for decode."""
+        plen = len(prompt)
+        for c, s in zip(self.cache, staging):
+            for name, t in c.items():
+                if name in ("ks", "vs"):  # (B, H_kv, S)
+                    t[idx, :, :plen] = s[name][row]
+                else:
+                    t[idx, :plen] = s[name][row]
+        self._seed_slot(idx, prompt)
+
+
+class PagedContinuousBatchEngine(_SlotEngine):
+    """Continuous batching over a shared KV page pool. Prompts sharing
+    full-page prefixes reuse pages AND skip recomputing them: admission
+    runs a continuation prefill on the suffix only.
+
+    model: the port's Llama or OPT; the engine runs on the model's device.
+    dtype: activation dtype; cache_dtype: the pool's dtype, or "int8";
+    mode: 'exact' or 'bf16' (the quantized linears' regime); plain: run
+    each kernel's plain PyTorch version whatever the device, eagerly.
+    speculative: (draft_len, ngram) turns on prompt-lookup speculation;
+    prefill_chunk: admit a long suffix that many tokens per engine step
+    (the staging dense cache scatters into the pool only when complete);
+    graphs: capture the decode step and the speculative window as CUDA
+    graphs on a CUDA device (False runs the same steps eagerly);
+    window_gemv: a speculative window of at most 16 rows runs its linears
+    as a decode step (``models.llama.Step.lin``; False: the mode's kernel)."""
+
+    _uploaded = ("pos", "pt", "temp", "topk", "topp", "rids")
+
+    def __init__(self, model, *, slots: int = 8, n_pages: int = 256,
+                 page_size: int = 128, dtype=torch.float32,
+                 cache_dtype=torch.bfloat16, mode: str = "exact",
+                 max_seq: Optional[int] = None, seed: int = 0,
+                 speculative: Optional[Tuple[int, int]] = None,
+                 prefill_chunk: Optional[int] = None, plain: bool = False,
+                 graphs: bool = True, window_gemv: bool = True):
+        if speculative and speculative[0] + 1 > paged_attn.MAX_WINDOW_TOKENS:
+            raise ValueError(
+                f"speculative draft_len {speculative[0]} exceeds the verify "
+                f"kernels' window of {paged_attn.MAX_WINDOW_TOKENS} tokens")
+        self._init_slots(model, slots=slots, dtype=dtype, mode=mode,
+                         max_seq=max_seq, seed=seed, speculative=speculative,
+                         prefill_chunk=prefill_chunk, plain=plain,
+                         window_gemv=window_gemv)
+        config = self.config
+        self.ps = page_size
+        self.maxp = -(-self.max_seq // page_size)
+        self.pool = PagedKVPool(config.n_layers, n_pages, config.n_kv_heads,
+                                page_size, config.head_dim, cache_dtype,
+                                self.device)
+        # an int8 pool's prefill temp cache stays full precision; rows
+        # quantize at the pool scatter
+        self._dense_dtype = (torch.bfloat16 if self.pool.quantized
+                             else self.pool.pools[0]["pk"].dtype)
+        self._slot_pages: List[List[int]] = [[] for _ in range(slots)]
+        self._slot_shared: List[int] = [0] * slots
+        # inactive slots carry pos = -1 and a zeroed page table
+        self._pt = np.zeros((slots, self.maxp), np.int32)
+        self._init_buffers(graphs)
+        self._bufs.caches = [dict(c, pt=self._bufs.pt)
+                             for c in self.pool.pools]
 
     def _alloc_pages(self, n: int, held: List[int]) -> List[int]:
         """Allocate n pages one at a time. If the pool runs out, the pages
@@ -529,10 +909,6 @@ class PagedContinuousBatchEngine:
             raise
         return new_pids
 
-    def _prefill(self, tokens, dense, start: int) -> None:
-        self.model.prefill(tokens, dense, start=start, **self._run())
-        self.stats["prefills"] += 1
-
     def _fresh_dense(self, batch: int, pages: int):
         return common.init_kv_cache(
             batch, pages * self.ps, self.config.n_layers,
@@ -546,11 +922,8 @@ class PagedContinuousBatchEngine:
                     _rid: Optional[int] = None) -> int:
         prompt = [int(t) for t in np.asarray(prompt_tokens).reshape(-1)]
         plen = len(prompt)
-        self._validate(plen, max_new_tokens)
-        idx = next((i for i, s in enumerate(self._slots) if not s.active),
-                   None)
-        if idx is None:
-            raise RuntimeError("no free slot")
+        self._validate(prompt, max_new_tokens)
+        idx = self._free_slot()
 
         shared_pids, chain_key = self.pool.lookup_chain(prompt)
         n_shared = len(shared_pids)
@@ -573,11 +946,7 @@ class PagedContinuousBatchEngine:
         if n_shared:
             _prime_dense_impl(self.pool.pools, dense, shared_pids, ps=self.ps,
                               n_kv_heads=self.config.n_kv_heads)
-        if _rid is None:
-            rid = self._next_id
-            self._next_id += 1
-        else:
-            rid = _rid
+        rid = self._take_id(_rid)
         _set_slot_sampling(self, idx, rid, sampling)
         chunked = bool(self.prefill_chunk
                        and len(suffix) > self.prefill_chunk)
@@ -591,9 +960,7 @@ class PagedContinuousBatchEngine:
             self._pt[idx] = 0
             self._pos[idx] = -1
         else:
-            tokens = torch.as_tensor([suffix], dtype=torch.long,
-                                     device=self.device)
-            self._prefill(tokens, dense, start)
+            self._prefill(self._tokens([suffix]), dense, start)
             self._finish_admission(idx, prompt, dense, 0, pids, n_shared,
                                    chain_key)
         self._slots[idx] = _Slot(active=True, request_id=rid, pos=plen - 1,
@@ -601,17 +968,6 @@ class PagedContinuousBatchEngine:
                                  tokens=[], stop=tuple(stop_tokens),
                                  prefilling=chunked)
         return rid
-
-    def add_requests(self, requests, max_new_tokens: int,
-                     sampling: Optional[SamplingParams] = None,
-                     stop_tokens: Sequence[int] = ()) -> List[int]:
-        """Admit a cohort; returns request ids in input order. Prompts of
-        one length with no shared-prefix hit admit through ONE batched
-        prefill; chunked admissions, prefix-sharing hits and singleton
-        groups go through add_request. Every prompt is validated before
-        anything is admitted."""
-        return _admit_cohort(self, requests, max_new_tokens, sampling,
-                             stop_tokens)
 
     def _cohort_key(self, prompt):
         plen = len(prompt)
@@ -638,9 +994,7 @@ class PagedContinuousBatchEngine:
             allocs.append(self._alloc_pages(total, held))
         covered = -(-plen // self.ps)
         dense = self._fresh_dense(len(prompts), covered)
-        tokens = torch.as_tensor(np.stack(prompts), dtype=torch.long,
-                                 device=self.device)
-        self._prefill(tokens, dense, 0)
+        self._prefill(self._tokens(np.stack(prompts)), dense, 0)
         for r, p in enumerate(prompts):
             idx = idxs[r]
             self._slot_pages[idx] = allocs[r]
@@ -669,163 +1023,13 @@ class PagedContinuousBatchEngine:
                                  max(n_shared, (plen - 1) // self.ps), pids)
         self._pt[idx] = 0
         self._pt[idx, : len(pids)] = pids
-        self._cur[idx, 0] = int(prompt[-1])
-        if self._ctx is not None:
-            row_t = torch.zeros(self.max_seq, dtype=torch.long)
-            row_t[:plen] = torch.as_tensor(prompt, dtype=torch.long)
-            self._ctx[idx] = row_t.to(self.device)
-        self._pos[idx] = plen - 1
-
-    @torch.no_grad()
-    def _advance_prefill(self) -> None:
-        """One suffix chunk per mid-prefill slot into its staging dense
-        cache; the final chunk triggers the pool scatter + page
-        registration + slot seeding (_finish_admission)."""
-        if not self._staging:
-            return
-        for i, s in enumerate(self._slots):
-            if not (s.active and s.prefilling):
-                continue
-            dense, prompt, off, pids, n_shared, chain_key = self._staging[i]
-            plen = len(prompt)
-            r = min(self.prefill_chunk, plen - off)
-            tokens = torch.as_tensor([prompt[off:off + r]], dtype=torch.long,
-                                     device=self.device)
-            self._prefill(tokens, dense, off)
-            off += r
-            if off < plen:
-                self._staging[i][2] = off
-                continue
-            self._finish_admission(i, prompt, dense, 0, pids, n_shared,
-                                   chain_key)
-            s.prefilling = False
-            del self._staging[i]
-
-    def _decoding(self) -> List[_Slot]:
-        return [s for s in self._slots if s.active and not s.prefilling]
-
-    def _collect(self, toks_of) -> Dict[int, Any]:
-        """Host bookkeeping after a window: ``toks_of(i)`` are slot i's
-        candidate tokens."""
-        out: Dict[int, Any] = {}
-        for i, s in enumerate(self._slots):
-            if not s.active or s.prefilling:
-                continue
-            new, done = _emit_tokens(s, toks_of(i))
-            self._pos[i] = s.pos
-            out[s.request_id] = {"token": new[-1], "new_tokens": new,
-                                 "done": done}
-            if done:
-                out[s.request_id]["tokens"] = s.tokens
-                self._release(i)
-        return out
-
-    def step(self) -> Dict[int, Any]:
-        """One decode step of every decoding slot (after advancing chunked
-        prefills by one chunk)."""
-        self._advance_prefill()
-        return self._decode_window(1)
-
-    def step_window(self, max_window: int = 8) -> Dict[int, Any]:
-        """Up to max_window decode steps with ONE host sync: the window
-        enqueues its steps back to back, token and positions advance on the
-        device, the pools are written in place, and only the stacked window
-        tokens are fetched. Page tables are static for the whole window:
-        admission allocates pages through max_new_tokens up front."""
-        self._advance_prefill()
-        active = self._decoding()
-        if not active:
-            return {}
-        remaining = min(s.max_new - s.generated for s in active)
-        return self._decode_window(min(max_window, remaining))
-
-    @torch.no_grad()
-    def _decode_window(self, k: int) -> Dict[int, Any]:
-        if not self._decoding():
-            return {}
-        self._upload()
-        sampled = bool((self._temp > 0).any())
-        step = self._program("sampled" if sampled else "greedy")
-        self._bufs.widx.zero_()
-        for _ in range(k):
-            step()
-            self.stats["decode_steps"] += 1
-        # the window's one sync
-        toks_host = self._bufs.toks[:k].cpu().numpy()
-        sent = self._sent["pos"]
-        sent[sent >= 0] += k  # as the device advanced them
-        return self._collect(lambda i: toks_host[:, i])
-
-    @torch.no_grad()
-    def step_spec_window(self) -> Dict[int, Any]:
-        """One slot-batched speculative window over the paged pool (engine
-        constructed with ``speculative=(draft_len, ngram)``): prompt-lookup
-        drafts, one W = draft_len + 1 verify forward through the paged
-        verify kernel (page-table pool writes + causal window attention in
-        one launch per layer), greedy-exact acceptance. Greedy only: run()
-        falls back to step_window() while any active slot samples.
-        Inactive slots (pos < 0) write nothing in the kernel; their emitted
-        rows are skipped on the host."""
-        if not self.speculative:
-            raise RuntimeError("engine not constructed with speculative=")
-        self._advance_prefill()
-        if not self._decoding():
-            return {}
-        draft_len = self.speculative[0]
-        self._upload()
-        self._program("spec")()
-        self.stats["spec_windows"] += 1
-        spec = self._bufs.spec.cpu().numpy()  # the window's one sync
-        emit_h, nacc_h = spec[:, :-1], spec[:, -1]
-        sent = self._sent["pos"]
-        sent[sent >= 0] += nacc_h[sent >= 0] + 1  # as the device did
-        for i, s in enumerate(self._slots):
-            if s.active and not s.prefilling:
-                self.stats["drafted"] += draft_len
-                self.stats["accepted"] += int(nacc_h[i])
-        return self._collect(lambda i: emit_h[i, : int(nacc_h[i]) + 1])
-
-    def cancel(self, request_id: int) -> bool:
-        """Abort an in-flight request: frees its slot AND its pages
-        (refcounts released; registered prefix pages stay cached)."""
-        for i, s in enumerate(self._slots):
-            if s.active and s.request_id == request_id:
-                self._release(i)
-                return True
-        return False
+        self._seed_slot(idx, prompt)
 
     def _release(self, idx: int) -> None:
-        self._staging.pop(idx, None)
+        """Free the slot AND its pages (refcounts released; registered
+        prefix pages stay cached); its page table is zeroed, so the freed
+        page ids are never written again through this slot."""
         self.pool.release_all(self._slot_pages[idx])
         self._slot_pages[idx] = []
-        self._slots[idx] = _Slot()
-        _clear_slot_sampling(self, idx)
-        self._pos[idx] = -1  # length 0: the freed page ids must never be
-        self._pt[idx] = 0    # written again through this slot
-
-    def run(self, requests, max_new_tokens: int = 16, window: int = 1,
-            sampling: Optional[SamplingParams] = None,
-            stop_tokens: Sequence[int] = (),
-            on_token=None) -> Dict[int, List[int]]:
-        """Serve ``requests`` (token lists) to completion: admit as slots
-        free up, step until every request is done. Returns the generated
-        tokens by request id."""
-        pending = list(requests)
-        results: Dict[int, List[int]] = {}
-        while pending or any(s.active for s in self._slots):
-            n = min(len(pending), self.free_slots())
-            if n:  # cohort admission: one batched prefill per length group
-                self.add_requests(pending[:n], max_new_tokens,
-                                  sampling=sampling, stop_tokens=stop_tokens)
-                del pending[:n]
-            if self.speculative and not bool((self._temp > 0).any()):
-                res = self.step_spec_window()
-            else:
-                res = (self.step_window(window) if window > 1
-                       else self.step())
-            for rid, r in res.items():
-                if on_token is not None:
-                    on_token(rid, r["new_tokens"], r["done"])
-                if r["done"]:
-                    results[rid] = r["tokens"]
-        return results
+        self._pt[idx] = 0
+        super()._release(idx)

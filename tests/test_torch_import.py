@@ -3,7 +3,8 @@
 ops.paged_attn among them) and running a CPU forward, greedy generation,
 the decode benchmark, an int8-cache OPT request, a perplexity through the
 dequantize-then-matmul route, a paged serving run (int8 pool, speculation,
-then sampling), the command line, the offline quantization (Fisher
+then sampling), a dense-slot one (int8 cache, speculation) and a
+completion through the HTTP server, the command line, the offline quantization (Fisher
 gradients, a structured and a free `quantize_model`, outliers from an IQR
 config, the checkpoint writer, the HF loader) and the structured and
 transposed decode tables (K10, K11 and K12's plain versions) loads neither
@@ -54,6 +55,18 @@ sampled = serving.PagedContinuousBatchEngine(
     cache_dtype=__import__("torch").float32).run(
         [[1, 2, 3]], max_new_tokens=3, window=2,
         sampling=sampling.SamplingParams(temperature=0.8, top_k=8))
+dense = serving.ContinuousBatchEngine(
+    model, slots=2, cache_dtype="int8", speculative=(2, 2)).run(
+        [[1, 2, 3], [4, 5, 4, 5, 4]], max_new_tokens=3)
+import http.client
+from squeezellm_tpu_torch import server
+httpd = server.serve(serving.ContinuousBatchEngine(omodel, slots=2), port=0)
+conn = http.client.HTTPConnection("127.0.0.1", httpd.server_port, timeout=60)
+conn.request("POST", "/v1/completions",
+             json.dumps({"prompt_tokens": [1, 2], "max_tokens": 3}))
+answer = json.loads(conn.getresponse().read())
+httpd.serving_loop.shutdown()
+httpd.shutdown()
 import os, tempfile, torch
 from squeezellm_tpu_torch import checkpoint
 from squeezellm_tpu_torch.quantize import (gradients, kmeans, outlier_config,
@@ -84,7 +97,9 @@ bad = sorted(m for m in sys.modules
              or m.startswith("squeezellm_tpu."))
 print(json.dumps({"bad": bad, "shape": list(out.shape),
                   "logits": list(logits.shape), "opt": list(oout.shape),
-                  "served": [len(served[0]), len(served[1]), len(sampled[0])],
+                  "served": [len(served[0]), len(served[1]), len(sampled[0]),
+                             len(dense[0]), len(dense[1]),
+                             len(answer["tokens"])],
                   "quantized": [list(struct.shape), list(transposed.shape)],
                   "finite": bool(np.isfinite(stats["check_ppl"])
                                  and np.isfinite(ppl))}))
@@ -100,6 +115,6 @@ def test_port_imports_no_jax():
     assert got["bad"] == []
     assert got["shape"] == [1, 7] and got["logits"] == [1, 3, 64]
     assert got["opt"] == [1, 7]
-    assert got["served"] == [3, 3, 3]
+    assert got["served"] == [3, 3, 3, 3, 3, 3]
     assert got["quantized"] == [[1, 7], [1, 7]]
     assert got["finite"]

@@ -451,7 +451,10 @@ def test_verify_window_and_paged_decode_match_jax(family, cache):
             else:
                 torch.testing.assert_close(mine[name], theirs[name],
                                            rtol=1e-5, atol=1e-5)
-    with pytest.raises(NotImplementedError, match="dense-slot"):
-        model.verify_window(torch.zeros(1, 2, dtype=torch.long),
-                            torch.zeros(1, dtype=torch.long),
-                            _dense_caches(family, cache)[0])
+    # over a dense cache the same entry point writes the slot's own rows
+    # (tests/test_torch_dense_serving.py holds it against the JAX package)
+    dense = _dense_caches(family, cache)[0]
+    got = model.verify_window(torch.zeros(1, 2, dtype=torch.long),
+                              torch.zeros(1, dtype=torch.long), dense)
+    assert got.shape == (1, 2, c.vocab_size)
+    assert dense[0]["k"][0, :2].any() and not dense[0]["k"][0, 2:].any()
