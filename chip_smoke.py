@@ -42,6 +42,17 @@ checking after each that it went through its kernels:
   w3 free (its first W3_LAYERS layers: the host's k-means) with a 0.45%
   sidecar and a quantized lm_head, save_quantized,
   load_quantized, fuse, one request each against the plain path (K10, K1);
+* the reference's packed checkpoints: reference-format state dicts of
+  LLaMA-2-7B at full width (w3 at CONVERT_LAYERS[3] layers, w4 at
+  CONVERT_LAYERS[4]; 3-bit codes spilling across words, a 0.45% CSR
+  sidecar, top-X 10, fp16 embeddings, norms and lm_head) made on the card,
+  torch.save'd and run through convert.convert_reference_checkpoint:
+  K4's W of every converted linear bit-equal to the reference's own
+  dequantization, then an f32 request against the plain path (K1, K2, K3);
+* the staged workflow on a dense LLaMA-2-7B at full width (STAGED_LAYERS
+  layers, written as an HF directory): chunk -> outlier-config -> nuq ->
+  pack, nuq resumed, the packed arrays equal to quantize_model's, an f32
+  request against the plain path (K1, K2, K3);
 * a structured w4 LLaMA-2-7B at full depth: a request and the bf16 decode
   benchmark through K10, the benchmark again with the structured table
   withheld (K1), then with transposed words attached (K11 and K12).
@@ -134,6 +145,15 @@ PAGED_KERNELS = ("paged_attn_kernel",)
 # and the lm_head, so the whole run stays well inside its time limit
 QUANT_LAYERS, FISHER_SAMPLES, FISHER_SEQLEN = 32, 4, 512
 W3_LAYERS = 8
+# the reference's packed checkpoints (convert): LLaMA-2-7B at full width,
+# w3 and w4 at these depths (cut for the run's time limit, as W3_LAYERS),
+# a REF_SPARSITY CSR sidecar and REF_TOPX top-X channels a linear
+CONVERT_LAYERS = {3: 8, 4: 2}
+REF_SPARSITY, REF_TOPX = 0.0045, 10
+# the staged workflow (chunk -> outlier-config -> nuq -> pack): a dense
+# LLaMA-2-7B at full width and STAGED_LAYERS layers (~0.8 GB of f32 chunks
+# a layer), outliers at IQR range STAGED_RANGE
+STAGED_LAYERS, STAGED_RANGE = 2, 1.8
 NEW_TOKENS = 32
 BENCH_TOKENS = 128
 # K4: W against the plain version's. Exact mode: equal. bf16 mode: equal,
@@ -3200,6 +3220,309 @@ def run_quantize(torch, config, record):
     record["quantize"] = res
 
 
+def config_dir(path, n_layers):
+    """A model directory holding models/llama-2-7b/config.json cut to
+    n_layers: what convert and the staged commands read a config from."""
+    with open(os.path.join(HERE, "models", "llama-2-7b", "config.json")) as f:
+        hf = json.load(f)
+    hf["num_hidden_layers"] = n_layers
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump(hf, f)
+    return path
+
+
+def reference_state_dict(torch, config, bits, seed):
+    """The buffers of the reference's QuantLinearLUT for a LLaMA at the
+    config's widths and depth, made on the card from a seed and kept on the
+    host: words in the reference layout (formats.pack_codes_ref), sorted
+    f32 LUTs, a REF_SPARSITY CSR sidecar and REF_TOPX top-X channels per
+    linear, fp16 embeddings, norms and lm_head (as published checkpoints
+    hold them)."""
+    from squeezellm_tpu_torch import formats
+    from squeezellm_tpu_torch.models.llama import HF_NAMES
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    h = config.hidden_size
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device="cuda") * scale
+
+    sd = {}
+    for li in range(config.n_layers):
+        for name, (out_f, in_f) in config.linear_shapes().items():
+            p = f"model.layers.{li}.{HF_NAMES[name]}."
+            scale = 0.5 / math.sqrt(in_f)
+            codes = torch.randint(0, 2**bits, (in_f, out_f), generator=gen,
+                                  device="cuda", dtype=torch.uint8)
+            sd[p + "qweight"] = formats.pack_codes_ref(codes, bits).cpu()
+            sd[p + "lookup_table"] = torch.sort(
+                randn(out_f, 2**bits, scale=2 * scale), dim=1).values.cpu()
+            mask = torch.rand(out_f, in_f, generator=gen,
+                              device="cuda") < REF_SPARSITY
+            crow = torch.zeros(out_f + 1, dtype=torch.int32, device="cuda")
+            crow[1:] = torch.cumsum(mask.sum(1), 0)
+            sd[p + "rows"] = crow.cpu()
+            sd[p + "cols"] = torch.nonzero(mask)[:, 1].to(torch.int32).cpu()
+            sd[p + "vals"] = randn(int(crow[-1]), scale=8 * scale).cpu()
+            sd[p + "full_rows"] = randn(in_f, REF_TOPX, scale=scale).cpu()
+            sd[p + "full_row_indices"] = torch.randperm(
+                out_f, generator=gen, device="cuda")[:REF_TOPX].to(
+                    torch.int32).cpu()
+            sd[f"sparse_threshold.{li}.{name}"] = torch.tensor(
+                int(crow[-1]))
+        lp = f"model.layers.{li}."
+        for n in ("input_layernorm", "post_attention_layernorm"):
+            sd[f"{lp}{n}.weight"] = (1 + randn(h, scale=0.05)).half().cpu()
+    sd["model.embed_tokens.weight"] = randn(config.vocab_size, h,
+                                            scale=0.02).half().cpu()
+    sd["model.norm.weight"] = (1 + randn(h, scale=0.05)).half().cpu()
+    sd["lm_head.weight"] = randn(config.vocab_size, h,
+                                 scale=0.02).half().cpu()
+    return sd
+
+
+def reference_weight(torch, sd, p, bits, in_f):
+    """The plain dequantization of one linear of the reference state dict,
+    on the card: W (in, out) f32, the LUT at the codes unpack_codes_ref
+    reads, plus the CSR values (top-X apart)."""
+    from squeezellm_tpu_torch import formats
+
+    codes = formats.unpack_codes_ref(sd[p + "qweight"].cuda(), bits, in_f)
+    lut = sd[p + "lookup_table"].cuda().float()
+    w = torch.take_along_dim(lut.t(), codes.long(), dim=0)
+    crow = sd[p + "rows"].cuda().long()
+    rows = torch.repeat_interleave(
+        torch.arange(crow.numel() - 1, device="cuda"), crow[1:] - crow[:-1])
+    cols = sd[p + "cols"].cuda().long()
+    w[cols, rows] = w[cols, rows] + sd[p + "vals"].cuda()
+    return w
+
+
+def run_convert(torch, config, record):
+    """The reference's packed checkpoints through convert: for w3
+    (CONVERT_LAYERS[3] layers) and w4 (CONVERT_LAYERS[4]) a reference-format
+    state dict of LLaMA-2-7B at full width, torch.save'd,
+    convert_reference_checkpoint on the card, load_quantized. Held: K4's W
+    of every converted linear bit-equal in f32 to the reference state
+    dict's plain dequantization, top-X equal; then fused, f32
+    teacher-forced logits within TOL_TF_EXACT and an f32 request
+    token-identical to the plain path (K1, K2, K3)."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+
+    from squeezellm_tpu_torch import checkpoint, convert, engine
+    from squeezellm_tpu_torch.models import fuse
+    from squeezellm_tpu_torch.models.llama import HF_NAMES
+    from squeezellm_tpu_torch.ops import dequant_dense as dd
+
+    res = {}
+    rng = np.random.default_rng(23)
+    prompt = rng.integers(0, config.vocab_size, (1, PROMPT_LENS[-1]))
+    root = os.path.join(HERE, "build", "convert")
+    for bits, n in sorted(CONVERT_LAYERS.items()):
+        shutil.rmtree(root, ignore_errors=True)
+        cfg = dataclasses.replace(config, n_layers=n)
+        model_dir = config_dir(os.path.join(root, "model"), n)
+        pt = os.path.join(root, f"sq-llama-2-7b-w{bits}.pt")
+        out = os.path.join(root, "converted")
+        r = {"layers": n, "seconds": {}}
+        secs = r["seconds"]
+        t0 = time.perf_counter()
+        sd = reference_state_dict(torch, cfg, bits, seed=40 + bits)
+        secs["make"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        torch.save(sd, pt)
+        secs["torch.save"] = time.perf_counter() - t0
+        r["pt_bytes"] = os.path.getsize(pt)
+        stats = {}
+        convert.convert_reference_checkpoint(pt, model_dir, bits, out,
+                                             stats=stats)
+        secs.update({"torch.load": stats["load"],
+                     "unpack/repack on the card": stats["convert"],
+                     "save": stats["save"]})
+        r["checkpoint_bytes"] = _dir_bytes(out)
+        t0 = time.perf_counter()
+        _, model = checkpoint.load_quantized(out)
+        torch.cuda.synchronize()
+        secs["load_quantized"] = time.perf_counter() - t0
+        # K4 on every converted linear against the reference's own words
+        reset_counts()
+        worst, shapes = 0.0, 0
+        for li, layer in enumerate(model.layers):
+            for name, lin in {**layer.attn.proj, **layer.mlp.proj}.items():
+                t = lin.tensors()
+                out_f, in_f = cfg.linear_shapes()[name]
+                p = f"model.layers.{li}.{HF_NAMES[name]}."
+                w = dd.dequant_dense(t["qweight"], t["lut"], bits, in_f,
+                                     rowptr=t["sp_rowptr"], cols=t["sp_cols"],
+                                     vals=t["sp_vals"], mode="exact")
+                want = reference_weight(torch, sd, p, bits, in_f)
+                if w.dtype != torch.float32 or not torch.equal(w, want):
+                    raise AssertionError(
+                        f"convert w{bits} layer {li} {name}: K4's W differs "
+                        f"from the reference's dequantization in "
+                        f"{int((w != want).sum())} of {w.numel()} elements")
+                if not (torch.equal(t["topx_weights"].cpu(),
+                                    sd[p + "full_rows"].float())
+                        and torch.equal(t["topx_indices"].cpu(),
+                                        sd[p + "full_row_indices"])):
+                    raise AssertionError(f"convert w{bits} layer {li} "
+                                         f"{name}: top-X differs")
+                worst = max(worst, abs_err(w, want))
+                shapes += 1
+        r["k4_launches"] = expect_counts(
+            record, f"convert w{bits}: K4 on each converted linear",
+            [0, 0, 0, shapes])
+        r["k4_max_abs_err"] = worst
+        del sd
+        fuse.fuse_for_decode(model)
+        r["tf_exact_rel_err"] = tf_logits(torch, model)
+        reset_counts()
+        got = engine.Engine(model).generate(prompt, NEW_TOKENS)
+        r["launches"] = expect_counts(
+            record, f"convert w{bits} request",
+            [NEW_TOKENS * 4 * n, (NEW_TOKENS - 1) * n, n])
+        ref = engine.Engine(model, plain=True).generate(prompt, NEW_TOKENS)
+        hold_equal(f"convert w{bits} request, kernels vs plain", got, ref)
+        r["tokens"] = got[0].tolist()
+        del model
+        shutil.rmtree(root)
+        res[f"w{bits}"] = r
+        print(f"convert w{bits} (LLaMA-2-7B widths, {n} layers, reference "
+              f"layout, {REF_SPARSITY:.2%} CSR, top-X {REF_TOPX}): "
+              + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
+              + f"; .pt {r['pt_bytes'] / 2**20:.0f} MiB, checkpoint "
+              f"{r['checkpoint_bytes'] / 2**20:.0f} MiB; K4's W bit-equal "
+              f"to the reference's dequantization at {shapes} linears; f32 "
+              f"request ({PROMPT_LENS[-1]}-token prompt, {NEW_TOKENS} new) "
+              f"token-identical to the plain path, launches K1..K12 "
+              f"{r['launches']}; f32 teacher-forced logits rel err "
+              f"{r['tf_exact_rel_err']:.3g}")
+    record["convert"] = res
+
+
+def run_staged(torch, config, record):
+    """The staged workflow on a dense LLaMA-2-7B at full width and
+    STAGED_LAYERS layers, written as an HF directory (pytorch_model.bin):
+    chunk -> outlier-config (IQR range STAGED_RANGE) -> nuq (w4, auto) ->
+    pack through the port's functions on the card; nuq again, which skips
+    every layer. Held: the packed arrays equal quantize_model's on the same
+    tree and thresholds, and an f32 request is token-identical to the
+    plain path."""
+    import dataclasses
+    import shutil
+
+    import numpy as np
+
+    from squeezellm_tpu_torch import checkpoint, engine
+    from squeezellm_tpu_torch.models import fuse
+    from squeezellm_tpu_torch.models.llama import HF_NAMES
+    from squeezellm_tpu_torch.quantize import pipeline, staged
+
+    n = STAGED_LAYERS
+    cfg = dataclasses.replace(config, n_layers=n)
+    root = os.path.join(HERE, "build", "staged")
+    shutil.rmtree(root, ignore_errors=True)
+    d = {k: os.path.join(root, k) for k in ("chunks", "nuq", "ckpt")}
+    d["oc"] = os.path.join(root, "outlier_config.json")
+    hf_dir = config_dir(os.path.join(root, "hf"), n)
+    res = {"layers": n, "seconds": {}, "bytes": {}}
+    secs = res["seconds"]
+    t0 = time.perf_counter()
+    tree = dense_tree(torch, cfg, seed=31)
+    sd = {"model.embed_tokens.weight": tree["embed"],
+          "model.norm.weight": tree["final_norm"],
+          "lm_head.weight": tree["lm_head"]["w"]}
+    for li, layer in enumerate(tree["layers"]):
+        p = f"model.layers.{li}."
+        sd.update({f"{p}{hf}.weight": layer[name]["w"]
+                   for name, hf in HF_NAMES.items()})
+        sd[p + "input_layernorm.weight"] = layer["input_norm"]
+        sd[p + "post_attention_layernorm.weight"] = layer["post_norm"]
+    torch.save(sd, os.path.join(hf_dir, "pytorch_model.bin"))
+    del sd
+    secs["write HF dir"] = time.perf_counter() - t0
+
+    def stage(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    stage("chunk", lambda: staged.chunk_model(hf_dir, d["chunks"]))
+    cfg_json = stage("outlier-config", lambda: staged.make_outlier_config(
+        d["chunks"], STAGED_RANGE, d["oc"]))
+    nuq_stats = {}
+    fitted = stage("nuq", lambda: staged.nuq(
+        d["chunks"], d["nuq"], 4, outlier_config_json=d["oc"],
+        method="auto", stats=nuq_stats))
+    again = stage("nuq again", lambda: staged.nuq(
+        d["chunks"], d["nuq"], 4, outlier_config_json=d["oc"]))
+    if (fitted, again) != (n, 0):
+        raise AssertionError(f"staged: nuq fitted {fitted} then {again} "
+                             f"layers of {n}")
+    stage("pack", lambda: staged.pack(hf_dir, d["nuq"], 4, d["ckpt"]))
+    for k in ("hf", "chunks", "nuq", "ckpt"):
+        res["bytes"][k] = _dir_bytes(os.path.join(root, k))
+    res["nuq_stages_s"] = nuq_stats
+    res["outlier_pct"] = cfg_json["outlier_threshold"]
+    # the one-shot pipeline on the same tree and thresholds
+    t0 = time.perf_counter()
+    _, want = pipeline.quantize_model("llama", cfg, tree, 4,
+                                      outlier_config=cfg_json[
+                                          "outlier_config"])
+    secs["quantize_model (to compare)"] = time.perf_counter() - t0
+    del tree
+    compared = 0
+    for li in range(n):
+        with np.load(os.path.join(d["ckpt"], f"layer_{li:03d}.npz")) as z:
+            got = {k: z[k] for k in z.files}
+        flat = {}
+        for k, v in want["layers"][li].items():
+            for kk, vv in (v.items() if isinstance(v, dict) else [(None, v)]):
+                flat[k if kk is None else f"{k}.{kk}"] = np.asarray(vv)
+        if sorted(got) != sorted(flat):
+            raise AssertionError(f"staged layer {li}: arrays {sorted(got)} "
+                                 f"!= quantize_model's {sorted(flat)}")
+        for k, v in flat.items():
+            if got[k].dtype != v.dtype or not np.array_equal(got[k], v):
+                raise AssertionError(f"staged layer {li} {k}: differs from "
+                                     "quantize_model's")
+            compared += 1
+    del want
+    t0 = time.perf_counter()
+    _, model = checkpoint.load_quantized(d["ckpt"])
+    torch.cuda.synchronize()
+    secs["load_quantized"] = time.perf_counter() - t0
+    shutil.rmtree(root)
+    fuse.fuse_for_decode(model)
+    rng = np.random.default_rng(24)
+    prompt = rng.integers(0, cfg.vocab_size, (1, PROMPT_LENS[-1]))
+    reset_counts()
+    got = engine.Engine(model).generate(prompt, NEW_TOKENS)
+    res["launches"] = expect_counts(
+        record, "staged w4 request",
+        [NEW_TOKENS * 4 * n, (NEW_TOKENS - 1) * n, n])
+    ref = engine.Engine(model, plain=True).generate(prompt, NEW_TOKENS)
+    hold_equal("staged w4 request, kernels vs plain", got, ref)
+    res.update(tokens=got[0].tolist(), arrays_compared=compared)
+    record["staged"] = res
+    print(f"staged w4 (LLaMA-2-7B widths, {n} layers): "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in secs.items())
+          + f" ({secs['nuq'] / n:.2f} s a layer; its stages "
+          + ", ".join(f"{k} {v:.1f}" for k, v in nuq_stats.items())
+          + "); on disk " + ", ".join(f"{k} {v / 2**20:.0f} MiB"
+                                      for k, v in res["bytes"].items())
+          + f"; {res['outlier_pct']}% outliers at IQR range {STAGED_RANGE}; "
+          f"{compared} packed arrays equal quantize_model's; f32 request "
+          f"token-identical to the plain path, launches K1..K12 "
+          f"{res['launches']}")
+
+
 def tf_logits(torch, model):
     """f32 teacher-forced logits of 16 tokens through the kernels against
     the plain path: finite and within TOL_TF_EXACT of max |logit|."""
@@ -3619,6 +3942,8 @@ def main():
                ("dense bf16", lambda: run_dense(torch, config, record)),
                ("quantize on the card",
                 lambda: run_quantize(torch, config, record)),
+               ("convert", lambda: run_convert(torch, config, record)),
+               ("staged", lambda: run_staged(torch, config, record)),
                ("structured and transposed w4",
                 lambda: run_structured(torch, config, record, smi))]
     for name, fn in phases:

@@ -3,8 +3,15 @@
   quantize   dense HF checkpoint (+ optional grad^2 chunks) -> quantized
              checkpoint (outliers -> k-means -> pack, one layer at a time)
   fisher     grad^2 sensitivity chunks of a dense HF checkpoint
-  eval       perplexity (GPTQ stride protocol) on ``synthetic`` tokens or a
-             ``.npy`` token file
+  chunk      dense HF checkpoint -> per-layer weight chunks
+  outlier-config  chunks -> IQR outlier thresholds (JSON)
+  nuq        chunks -> per-layer codebooks and outliers, resumable
+  pack       dense HF checkpoint + nuq artifacts -> quantized checkpoint
+  convert    the reference's packed ``.pt`` checkpoint -> quantized
+             checkpoint
+  eval       perplexity (GPTQ stride protocol) on ``synthetic`` tokens, a
+             ``.npy`` token file or a text dataset (wikitext2, ptb, c4,
+             ...) read with the model directory's tokenizer
   benchmark  batch-1 decode latency, tok/s, peak memory; ``--profile DIR``
              also writes a torch.profiler trace there and prints its
              per-kernel device time table
@@ -15,19 +22,20 @@
   serve      the HTTP front end (``/v1/completions``, ``/health``) over
              either engine
 
-``quantize`` and ``fisher`` take the JAX package's arguments (``--model``
-an HF directory with ``config.json`` and its weights). ``eval``,
-``benchmark``, ``generate``, ``serve-bench`` and ``serve`` take ``--model
-DIR`` (a quantized checkpoint
+``quantize``, ``fisher``, the staged commands (chunk -> outlier-config ->
+nuq -> pack) and ``convert`` take the JAX package's arguments (``--model``
+an HF directory with ``config.json`` and its weights; ``convert``'s a
+directory with ``config.json``). ``eval``, ``benchmark``, ``generate``,
+``serve-bench`` and ``serve`` take ``--model DIR`` (a quantized checkpoint
 directory, which either package's ``save_quantized`` writes) or
 ``--synthetic CONFIG --wbits N`` (a random Dense-and-Sparse model of an HF
-``config.json``, e.g. ``models/llama-2-7b/config.json``). Every command
-takes ``--device`` (default ``cuda``). ``--mode exact`` runs f32
-throughout; ``--mode bf16`` the flagship regime (bf16 activations and
-cache, bf16-rounded LUT and x with f32 accumulation). The counterpart of
-the JAX package's ``cli.py`` commands of the same names; its staged
-commands (chunk, outlier-config, nuq, pack), ``convert`` and tensor-
-parallel serving (``--tp`` above 1) are not ported.
+``config.json``, e.g. ``models/llama-2-7b/config.json``); a text dataset
+needs tokenizer files in that directory. Every command takes ``--device``
+(default ``cuda``). ``--mode exact`` runs f32 throughout; ``--mode bf16``
+the flagship regime (bf16 activations and cache, bf16-rounded LUT and x
+with f32 accumulation). The counterpart of the JAX package's ``cli.py``
+commands of the same names; only tensor-parallel serving (``--tp`` above
+1) is not ported.
 """
 
 from __future__ import annotations
@@ -40,6 +48,11 @@ import numpy as np
 import torch
 
 CALIB_SAMPLES = 128  # sizes the synthetic corpus as the JAX CLI's default
+METHODS = ["auto", "native", "batched", "sklearn"]
+METHOD_HELP = ("k-means solver: 'auto' is 'native' (the sorted-Lloyd C++ "
+               "solver, built with the host's g++ at first use), 'batched' "
+               "the PyTorch one on the device, 'sklearn' scikit-learn's "
+               "KMeans a channel at a time on the host (as the reference)")
 
 
 def _load_model(args, path=None):
@@ -64,11 +77,26 @@ def _load_model(args, path=None):
     return model
 
 
-def _tokens(args, config) -> np.ndarray:
-    from squeezellm_tpu_torch import data
+def _is_text(dataset: str) -> bool:
+    return dataset != "synthetic" and not dataset.endswith(".npy")
 
+
+def _tokens(args, config) -> np.ndarray:
+    """The dataset's eval tokens; a text dataset is read with the
+    tokenizer of the --model directory or of the --synthetic config's
+    directory, where it has one (as the JAX package's ``_eval_tokens``)."""
+    from squeezellm_tpu_torch import data
+    from squeezellm_tpu_torch.utils import hf
+
+    tokenizer = None
+    if _is_text(args.dataset):
+        src = args.model or args.synthetic
+        model_dir = os.path.dirname(src) if os.path.isfile(src) else src
+        if hf.has_tokenizer(model_dir):
+            tokenizer = hf.load_tokenizer(model_dir)
     _, test = data.get_loaders(args.dataset, nsamples=CALIB_SAMPLES,
                                seed=args.seed, seqlen=args.seqlen,
+                               tokenizer=tokenizer,
                                vocab_size=config.vocab_size)
     return np.asarray(test)
 
@@ -151,8 +179,11 @@ def cmd_fisher(args):
     from squeezellm_tpu_torch.utils import hf
 
     model_type, config, params = hf.load_dense_model(args.model)
+    tokenizer = (hf.load_tokenizer(args.model) if _is_text(args.dataset)
+                 else None)
     calib, _ = data.get_loaders(args.dataset, nsamples=args.nsamples,
                                 seed=args.seed, seqlen=args.seqlen,
+                                tokenizer=tokenizer,
                                 vocab_size=config.vocab_size)
     grads = gradients.compute_fisher(model_type, config, params, calib,
                                      batch_size=args.batch_size,
@@ -160,6 +191,49 @@ def cmd_fisher(args):
     gradients.save_gradient_chunks(grads, args.output, model_type,
                                    args.model)
     print(f"grad^2 chunks -> {args.output}")
+
+
+def cmd_chunk(args):
+    from squeezellm_tpu_torch.quantize import staged
+
+    n = staged.chunk_model(args.model, args.output, verbose=True)
+    print(f"chunked {n} layers into {args.output}")
+
+
+def cmd_outlier_config(args):
+    from squeezellm_tpu_torch.quantize import staged
+
+    cfg = staged.make_outlier_config(args.chunks, args.range, args.output,
+                                     verbose=True)
+    print(f"measured outlier %: {cfg['outlier_threshold']} -> {args.output}")
+
+
+def cmd_nuq(args):
+    from squeezellm_tpu_torch.quantize import staged
+
+    staged.nuq(args.chunks, args.output, args.bits,
+               gradient_chunks_dir=args.gradient_chunks,
+               sensitivity=args.sensitivity,
+               outlier_config_json=args.outlier_config, method=args.method,
+               seed=args.seed, device=args.device, verbose=True)
+    print(f"nuq artifacts in {args.output}")
+
+
+def cmd_pack(args):
+    from squeezellm_tpu_torch.quantize import staged
+
+    staged.pack(args.model, args.nuq, args.wbits, args.output,
+                device=args.device, verbose=True)
+    print(f"packed checkpoint -> {args.output}")
+
+
+def cmd_convert(args):
+    from squeezellm_tpu_torch import convert
+
+    convert.convert_reference_checkpoint(args.checkpoint, args.model,
+                                         args.wbits, args.output,
+                                         device=args.device)
+    print(f"converted {args.checkpoint} -> {args.output}")
 
 
 def cmd_eval(args):
@@ -336,7 +410,9 @@ def main(argv=None):
 
     def tokens(sp):
         sp.add_argument("--dataset", default="synthetic",
-                        help="'synthetic' or a .npy file of token ids")
+                        help="'synthetic', a .npy file of token ids, or a "
+                             "text dataset (wikitext2, ptb, c4, ...; needs "
+                             "the model directory's tokenizer)")
         sp.add_argument("--seqlen", type=int, default=2048)
 
     def decode(sp):
@@ -358,12 +434,8 @@ def main(argv=None):
                    help="top-%% of weights by grad^2 moved to sparse")
     q.add_argument("--outlier-range", type=float, default=None,
                    help="IQR multiplier for threshold outliers (e.g. 1.8)")
-    q.add_argument("--method", default="auto",
-                   choices=["auto", "native", "batched"],
-                   help="k-means solver: 'auto' is 'native' (the sorted-"
-                        "Lloyd C++ solver, built with the host's g++ at "
-                        "first use), 'batched' the PyTorch one on the "
-                        "device")
+    q.add_argument("--method", default="auto", choices=METHODS,
+                   help=METHOD_HELP)
     q.add_argument("--quantize-lm-head", action="store_true",
                    help="also quantize lm_head (the reference keeps it "
                         "fp16)")
@@ -374,7 +446,9 @@ def main(argv=None):
     fi = sub.add_parser("fisher", help="compute grad^2 sensitivity chunks")
     fi.add_argument("--model", required=True)
     fi.add_argument("--dataset", default="synthetic",
-                    help="'synthetic' or a .npy file of token ids")
+                    help="'synthetic', a .npy file of token ids, or a text "
+                         "dataset read with the --model directory's "
+                         "tokenizer")
     fi.add_argument("--nsamples", type=int, default=128)
     fi.add_argument("--seqlen", type=int, default=2048)
     fi.add_argument("--seed", type=int, default=0)
@@ -382,6 +456,57 @@ def main(argv=None):
     fi.add_argument("--output", required=True)
     fi.add_argument("--device", default="cuda")
     fi.set_defaults(fn=cmd_fisher)
+
+    ch = sub.add_parser("chunk", help="split an HF checkpoint into "
+                        "per-layer weight chunks")
+    ch.add_argument("--model", required=True)
+    ch.add_argument("--output", required=True)
+    ch.set_defaults(fn=cmd_chunk)
+
+    oc = sub.add_parser("outlier-config", help="IQR outlier thresholds")
+    oc.add_argument("--chunks", required=True)
+    oc.add_argument("--range", type=float, required=True,
+                    help="IQR multiplier (e.g. 1.8)")
+    oc.add_argument("--output", required=True)
+    oc.set_defaults(fn=cmd_outlier_config)
+
+    nq = sub.add_parser("nuq", help="per-layer weighted k-means "
+                        "(resumable)")
+    nq.add_argument("--chunks", required=True)
+    nq.add_argument("--gradient-chunks", default=None,
+                    help="dir of grad^2 chunks (layer_{i}.npz)")
+    nq.add_argument("--bits", type=int, default=4, choices=[3, 4])
+    nq.add_argument("--sensitivity", type=float, default=0.0)
+    nq.add_argument("--outlier-config", default=None)
+    nq.add_argument("--method", default="auto", choices=METHODS,
+                    help=METHOD_HELP)
+    nq.add_argument("--seed", type=int, default=0)
+    nq.add_argument("--output", required=True)
+    nq.add_argument("--device", default="cuda")
+    nq.set_defaults(fn=cmd_nuq)
+
+    pk = sub.add_parser("pack", help="collate codebooks into a quantized "
+                        "checkpoint")
+    pk.add_argument("--model", required=True)
+    pk.add_argument("--nuq", required=True)
+    pk.add_argument("--wbits", type=int, required=True, choices=[3, 4])
+    pk.add_argument("--no-spmv", action="store_true",
+                    help="accepted for the JAX command's sake: the port "
+                         "writes no SpMV slot plans (a TPU layout) either "
+                         "way")
+    pk.add_argument("--output", required=True)
+    pk.add_argument("--device", default="cuda")
+    pk.set_defaults(fn=cmd_pack)
+
+    c = sub.add_parser("convert", help="convert a reference SqueezeLLM .pt")
+    c.add_argument("--checkpoint", required=True)
+    c.add_argument("--model", required=True,
+                   help="HF model dir with config.json")
+    c.add_argument("--wbits", type=int, required=True, choices=[3, 4])
+    c.add_argument("--output", required=True)
+    c.add_argument("--device", default="cuda",
+                   help="where the packed words are unpacked and repacked")
+    c.set_defaults(fn=cmd_convert)
 
     e = sub.add_parser("eval", help="perplexity evaluation")
     common(e)

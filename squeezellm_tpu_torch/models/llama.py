@@ -29,6 +29,13 @@ from squeezellm_tpu_torch.models.common import Linear
 from squeezellm_tpu_torch.ops import decode_attn, flash_attn, paged_attn
 
 
+# each linear's name in an HF (and the reference's) state dict of a layer
+HF_NAMES = {"q": "self_attn.q_proj", "k": "self_attn.k_proj",
+            "v": "self_attn.v_proj", "o": "self_attn.o_proj",
+            "gate": "mlp.gate_proj", "up": "mlp.up_proj",
+            "down": "mlp.down_proj"}
+
+
 @dataclasses.dataclass(frozen=True)
 class LlamaConfig:
     vocab_size: int = 32000
@@ -91,14 +98,10 @@ def from_torch_state_dict(config: LlamaConfig, sd, dtype=torch.float32):
     'layers': [{q..down: {'w'}, 'input_norm', 'post_norm'}], 'final_norm',
     'lm_head': {'w'}}), tensors in ``dtype`` on the CPU."""
     g = _state_dict_getter(sd, dtype)
-    hf_names = {"q": "self_attn.q_proj", "k": "self_attn.k_proj",
-                "v": "self_attn.v_proj", "o": "self_attn.o_proj",
-                "gate": "mlp.gate_proj", "up": "mlp.up_proj",
-                "down": "mlp.down_proj"}
     layers = []
     for i in range(config.n_layers):
         p = f"model.layers.{i}."
-        d = {n: {"w": g(p + hf + ".weight")} for n, hf in hf_names.items()}
+        d = {n: {"w": g(p + hf + ".weight")} for n, hf in HF_NAMES.items()}
         d["input_norm"] = g(p + "input_layernorm.weight")
         d["post_norm"] = g(p + "post_attention_layernorm.weight")
         layers.append(d)

@@ -27,6 +27,10 @@ from squeezellm_tpu_torch.models.llama import (AttnBlock, LMHead, Step,
                                                _state_dict_getter)
 
 MODULE_NAMES = ("q", "k", "v", "o", "up", "down")
+# each linear's name in an HF (and the reference's) state dict of a layer
+HF_NAMES = {"q": "self_attn.q_proj", "k": "self_attn.k_proj",
+            "v": "self_attn.v_proj", "o": "self_attn.out_proj",
+            "up": "fc1", "down": "fc2"}
 POS_OFFSET = 2  # HF OPTLearnedPositionalEmbedding offset
 
 
@@ -86,9 +90,6 @@ def from_torch_state_dict(config: OPTConfig, sd, dtype=torch.float32):
     'b'}, 'embed_pos' beside 'embed', the lm_head tied to the embedding
     when the dict has none), tensors in ``dtype`` on the CPU."""
     g = _state_dict_getter(sd, dtype)
-    hf_names = {"q": "self_attn.q_proj", "k": "self_attn.k_proj",
-                "v": "self_attn.v_proj", "o": "self_attn.out_proj",
-                "up": "fc1", "down": "fc2"}
 
     def wb(prefix):
         return {"w": g(prefix + ".weight"), "b": g(prefix + ".bias")}
@@ -96,7 +97,7 @@ def from_torch_state_dict(config: OPTConfig, sd, dtype=torch.float32):
     layers = []
     for i in range(config.n_layers):
         p = f"model.decoder.layers.{i}."
-        d = {n: wb(p + hf) for n, hf in hf_names.items()}
+        d = {n: wb(p + hf) for n, hf in HF_NAMES.items()}
         d["attn_norm"] = wb(p + "self_attn_layer_norm")
         d["ffn_norm"] = wb(p + "final_layer_norm")
         layers.append(d)

@@ -2,13 +2,17 @@
 PyTorch on the device the caller's tensors lie on.
 
 The port of the JAX package's ``quantize/kmeans.py``. ``fit_module_luts``
-has two solvers (the sklearn mode is not ported):
+has three solvers:
 
 * ``native`` (the default, as ``auto`` is in the JAX package): the JAX
   package's sorted-Lloyd C++ solver, a copy of which the port keeps in
   ``csrc/host/nuq_kmeans.cpp`` and builds with the host's ``g++`` at first
   use (``_build.host_lib``). It runs on the host with OpenMP; its codebooks
   and codes equal the JAX package's default bit for bit.
+* ``sklearn``: scikit-learn's ``KMeans`` a channel at a time on the host,
+  as the reference fits its codebooks (``nuq.py``) and as the JAX
+  package's ``sklearn`` mode does, with the same arguments; imported at
+  first use, so the package loads without scikit-learn.
 * ``batched``: ``weighted_kmeans_batched``, on the tensors' device, the
   same function as the JAX package's ``batched`` solver (which
   ``fit_structured_luts`` also uses for its init). It and
@@ -232,6 +236,37 @@ def _sample_weights(weight, gradient):
     return torch.where(zero_rows[:, None], 1.0, sw)
 
 
+def weighted_kmeans_sklearn(values: torch.Tensor, weights: torch.Tensor,
+                            k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """scikit-learn's ``KMeans(n_clusters=k, random_state=0,
+    n_init="auto", max_iter=50)`` on each row of (C, N) values (taken as
+    f32) with its sample weights (f64), centroids then sorted ascending and
+    labels remapped to the sorted order. Returns (centroids (C, k) f32,
+    labels (C, N) uint8) on values' device."""
+    try:
+        from sklearn.cluster import KMeans
+    except ImportError as e:
+        raise ImportError(
+            "method=\"sklearn\" needs the scikit-learn package (sklearn); "
+            "the default method=\"auto\" does not") from e
+    x = values.detach().cpu().numpy().astype(np.float32)
+    w = weights.detach().cpu().numpy().astype(np.float64)
+    cents, labs = [], []
+    for row, sw in zip(x, w):
+        km = KMeans(n_clusters=k, random_state=0, n_init="auto",
+                    max_iter=50).fit(row.reshape(-1, 1), sample_weight=sw)
+        cents.append(km.cluster_centers_.reshape(-1))
+        labs.append(km.labels_.astype(np.uint8))
+    lut = np.stack(cents).astype(np.float32)
+    order = np.argsort(lut, axis=1)
+    inv = np.empty_like(order)
+    np.put_along_axis(inv, order, np.arange(k)[None].repeat(len(lut), 0), 1)
+    labels_out = np.take_along_axis(inv, np.stack(labs).astype(np.int64), 1)
+    return (torch.from_numpy(np.take_along_axis(lut, order, 1)).to(
+        values.device),
+            torch.from_numpy(labels_out.astype(np.uint8)).to(values.device))
+
+
 def fit_module_luts(weight: torch.Tensor, gradient: Optional[torch.Tensor],
                     bits: int, method: str = "auto",
                     seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -239,17 +274,20 @@ def fit_module_luts(weight: torch.Tensor, gradient: Optional[torch.Tensor],
 
     weight: (out, in) with outlier slots zeroed; gradient: (out, in) grad^2
     or None. method: 'auto' (= 'native', the JAX package's default solver,
-    on the host) or 'batched' (on the weight's device). The sample weights
+    on the host), 'batched' (on the weight's device) or 'sklearn' (on the
+    host, a channel at a time). The sample weights
     are grad^2 masked at zeroed slots, as f32 for the native solver as the
     JAX package hands them over. Returns (lut (out, 2**bits) f32 sorted,
     labels (out, in) uint8)."""
-    if method not in ("auto", "native", "batched"):
+    if method not in ("auto", "native", "batched", "sklearn"):
         raise ValueError(f"unknown method {method!r}: the port has 'auto' "
-                         "(= 'native') and 'batched'")
+                         "(= 'native'), 'batched' and 'sklearn'")
     weight = weight.to(torch.float32)
     sw = _sample_weights(weight, gradient)
     if method == "batched":
         return weighted_kmeans_batched(weight, sw, 2**bits, seed=seed)
+    if method == "sklearn":
+        return weighted_kmeans_sklearn(weight, sw, 2**bits)
     return weighted_kmeans_native(weight, sw.to(torch.float32), 2**bits,
                                   seed=seed)
 

@@ -33,15 +33,18 @@ from squeezellm_tpu_torch.quantize import kmeans as kmeans_mod
 from squeezellm_tpu_torch.quantize import outliers as outliers_mod
 
 
-def _on(t, device) -> torch.Tensor:
+def to_device(t, device) -> torch.Tensor:
     """A weight, gradient or bias (tensor or numpy) as f32 on device."""
     if not isinstance(t, torch.Tensor):
         t = torch.from_numpy(np.asarray(t, np.float32))
     return t.detach().to(device=device, dtype=torch.float32)
 
 
-def _host(t):
-    """A tensor as numpy (f32 when it was a float type); numpy as it is."""
+def to_host(t):
+    """A tensor as numpy (f32 when it was a float type), a dict of them (an
+    OPT norm's {'w', 'b'}) as a dict of numpy; numpy as it is."""
+    if isinstance(t, dict):
+        return {k: to_host(v) for k, v in t.items()}
     if isinstance(t, torch.Tensor):
         return t.detach().float().cpu().numpy()
     return t
@@ -72,6 +75,43 @@ def _fit(w, g, bits, method, seed, structured):
     return kmeans_mod.fit_module_luts(w, g, bits, method=method, seed=seed)
 
 
+def fit_layer(
+    weights: Dict[str, Any],
+    gradients: Optional[Dict[str, Any]],
+    bits: int,
+    sensitivity: float = 0.0,
+    outlier_thresholds: Optional[Dict[str, float]] = None,
+    method: str = "auto",
+    seed: int = 0,
+    structured: bool = False,
+    device="cuda",
+    stats: Optional[Dict[str, float]] = None,
+):
+    """Steps 1-2 of one decoder layer on ``device``: the outliers pulled
+    out, then each module's codebooks fitted on its zeroed weight (the
+    ``nuq`` stage stores what this returns). Returns (zeroed weights,
+    outlier matrices or None, {module_name: (lut, labels)}), tensors on
+    ``device``; stats: see ``quantize_layer``."""
+    clock = _Stages(stats, device)
+    include_sparse = sensitivity > 0 or outlier_thresholds is not None
+    w_dev = {n: to_device(w, device) for n, w in weights.items()}
+    g_dev = (None if gradients is None
+             else {n: to_device(gradients[n], device) for n in weights})
+    clock("load")
+    outlier_mats = None
+    if include_sparse:
+        outlier_mats = outliers_mod.remove_outliers(
+            w_dev, sensitivity=sensitivity,
+            outlier_config=outlier_thresholds, gradients=g_dev)
+    clock("outliers")
+    codebooks = {}
+    for name, w in w_dev.items():
+        g = None if g_dev is None else g_dev[name]
+        codebooks[name] = _fit(w, g, bits, method, seed, structured)
+        clock("kmeans")
+    return w_dev, outlier_mats, codebooks
+
+
 def quantize_layer(
     weights: Dict[str, Any],
     gradients: Optional[Dict[str, Any]],
@@ -86,7 +126,8 @@ def quantize_layer(
     device="cuda",
     stats: Optional[Dict[str, float]] = None,
 ) -> Dict[str, Tuple[Any, Dict[str, np.ndarray]]]:
-    """Quantize one decoder layer's modules on ``device``.
+    """Quantize one decoder layer's modules on ``device``: ``fit_layer``,
+    then step 3.
 
     structured (bits=4 only; at 3 bits the codebooks are free, as in the
     JAX package): additive codebooks ``lut[c] = A[c&7] + (c>>3)*d``
@@ -94,24 +135,15 @@ def quantize_layer(
     sends through K10. stats: an optional dict to which the seconds of
     each stage are added ('load': to the device, 'outliers', 'kmeans',
     'pack'). Returns {module_name: (QuantLinearSpec, numpy params)}."""
+    w_dev, outlier_mats, codebooks = fit_layer(
+        weights, gradients, bits, sensitivity=sensitivity,
+        outlier_thresholds=outlier_thresholds, method=method, seed=seed,
+        structured=structured, device=device, stats=stats)
     clock = _Stages(stats, device)
-    include_sparse = sensitivity > 0 or outlier_thresholds is not None
-    w_dev = {n: _on(w, device) for n, w in weights.items()}
-    g_dev = (None if gradients is None
-             else {n: _on(gradients[n], device) for n in weights})
-    clock("load")
-    outlier_mats = None
-    if include_sparse:
-        outlier_mats = outliers_mod.remove_outliers(
-            w_dev, sensitivity=sensitivity,
-            outlier_config=outlier_thresholds, gradients=g_dev)
-    clock("outliers")
     out = {}
     for name, w in w_dev.items():
-        g = None if g_dev is None else g_dev[name]
-        lut, labels = _fit(w, g, bits, method, seed, structured)
-        clock("kmeans")
-        bias = None if biases is None or name not in biases else _on(
+        lut, labels = codebooks[name]
+        bias = None if biases is None or name not in biases else to_device(
             biases[name], device)
         out[name] = pack_linear(
             w, lut, labels=labels, bias=bias,
@@ -169,8 +201,7 @@ def quantize_model(
         for k, v in layer_p.items():
             if k in module_names:
                 continue
-            param_d[k] = ({kk: _host(vv) for kk, vv in v.items()}
-                          if isinstance(v, dict) else _host(v))
+            param_d[k] = to_host(v)
         for name, (qspec, qparams) in q.items():
             spec_d[name] = LinearSpec(in_features=qspec.in_features,
                                       out_features=qspec.out_features,
@@ -181,15 +212,14 @@ def quantize_model(
         if verbose:
             print(f"quantized layer {li + 1}/{n_layers}")
 
-    params = {k: ({kk: _host(vv) for kk, vv in v.items()}
-                  if isinstance(v, dict) else _host(v))
-              for k, v in dense_params.items() if k != "layers"}
+    params = {k: to_host(v) for k, v in dense_params.items()
+              if k != "layers"}
     head_w = dense_params["lm_head"]["w"]
     lm_head_spec = LinearSpec(in_features=head_w.shape[1],
                               out_features=head_w.shape[0])
     if quantize_lm_head:
         clock = _Stages(stats, device)
-        w = _on(head_w, device)
+        w = to_device(head_w, device)
         clock("load")
         lut, labels = _fit(w, None, bits, method, 0, structured)
         clock("kmeans")

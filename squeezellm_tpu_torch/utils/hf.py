@@ -1,12 +1,19 @@
-"""Dense HF checkpoints: the input of ``fisher`` and ``quantize``.
+"""Dense HF checkpoints, the input of ``fisher``, ``quantize``, ``chunk``
+and ``pack``, and the model directory's tokenizer.
 
-The port of the JAX package's ``utils/hf.py`` (state dict loading). A
+The port of the JAX package's ``utils/hf.py``. A
 model directory holds ``config.json`` and its weights as ``*.safetensors``
 or ``pytorch_model*.bin`` (``*.pt``). The ``.bin`` files go through
 ``torch.load`` (weights only); the safetensors files are read here
 directly, since the machine with the card has no ``safetensors`` package:
 an 8-byte little-endian header length, a JSON header naming each tensor's
 dtype, shape and byte range, then the raw little-endian bytes.
+
+The tokenizer is read from the files a model family ships: XGen's
+``gpt2.tiktoken`` / ``encoder.json`` through the port's own
+:class:`~squeezellm_tpu_torch.utils.xgen_tokenizer.XgenTokenizer`, every
+other family's through ``transformers.AutoTokenizer`` (imported at first
+use). The repository's ``models/`` directories hold ``config.json`` only.
 """
 
 from __future__ import annotations
@@ -76,3 +83,37 @@ def load_dense_model(model_dir: str,
         config, sd, dtype)
     return model_type, config, params
 
+
+# the tokenizer files of each family, any one of which makes a tokenizer
+TOKENIZER_FILES = ("tokenizer.model", "tokenizer.json", "vocab.json",
+                   "gpt2.tiktoken", "encoder.json")
+
+
+def has_tokenizer(model_dir: str) -> bool:
+    return any(os.path.exists(os.path.join(model_dir, f))
+               for f in TOKENIZER_FILES)
+
+
+def load_tokenizer(model_dir: str):
+    """The model directory's tokenizer: XGen's assets through the port's
+    byte-level BPE, others through ``transformers.AutoTokenizer``; a
+    directory without assets raises a FileNotFoundError naming the files
+    each family needs."""
+    if any(os.path.exists(os.path.join(model_dir, f))
+           for f in ("gpt2.tiktoken", "encoder.json")):
+        from squeezellm_tpu_torch.utils.xgen_tokenizer import XgenTokenizer
+
+        return XgenTokenizer.from_assets(model_dir)
+    if not has_tokenizer(model_dir):
+        raise FileNotFoundError(
+            f"no tokenizer assets in {model_dir!r}. The models/ zoo ships "
+            "config.json only (tokenizer files are download-blocked and "
+            "license-encumbered — see models/README.md): drop in "
+            "tokenizer.model (llama/vicuna/mistral), vocab.json + "
+            "merges.txt (opt), or gpt2.tiktoken/encoder.json (xgen) from "
+            "the family's HF repo. Token-ID workflows (quantize, "
+            "benchmark, serve-bench, prompt_tokens) need no tokenizer.")
+    from transformers import AutoTokenizer
+
+    return AutoTokenizer.from_pretrained(model_dir, use_fast=False,
+                                         trust_remote_code=True)
