@@ -20,7 +20,8 @@ checking after each that it went through its kernels:
 * Engine(cache_dtype="int8") on the w4 model: a request and the decode
   benchmark beside the bf16-cache one (K5);
 * OPT-6.7B w4: one eval group and one greedy request (K2 without rope);
-* serving.PagedContinuousBatchEngine on the w4 model, 8 slots over a pool
+* serving.PagedContinuousBatchEngine on a w4 model of SERVE_LAYERS layers
+  (16 of 32), 8 slots over a pool
   of 160 pages of 128 rows: 16 requests with a shared 256-token prefix
   through run() by single steps, decode windows, prompt-lookup speculation
   and sampling (K6, K8, K3 with a start), sampled in bf16 and admitted in
@@ -28,11 +29,12 @@ checking after each that it went through its kernels:
   bf16 and int8 pools (K7, K9), then with transposed words attached: eight
   f32 requests against the plain path and the bf16 step profiled (K11,
   K12);
-* serving.ContinuousBatchEngine on the w4 model, 8 slots of a 512-row dense
+* serving.ContinuousBatchEngine on a w4 model of SERVE_LAYERS layers, 8
+  slots of a 512-row dense
   cache, the same 16 requests: f32 greedy by steps, windows, speculation
   and the plain path (K1, K2, K3; K4 where six 300-token prompts are
   admitted together), bf16 sampled admitted in reverse, the int8 cache
-  (K5), one bf16 decode step at 8 slots held to 129 K1 (GEMV) and 32 K2
+  (K5), one bf16 decode step at 8 slots held to 4L+1 K1 (GEMV) and L K2
   launches, the step's host and device time beside the paged engine's;
   then server.serve over the bf16 engine answering eight concurrent HTTP
   completions (greedy answers held to a fresh engine's run()), and the
@@ -55,7 +57,17 @@ checking after each that it went through its kernels:
   request against the plain path (K1, K2, K3);
 * a structured w4 LLaMA-2-7B at full depth: a request and the bf16 decode
   benchmark through K10, the benchmark again with the structured table
-  withheld (K1), then with transposed words attached (K11 and K12).
+  withheld (K1), then with transposed words attached (K11 and K12);
+* tensor parallelism (``run_tp``): two ranks, one process each
+  (``parallel.multihost.launch``), sharing card 0 over gloo (steps eager)
+  serve LLaMA-2-7B w4 at full width and TP_LAYERS layers through
+  TPContinuousBatchEngine (f32 greedy against the TP plain path, bf16
+  sampled) and TPPagedContinuousBatchEngine (f32 and int8 pools, steps and
+  speculation: K6-K9); every rank's tokens equal, the f32 teacher-forced
+  logits held to the single-device engine's, each path's launches held to
+  its model calls, and each rank's bf16 decode step at 8 slots: its
+  launches and collectives, host and device time and the collectives'
+  share. K1 is also held and timed at the tp=2 local shapes.
 
 Every per-token step of Engine and of the paged engine runs as a CUDA
 graph captured once and replayed (``squeezellm_tpu_torch/graphs.py``); the
@@ -207,6 +219,20 @@ PAGED_AT_ROWS = 1024
 # whose rounding differs)
 DENSE_MAX_SEQ = 512
 SERVE_LENS = (16, 23, 37, 50, 64, 77, 90, 100)
+# tensor parallel: TP ranks, one process each, sharing card 0 over gloo,
+# serve LLaMA-2-7B w4 at full width and TP_LAYERS layers (the depth cut for
+# the run's time limit), TP_NEW new tokens a request of the paged phase's
+# 16; K1 is also held at the tp=2 local shapes (out, in; launches a rank's
+# decode step at full depth)
+TP, TP_LAYERS, TP_NEW, TP_SEED = 2, 8, 16, 13
+# the paged and dense-slot serving phases: LLaMA-2-7B at full width and
+# this depth, cut from 32 for the run's time limit (each of their runs
+# costs the same per layer)
+SERVE_LAYERS = 16
+K1_TP_SHAPES = (("qkv/2", 6144, 4096, 32), ("o/2", 4096, 2048, 32),
+                ("gateup/2", 11008, 4096, 32), ("down/2", 4096, 5504, 32),
+                ("lm_head/2", 16000, 4096, 1))
+K1_TP_ROWS = (1, 8)
 
 
 def sh(cmd):
@@ -343,14 +369,21 @@ def print_host_device(label, cases, record):
     print(f"{label}, host against device: " + "; ".join(parts))
 
 
-def check_k1(torch, timer, record):
+def check_k1(torch, timer, record, shapes=K1_SHAPES, rows=K1_ROWS,
+             key="k1_detail", step_key="k1_per_decode_step", label="K1"):
+    """K1 against its plain version at ``shapes`` and ``rows`` (both
+    modes, w4 and w3), timed beside the plain version and the library's
+    matmul; the cases go to record[key], the per-decode-step sums at 1 and
+    8 rows to record[step_key]."""
+    record.setdefault(key, [])
+    record[step_key] = []
     from squeezellm_tpu_torch import synthetic
     from squeezellm_tpu_torch.ops import lut_matmul, plain_ops
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(11)
     worst, worst_rel = 0.0, {"exact": 0.0, "bf16": 0.0}
-    for name, out_f, in_f, per_step in K1_SHAPES:
+    for name, out_f, in_f, per_step in shapes:
         for bits in (4, 3):
             sp = 0.0 if name == "lm_head" else 0.0045
             t = synthetic.random_quant_linear(gen, dev, out_f, in_f, bits, sp,
@@ -364,7 +397,7 @@ def check_k1(torch, timer, record):
             # weight, in the mode's operand type
             w32 = plain_ops.dequantize(t["qweight"], t["lut"], bits, in_f)
             lib_w = {"exact": w32, "bf16": w32.to(torch.bfloat16)}
-            for M in K1_ROWS:
+            for M in rows:
                 for mode in ("exact", "bf16"):
                     dt = torch.bfloat16 if mode == "bf16" else torch.float32
                     x = torch.randn(M, in_f, generator=gen, device=dev).to(dt)
@@ -433,36 +466,39 @@ def check_k1(torch, timer, record):
                             lambda: lut_matmul.lut_matmul(*args, y0=y0,
                                                           mode=mode,
                                                           variant="gemv"))
-                    record["k1_detail"].append(row)
+                    record[key].append(row)
             del t, w32, lib_w
-    print("  K1 ms (bound by b=bytes/o=operations, plain, library matmul)")
-    for r in record["k1_detail"]:
+    print(f"  {label} ms (bound by b=bytes/o=operations, plain, library "
+          f"matmul)")
+    for r in record[key]:
         if r["mode"] == "exact":
             continue
-        e = next(q for q in record["k1_detail"] if q["mode"] == "exact"
+        e = next(q for q in record[key] if q["mode"] == "exact"
                  and all(q[k] == r[k] for k in ("shape", "bits", "M")))
-        print(f"  K1 {r['shape']:8s} w{r['bits']} M={r['M']:3d} " + "  ".join(
+        print(f"  {label} {r['shape']:8s} w{r['bits']} M={r['M']:3d} "
+              + "  ".join(
             f"{q['mode']} {q['ms']:.4f} ({q['bound_ms']:.4f}"
             f"{q['bound_by'][0]}, {q['plain_ms']:.3f}, {q['library_ms']:.4f}"
             f", {q['variant']})" for q in (r, e)) + (
             f"  no sidecar bf16 {r['ms_no_sidecar']:.4f} exact "
             f"{e['ms_no_sidecar']:.4f}" if "ms_no_sidecar" in r else ""))
-    for M in (1, 8):
+    for M in (m for m in (1, 8) if m in rows):
         for bits in (4, 3):
             for mode in ("bf16", "exact"):
-                rows = [r for r in record["k1_detail"] if r["M"] == M
-                        and r["bits"] == bits and r["mode"] == mode]
-                step = {k: sum(r[k] * r["launches_per_step"] for r in rows)
+                sel = [r for r in record[key] if r["M"] == M
+                       and r["bits"] == bits and r["mode"] == mode]
+                step = {k: sum(r[k] * r["launches_per_step"] for r in sel)
                         for k in ("ms", "bound_ms", "library_ms")}
-                record["k1_per_decode_step"].append(dict(bits=bits, mode=mode,
-                                                         M=M, **step))
-                print(f"  K1 per decode step, {M} row(s), w{bits} {mode}: "
+                record[step_key].append(dict(bits=bits, mode=mode, M=M,
+                                             **step))
+                print(f"  {label} per decode step, {M} row(s), w{bits} "
+                      f"{mode}: "
                       f"{step['ms']:.3f} ms (bound {step['bound_ms']:.3f}, "
                       f"library {step['library_ms']:.3f})")
-    record["k1_max_abs_err"] = worst
+    record["k1_max_abs_err"] = max(worst, record.get("k1_max_abs_err", 0.0))
     flips = sum(f[3] for f in record["k1_bf16_flips"])
     total = sum(f[4] for f in record["k1_bf16_flips"])
-    print(f"K1 ok: {len(record['k1_detail'])} cases, each bit-equal across "
+    print(f"{label} ok: {len(record[key])} cases, each bit-equal across "
           f"two launches, max rel err {worst_rel} within {TOL_K1}, "
           f"max abs err {worst:.3g}; "
           f"bf16 mode: {flips} of {total} outputs round to another bf16 "
@@ -1220,12 +1256,18 @@ def expect_counts(record, path, want):
     from squeezellm_tpu_torch import graphs
 
     record["paths"].append({"path": path, "launches": got,
-                            "replayed": list(graphs.REPLAYED), "variants": {
-        "K1": dict(counters()[0].variant_launches),
-        "K10": dict(counters()[9].variant_launches),
-        "K3": dict(counters()[2].regime_launches),
-        "K12 copies of x": counters()[11].copy_launches}})
+                            "replayed": list(graphs.REPLAYED),
+                            "variants": variants()})
     return got
+
+
+def variants():
+    """The launches by device kernel (K1, K10), by regime (K3) and K12's
+    copies of x since the counts were reset."""
+    return {"K1": dict(counters()[0].variant_launches),
+            "K10": dict(counters()[9].variant_launches),
+            "K3": dict(counters()[2].regime_launches),
+            "K12 copies of x": counters()[11].copy_launches}
 
 
 def read_counts():
@@ -2393,8 +2435,9 @@ def profile_spec_window(torch, eng, prompts, windows=4):
 
 
 def run_paged(torch, config, record, smi):
-    """PagedContinuousBatchEngine on LLaMA-2-7B w4 at full width and depth:
-    8 slots over 160 pages of 128 rows."""
+    """PagedContinuousBatchEngine on LLaMA-2-7B w4 at full width and
+    SERVE_LAYERS layers (``config``): 8 slots over 160 pages of 128
+    rows."""
     from squeezellm_tpu_torch import serving, synthetic
     from squeezellm_tpu_torch.models import fuse
     from squeezellm_tpu_torch.sampling import SamplingParams
@@ -2651,7 +2694,8 @@ def run_paged(torch, config, record, smi):
 
 
 def run_dense_slots(torch, config, record, smi):
-    """ContinuousBatchEngine on LLaMA-2-7B w4 at full width and depth: 8
+    """ContinuousBatchEngine on LLaMA-2-7B w4 at full width and
+    SERVE_LAYERS layers (``config``): 8
     slots of a 512-row dense cache, the paged phase's 16 requests with 32
     new tokens each (300-token prompts admitted six at a time reach 1024
     rows: K4 and a library GEMM serve that prefill)."""
@@ -3698,6 +3742,257 @@ def print_long_profile(label, stats, record):
           + "; ".join(f"{k} {v:.3f}" for k, v in prof["top_ms_per_step"]))
 
 
+def tp_expect(eng, L, rows):
+    """The launches K1..K12 of a serving run on one rank's fused local
+    model, from the engine's own count of model calls: each call runs 4L+1
+    linears (K4 instead for a layer's four at a prefill of 1024 rows or
+    more), each prefill L K3s, each decode step L dense (K2/K5) or paged
+    (K6/K7) attentions, each verify window L K8/K9 over a page pool."""
+    from squeezellm_tpu_torch.models import common
+
+    st, want = eng.stats, [0] * 12
+    if eng.plain:
+        return want
+    big = sum(n >= 1024 for n in rows)
+    want[0] = ((4 * L + 1) * (len(rows) + st["decode_steps"]
+                              + st["spec_windows"]) - 4 * L * big)
+    want[2], want[3] = L * len(rows), 4 * L * big
+    paged = hasattr(eng, "pool")
+    q8 = eng.pool.quantized if paged else common.is_int8(eng.cache_dtype)
+    want[(6 if q8 else 5) if paged else (4 if q8 else 1)] = (
+        L * st["decode_steps"])
+    if paged:
+        want[8 if q8 else 7] = L * st["spec_windows"]
+    return want
+
+
+def tp_rank(rank, config_dict, prompts, ids):
+    """One rank of the tensor-parallel phase (``parallel.multihost.launch``
+    runs it in its own process, on card 0 over gloo): the same full-width
+    model as every rank (seed TP_SEED), served through the TP engines, each
+    path's launches held to the engine's count of model calls. Returns
+    each path's tokens, launches and stats, the teacher-forced logits, and
+    the bf16 decode step's counts and times."""
+    import numpy as np
+    import torch
+
+    from squeezellm_tpu_torch import engine, serving, synthetic
+    from squeezellm_tpu_torch.models import llama
+    from squeezellm_tpu_torch.sampling import SamplingParams
+
+    cfg = llama.LlamaConfig(**config_dict)
+    L = cfg.n_layers
+    model = synthetic.quantized_llama(cfg, 4, seed=TP_SEED)
+    out = {"paths": {}, "tokens": {}}
+    f32 = dict(dtype=torch.float32, cache_dtype=torch.float32)
+    bf16 = dict(dtype=torch.bfloat16, cache_dtype=torch.bfloat16,
+                mode="bf16")
+
+    def serve(label, paged=False, sampling=None, **kw):
+        cls = (serving.TPPagedContinuousBatchEngine if paged
+               else serving.TPContinuousBatchEngine)
+        extra = (dict(n_pages=PAGED_PAGES, page_size=PAGE_SIZE,
+                      max_seq=PAGED_MAX_SEQ) if paged
+                 else dict(max_seq=DENSE_MAX_SEQ))
+        eng = cls(model, tp=TP, fuse=True, slots=PAGED_SLOTS, graphs=False,
+                  **extra, **kw)
+        rows = []
+        prefill = eng._prefill
+
+        def counted(tokens, dense, start):
+            rows.append(tokens.numel())
+            prefill(tokens, dense, start)
+
+        eng._prefill = counted
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.run(prompts, max_new_tokens=TP_NEW, sampling=sampling)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got, want = read_counts(), tp_expect(eng, L, rows)
+        if got != want:
+            raise AssertionError(f"rank {rank} tp {label}: launches "
+                                 f"K1..K12 {got} != {want}")
+        out["paths"][label] = dict(launches=got, variants=variants(),
+                                   seconds=secs, stats=dict(eng.stats),
+                                   prefill_rows=rows)
+        out["tokens"][label] = {r: [int(t) for t in v]
+                                for r, v in res.items()}
+        return eng
+
+    with torch.no_grad():
+        eng = serve("dense f32", **f32)
+        tf = engine.Engine(eng.model, graphs=False).teacher_forced_logits(
+            ids, max_seq=BENCH_TOKENS)
+        out["tf_logits"] = tf.cpu().numpy()
+        del eng
+        serve("dense f32 plain", plain=True, **f32)
+        serve("dense bf16 sampled", sampling=SamplingParams(
+            temperature=SAMPLED["temperature"], top_k=SAMPLED["top_k"],
+            top_p=SAMPLED["top_p"]), seed=SAMPLED["seed"], **bf16)
+        for pool in ("f32", "int8"):
+            kw = dict(f32, cache_dtype=torch.float32 if pool == "f32"
+                      else "int8")
+            serve(f"paged {pool}", paged=True, **kw)
+            serve(f"paged {pool} speculative", paged=True,
+                  speculative=SPECULATIVE, **kw)
+
+        # one bf16 decode step at 8 slots: its launches and collectives,
+        # its host and device time, and the host time inside collectives
+        eng = serving.TPContinuousBatchEngine(
+            model, tp=TP, fuse=True, slots=PAGED_SLOTS,
+            max_seq=DENSE_MAX_SEQ, graphs=False, **bf16)
+        tp = eng.model.tp
+        eng.add_requests(prompts[:PAGED_SLOTS], 64)
+        for _ in range(3):
+            eng.step()
+        reset_counts()
+        calls = dict(tp.counts)
+        eng.step()
+        step = dict(launches=read_counts(), collectives={
+            k: tp.counts[k] - calls[k] for k in calls})
+        want = [4 * L + 1, L] + [0] * 10
+        if (step["launches"] != want or step["collectives"]
+                != {"all_reduce": 2 * L, "gather": 1}):
+            raise AssertionError(f"rank {rank} tp bf16 decode step: {step}")
+        steps = 8
+
+        def run_steps():
+            for _ in range(steps):
+                eng.step()
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_steps()
+        torch.cuda.synchronize()
+        step["host_ms"] = (time.perf_counter() - t0) / steps * 1e3
+        tp.timed, tp.seconds = True, 0.0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_steps()
+        torch.cuda.synchronize()
+        timed = time.perf_counter() - t0
+        tp.timed = False
+        step["host_ms_timed"] = timed / steps * 1e3
+        step["collective_share"] = tp.seconds / timed
+        by_name, why = device_ms_by_kernel(torch, run_steps)
+        step["device_ms"] = (None if by_name is None
+                             else sum(by_name.values()) / steps)
+        step["profile_failed"] = why
+        out["bf16_step"] = step
+        out["tp_layers"] = L
+    return out
+
+
+def run_tp(torch, config, record, smi):
+    """Tensor parallelism on the card: TP ranks (processes) share card 0
+    over gloo (NCCL refuses two ranks on one device) and serve LLaMA-2-7B
+    w4 at full width, TP_LAYERS layers, with a 0.45% sidecar, top-X 10 and
+    a quantized lm_head (``tp_rank``). Held: every rank's tokens equal the
+    others', the f32 greedy tokens equal the TP engine's plain path, the
+    f32 teacher-forced logits lie within TOL_TF_EXACT of max |logit| of the
+    single-device engine's (through the kernels), speculation keeps the
+    greedy tokens, and every path's launches match its model calls.
+    Reported: the share of TP greedy tokens equal to the single-device
+    engine's, and each rank's bf16 decode step."""
+    import dataclasses
+
+    import numpy as np
+
+    from squeezellm_tpu_torch import engine, serving, synthetic
+    from squeezellm_tpu_torch.models import fuse
+    from squeezellm_tpu_torch.parallel import multihost
+
+    cfg = dataclasses.replace(config, n_layers=TP_LAYERS)
+    L = cfg.n_layers
+    prompts = paged_requests(cfg)
+    ids = (np.arange(16, dtype=np.int64)[None] * 7919) % cfg.vocab_size
+    if torch.cuda.device_count() < TP:
+        print(f"tensor parallel: {torch.cuda.device_count()} card, so the "
+              f"NCCL path with graphed steps (a card a rank) did not run; "
+              f"{TP} ranks share card 0 over gloo, steps eager")
+    # the single-device reference, made and freed before the ranks start
+    t0 = time.perf_counter()
+    model = fuse.fuse_for_decode(synthetic.quantized_llama(cfg, 4,
+                                                           seed=TP_SEED))
+    single = serving.ContinuousBatchEngine(
+        model, slots=PAGED_SLOTS, max_seq=DENSE_MAX_SEQ,
+        cache_dtype=torch.float32).run(prompts, max_new_tokens=TP_NEW)
+    single_tf = engine.Engine(model).teacher_forced_logits(
+        ids, max_seq=BENCH_TOKENS).cpu().numpy()
+    del model
+    torch.cuda.empty_cache()
+    t_single = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = multihost.launch(tp_rank, TP, args=(
+        dataclasses.asdict(cfg), prompts, ids), device="cuda",
+        join_timeout_s=900)
+    t_ranks = time.perf_counter() - t0
+    res = {"layers": L, "backend": multihost.backend_for("cuda", TP),
+           "single_s": t_single, "ranks_s": t_ranks, "by_rank": []}
+    for r, got in enumerate(ranks):
+        if got["tokens"] != ranks[0]["tokens"]:
+            bad = [k for k in got["tokens"]
+                   if got["tokens"][k] != ranks[0]["tokens"][k]]
+            raise AssertionError(f"tp: rank {r}'s tokens differ from rank "
+                                 f"0's in {bad}")
+        if not np.array_equal(got["tf_logits"], ranks[0]["tf_logits"]):
+            raise AssertionError(f"tp: rank {r}'s logits differ from rank 0's")
+    tok = ranks[0]["tokens"]
+    hold_equal("tp dense f32: kernels vs plain", tok["dense f32"],
+               tok["dense f32 plain"])
+    for pool in ("f32", "int8"):
+        hold_equal(f"tp paged {pool}: speculative vs steps",
+                   tok[f"paged {pool} speculative"], tok[f"paged {pool}"])
+    tf = ranks[0]["tf_logits"]
+    res["tf_rel_err"] = float(np.abs(tf - single_tf).max()
+                              / np.abs(single_tf).max())
+    if not (np.isfinite(tf).all() and res["tf_rel_err"] <= TOL_TF_EXACT):
+        raise AssertionError(f"tp f32 teacher-forced logits vs single "
+                             f"device: rel err {res['tf_rel_err']}")
+    same = sum(a == b for rid in single for a, b in zip(
+        tok["dense f32"][rid], single[rid]))
+    res["greedy_equal_share"] = same / sum(len(v) for v in single.values())
+    for r, got in enumerate(ranks):
+        for label, p in got["paths"].items():
+            record["paths"].append({"path": f"tp rank {r} {label}",
+                                    "launches": p["launches"],
+                                    "replayed": [0] * 12,
+                                    "variants": p["variants"]})
+        res["by_rank"].append({"paths": got["paths"],
+                               "bf16_step": got["bf16_step"]})
+    p0 = ranks[0]["paths"]
+    print(f"tp={TP} ({res['backend']}, ranks sharing card 0, steps eager) "
+          f"on LLaMA-2-7B w4 at full width, {L} layers: "
+          f"{len(prompts)} requests of {TP_NEW} new tokens a path; every "
+          f"rank's tokens identical; f32 greedy identical to the TP plain "
+          f"path; paged speculation identical to its steps (f32 and int8 "
+          f"pools); f32 teacher-forced logits (16 steps) rel err "
+          f"{res['tf_rel_err']:.3g} against the single-device engine "
+          f"(limit {TOL_TF_EXACT}); {res['greedy_equal_share']:.3f} of the "
+          f"f32 greedy tokens equal the single-device engine's (reported) "
+          f"[{smi}]")
+    for label, p in p0.items():
+        print(f"  tp rank 0 {label}: {p['seconds']:.2f} s, launches K1..K12 "
+              f"{p['launches']}, {p['stats']}")
+    for r, got in enumerate(ranks):
+        st = got["bf16_step"]
+        dev = ("not measured (" + st["profile_failed"] + ")"
+               if st["device_ms"] is None else f"{st['device_ms']:.3f} ms")
+        print(f"tp rank {r} bf16 decode step at {PAGED_SLOTS} slots: "
+              f"launches K1..K12 {st['launches']} (K1 {4 * L + 1} = 4 x {L} "
+              f"layers + lm_head, K2 {L}), collectives {st['collectives']} "
+              f"(2 a layer + the vocab gather); host {st['host_ms']:.3f} ms "
+              f"a step, device {dev}; with each collective timed (synced "
+              f"before and after) {st['host_ms_timed']:.3f} ms, of it "
+              f"{st['collective_share']:.3f} inside collectives [{smi}]")
+    print(f"tp: two ranks time-sharing one card measure correctness and "
+          f"host cost, not tensor-parallel speed; single-device reference "
+          f"{t_single:.1f} s, ranks {t_ranks:.1f} s")
+    record["tp"] = res
+
+
 def kernel_lines(record):
     """One entry per kernel: its time at one main-path decode/prefill shape
     (named in "at"); every shape's numbers are in build/chip_smoke.json."""
@@ -3868,6 +4163,8 @@ def ptxas_lines(source):
 
 
 def main():
+    import dataclasses
+
     import torch
 
     if not torch.cuda.is_available():
@@ -3922,6 +4219,9 @@ def main():
     _, config = registry.load_config(os.path.join(HERE, "models",
                                                   "llama-2-7b"))
     phases = [("K1", lambda: check_k1(torch, timer, record)),
+              ("K1 at the tp=2 shapes", lambda: check_k1(
+                  torch, timer, record, K1_TP_SHAPES, K1_TP_ROWS,
+                  "k1_tp2_detail", "k1_tp2_per_decode_step", "K1 tp=2")),
               ("K1 crossover", lambda: check_k1_cross(torch, timer, record)),
               ("K2", lambda: check_k2(torch, timer, record)),
               ("K3", lambda: check_k3(torch, timer, record)),
@@ -3934,10 +4234,13 @@ def main():
                ("K12", lambda: check_k12(torch, timer, record))]
     phases += [(f"model w{b}", lambda b=b: run_model(torch, config, b, record))
                for b in (4, 3)]
+    serve_cfg = dataclasses.replace(config, n_layers=SERVE_LAYERS)
+    print(f"serving phases: LLaMA-2-7B at full width, {SERVE_LAYERS} of "
+          f"{config.n_layers} layers (cut for the run's time limit)")
     phases += [("paged serving",
-                lambda: run_paged(torch, config, record, smi)),
+                lambda: run_paged(torch, serve_cfg, record, smi)),
                ("dense-slot serving",
-                lambda: run_dense_slots(torch, config, record, smi)),
+                lambda: run_dense_slots(torch, serve_cfg, record, smi)),
                ("opt-6.7b w4", lambda: run_opt(torch, record)),
                ("dense bf16", lambda: run_dense(torch, config, record)),
                ("quantize on the card",
@@ -3945,7 +4248,9 @@ def main():
                ("convert", lambda: run_convert(torch, config, record)),
                ("staged", lambda: run_staged(torch, config, record)),
                ("structured and transposed w4",
-                lambda: run_structured(torch, config, record, smi))]
+                lambda: run_structured(torch, config, record, smi)),
+               ("tensor parallel", lambda: run_tp(torch, config, record,
+                                                  smi))]
     for name, fn in phases:
         t0 = time.perf_counter()
         try:

@@ -18,9 +18,10 @@
   generate   greedy or sampled generation from comma-separated prompt token
              ids, or greedy with prompt-lookup or draft-model speculation
   serve-bench  continuous-batching throughput and latency over random
-             prompts: the dense-slot engine, or ``--paged``
+             prompts: the dense-slot engine, or ``--paged``; ``--tp N``
+             serves N tensor-parallel ranks
   serve      the HTTP front end (``/v1/completions``, ``/health``) over
-             either engine
+             either engine, ``--tp N`` as serve-bench's
 
 ``quantize``, ``fisher``, the staged commands (chunk -> outlier-config ->
 nuq -> pack) and ``convert`` take the JAX package's arguments (``--model``
@@ -34,8 +35,18 @@ needs tokenizer files in that directory. Every command takes ``--device``
 (default ``cuda``). ``--mode exact`` runs f32 throughout; ``--mode bf16``
 the flagship regime (bf16 activations and cache, bf16-rounded LUT and x
 with f32 accumulation). The counterpart of the JAX package's ``cli.py``
-commands of the same names; only tensor-parallel serving (``--tp`` above
-1) is not ported.
+commands of the same names.
+
+``serve-bench --tp N`` and ``serve --tp N`` (N above 1) run N ranks, one
+process each: under torchrun (WORLD_SIZE = N in the environment) each
+process is a rank; otherwise the command starts the N ranks itself
+(``parallel.multihost.launch``; the kernels are built once first). Every
+rank loads the same model and serves its shards through
+``serving.TPContinuousBatchEngine`` (``--paged``:
+``TPPagedContinuousBatchEngine``); rank 0 alone prints. The collective
+backend follows ``parallel.multihost.backend_for``: NCCL and graphed steps
+with a card a rank, gloo and eager steps for ranks that share one card or
+the CPU; the JSON names both.
 """
 
 from __future__ import annotations
@@ -43,6 +54,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 
 import numpy as np
 import torch
@@ -72,9 +84,14 @@ def _load_model(args, path=None):
         make = (synthetic.quantized_opt if model_type == "opt"
                 else synthetic.quantized_llama)
         model = make(config, args.wbits, seed=args.seed, device=args.device)
-    if getattr(args, "fuse", False):
+    # a tensor-parallel engine shards the unfused model and fuses its shards
+    if getattr(args, "fuse", False) and _tp(args) <= 1:
         fuse.fuse_for_decode(model)
     return model
+
+
+def _tp(args) -> int:
+    return getattr(args, "tp", 0) or 0
 
 
 def _is_text(dataset: str) -> bool:
@@ -119,22 +136,47 @@ def _engine(args, model):
 def _build_serving_engine(args, model):
     """The engine of serve-bench and serve: the dense-slot one, or the
     paged one with --paged (a pool of ceil(seqlen / page size) pages a
-    slot), with speculation and chunked admission as asked."""
+    slot), with speculation and chunked admission as asked; with --tp N
+    above 1 their tensor-parallel forms on this rank (the JAX CLI's ladder:
+    ``main`` keeps an int8 dense cache to one device), graphed when the
+    group's backend can be captured (NCCL)."""
+    import torch.distributed as dist
+
     from squeezellm_tpu_torch import serving
 
-    if args.tp > 1:
-        raise SystemExit("--tp above 1: tensor-parallel serving is not "
-                         "ported yet (ROADMAP, queue 1, tensor parallel)")
+    tp = _tp(args)
     dtype, cache = _dtypes(args)
     kw = dict(slots=args.slots, dtype=dtype, cache_dtype=cache,
               mode=args.mode, max_seq=args.seqlen, seed=args.seed,
               speculative=tuple(args.speculative) if args.speculative
               else None, prefill_chunk=args.prefill_chunk)
+    if tp > 1:
+        kw.update(tp=tp, fuse=args.fuse,
+                  graphs=dist.get_backend() == "nccl")
     if args.paged:
-        return serving.PagedContinuousBatchEngine(
-            model, page_size=args.page_size,
-            n_pages=-(-args.seqlen // args.page_size) * args.slots, **kw)
-    return serving.ContinuousBatchEngine(model, **kw)
+        cls = (serving.TPPagedContinuousBatchEngine if tp > 1
+               else serving.PagedContinuousBatchEngine)
+        return cls(model, page_size=args.page_size,
+                   n_pages=-(-args.seqlen // args.page_size) * args.slots,
+                   **kw)
+    cls = (serving.TPContinuousBatchEngine if tp > 1
+           else serving.ContinuousBatchEngine)
+    return cls(model, **kw)
+
+
+def _tp_fields(args) -> dict:
+    """The JSON fields of a tensor-parallel run: ranks, backend, graphs."""
+    if _tp(args) <= 1:
+        return {}
+    import torch.distributed as dist
+
+    backend = dist.get_backend()
+    return {"tp": _tp(args), "backend": backend, "graphs": backend == "nccl"}
+
+
+def _tp_rank(rank: int, argv) -> None:
+    """One rank of a ``--tp`` command that started its own ranks."""
+    main(argv)
 
 
 def cmd_quantize(args):
@@ -280,6 +322,8 @@ def cmd_serve_bench(args):
     each request's time to first token and to completion."""
     import time
 
+    from squeezellm_tpu_torch.parallel import multihost
+
     model = _load_model(args)
     eng = _build_serving_engine(args, model)
     rng = np.random.default_rng(args.seed)
@@ -321,8 +365,10 @@ def cmd_serve_bench(args):
     def pct(xs, p):
         return round(xs[min(len(xs) - 1, int(p * len(xs)))], 4) if xs else None
 
+    if not multihost.is_primary():
+        return
     print(json.dumps({
-        "engine": type(eng).__name__,
+        "engine": type(eng).__name__, **_tp_fields(args),
         "requests": args.requests, "slots": args.slots,
         "total_tokens": total, "elapsed_s": round(dt, 3),
         "throughput_tok_s": round(total / dt, 2),
@@ -335,15 +381,24 @@ def cmd_serve_bench(args):
 def cmd_serve(args):
     import time
 
+    import torch.distributed as dist
+
     from squeezellm_tpu_torch import server
 
     model = _load_model(args)
     eng = _build_serving_engine(args, model)
+    # tensor parallel: rank 0 serves HTTP and sends every engine call to
+    # the other ranks over a gloo group, which follow it
+    control = dist.new_group(backend="gloo") if _tp(args) > 1 else None
+    if control is not None and dist.get_rank() != 0:
+        server.follow(eng, control)
+        return
     httpd = server.serve(eng, host=args.host, port=args.port,
-                         window=args.window)
+                         window=args.window, control=control)
     print(json.dumps({"listening": f"http://{args.host}:"
                                    f"{httpd.server_port}",
-                      "slots": args.slots, "paged": args.paged}),
+                      "slots": args.slots, "paged": args.paged,
+                      **_tp_fields(args)}),
           flush=True)
     try:
         while True:
@@ -548,8 +603,10 @@ def main(argv=None):
                         help="admit long prompts N tokens an engine step, "
                              "interleaved with decode")
         sp.add_argument("--tp", type=int, default=0,
-                        help="tensor-parallel degree (not ported: above 1 "
-                             "is refused)")
+                        help="tensor-parallel serving over N ranks, one "
+                             "process each (Megatron column/row-parallel "
+                             "linears, KV heads split); started by the "
+                             "command, or by torchrun")
 
     sb = sub.add_parser("serve-bench",
                         help="continuous-batching throughput benchmark")
@@ -592,5 +649,45 @@ def main(argv=None):
     g.add_argument("--ngram", type=int, default=2)
     g.set_defaults(fn=cmd_generate)
 
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = p.parse_args(argv)
+    tp = _tp(args)
+    if tp > 1:
+        if args.kv_dtype == "int8" and not args.paged:
+            raise SystemExit("--kv-dtype int8 on the dense engine is single-"
+                             "device only (use --paged for tensor-parallel "
+                             "int8 KV)")
+        if not _join_ranks(args, argv, tp):
+            return
     args.fn(args)
+
+
+def _join_ranks(args, argv, tp: int) -> bool:
+    """Make this process a rank of a ``--tp`` command: under torchrun join
+    its group (True: go on); otherwise start the ``tp`` ranks, which run
+    the command themselves, and wait for them (False: done)."""
+    import torch.distributed as dist
+
+    from squeezellm_tpu_torch.parallel import multihost
+
+    if dist.is_initialized():  # a rank this command started
+        return True
+    backend = multihost.backend_for(args.device, tp)
+    if os.environ.get("WORLD_SIZE"):
+        multihost.initialize(backend=backend)
+        if dist.get_world_size() != tp:
+            raise SystemExit(f"--tp {tp} under a group of "
+                             f"{dist.get_world_size()} ranks")
+        dev = multihost.rank_device(args.device, dist.get_rank(), backend)
+        if dev.type == "cuda":
+            torch.cuda.set_device(dev)
+        return True
+    if torch.device(args.device).type == "cuda":
+        from squeezellm_tpu_torch import _build
+
+        _build.build()  # once, before the ranks load it
+    try:
+        multihost.launch(_tp_rank, tp, args=(argv,), device=args.device)
+    except KeyboardInterrupt:  # serve's end: the launcher stops the ranks
+        pass
+    return False

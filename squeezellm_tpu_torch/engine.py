@@ -30,6 +30,7 @@ import torch
 from torch import nn
 
 from squeezellm_tpu_torch import graphs, sampling, serving
+from squeezellm_tpu_torch.graphs import check_capturable
 from squeezellm_tpu_torch.models import common
 
 WARMUP_STEPS = 3
@@ -82,7 +83,10 @@ class Engine:
     its linears through K1/K10's GEMV, as a decode step (False: the mode's
     kernel, the tensor cores in bf16 mode). The Engine runs
     the model as it is given; fusing q|k|v and gate|up is the loader's or
-    caller's step (``models.fuse.fuse_for_decode``)."""
+    caller's step (``models.fuse.fuse_for_decode``). A tensor-parallel
+    shard (``parallel.tp.shard_model``) runs too, every rank making the
+    same calls, its cache over the rank's kv heads; its steps are captured
+    only over NCCL (``graphs.check_capturable``)."""
 
     def __init__(self, model, *, dtype=torch.float32,
                  cache_dtype=torch.float32, mode: str = "exact",
@@ -97,6 +101,8 @@ class Engine:
         self.graphs = graphs
         self.window_gemv = window_gemv
         self.device = model.device
+        if graphs and not plain:
+            check_capturable(model)
         self.spec_stats: Dict[str, int] = {}
         self._state = None  # (key, buffers, step programs)
 
@@ -118,7 +124,7 @@ class Engine:
     def new_cache(self, batch: int = 1, max_seq: Optional[int] = None):
         c = self.config
         return common.init_kv_cache(batch, self._rows(max_seq), c.n_layers,
-                                    c.n_kv_heads, c.head_dim,
+                                    common.kv_heads(self.model), c.head_dim,
                                     self.cache_dtype, self.device)
 
     def release(self) -> None:

@@ -16,6 +16,14 @@ On a CPU device, or with ``capture=False`` (an engine made with
 ``graphs=False``), every call runs the body eagerly over the same buffers:
 the same steps, with no capture. On a CUDA device a failed capture raises.
 
+Tensor parallelism. A step of a tensor-parallel shard (``model.tp``)
+runs its collectives inside the body. On an NCCL group they are captured
+with it: the warm-up call runs them for real first (it creates the NCCL
+communicator), then the capture records them on the capture stream. Gloo
+cannot be captured, so :func:`check_capturable`, which the engines call
+before they capture, raises for a gloo group on a CUDA device: such a
+group's steps run with ``graphs=False``.
+
 Launch counts. The kernel wrappers count their launches on the host
 (``lut_matmul.launches`` and the like), and a replay runs no Python. The
 warm-up runs the step for real, so its launches count as they happen; the
@@ -97,6 +105,20 @@ def add_counts(delta: Counts, sign: int = 1) -> None:
                 cur[k] = cur.get(k, 0) + sign * n
         else:
             setattr(fns[i], name, cur + sign * v)
+
+
+def check_capturable(model) -> None:
+    """Raise unless the steps of ``model`` can be captured: a tensor-
+    parallel shard whose collectives run over gloo on a CUDA device
+    cannot (module docstring). Asked for graphs, such an engine fails
+    here instead of quietly running eagerly."""
+    tp = getattr(model, "tp", None)
+    if (tp is not None and tp.backend != "nccl"
+            and model.device.type == "cuda"):
+        raise ValueError(
+            f"CUDA graphs need an NCCL group: this tensor-parallel shard's "
+            f"collectives run over {tp.backend}, which a graph cannot "
+            f"capture; pass graphs=False")
 
 
 class StepGraph:

@@ -1,5 +1,6 @@
 """Shared building blocks: linears (dense or LUT-quantized), norms, RoPE,
-attention with a preallocated token-major KV cache.
+attention with a preallocated token-major KV cache, and the two
+collectives of a tensor-parallel shard.
 
 The PyTorch counterpart of the JAX package's ``models/common.py``; the
 same functions under the same names, on tensors. The KV cache is updated
@@ -10,9 +11,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import time
 from typing import Dict, List, Optional
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from squeezellm_tpu_torch.ops import kv_quant
@@ -85,6 +88,85 @@ class Linear(nn.Module):
                 plain: bool = False, decode: bool = False) -> torch.Tensor:
         return apply_linear(self.spec, self.tensors(), x, mode=mode, y0=y0,
                             plain=plain, decode=decode)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: a shard's place and its two collectives
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass
+class TPGroup:
+    """Where a tensor-parallel shard of a model sits: rank ``rank`` of
+    ``size`` ranks whose collectives run on ``group`` (a
+    ``torch.distributed`` process group) over ``backend`` ("nccl" or
+    "gloo"). ``parallel.tp.shard_model`` sets one on the local model
+    (``model.tp``); every forward hands it to its layers in ``Step.tp``.
+
+    ``counts`` counts the collectives called, by kind ("all_reduce",
+    "gather"). With ``timed`` set, each collective first waits for the
+    device and then for itself, and ``seconds`` sums the time spent inside
+    them: a measurement's switch, off in serving (a replayed CUDA graph
+    runs no Python, so neither counts nor times its collectives)."""
+
+    rank: int
+    size: int
+    group: object
+    backend: str
+    counts: Dict[str, int] = dataclasses.field(
+        default_factory=lambda: {"all_reduce": 0, "gather": 0})
+    timed: bool = False
+    seconds: float = 0.0
+
+    def _run(self, kind: str, fn, t: torch.Tensor) -> None:
+        self.counts[kind] += 1
+        if not self.timed:
+            fn()
+            return
+        sync = (torch.cuda.synchronize if t.device.type == "cuda"
+                else (lambda: None))
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        self.seconds += time.perf_counter() - t0
+
+
+def all_reduce(y: torch.Tensor, tp: TPGroup) -> torch.Tensor:
+    """The sum of every rank's ``y`` (the partial outputs of a row-parallel
+    linear), in ``y``'s dtype, on every rank; in place."""
+    tp._run("all_reduce", lambda: dist.all_reduce(y, group=tp.group), y)
+    return y
+
+
+def gather_vocab(y: torch.Tensor, tp: TPGroup) -> torch.Tensor:
+    """A column-parallel lm_head's full logit rows (..., V) from every
+    rank's block (..., V / tp), rank r's block at columns r * V / tp on.
+    NCCL gathers (``all_gather_into_tensor``, rows concatenated rank by
+    rank). Over gloo each rank writes its block into a zero-filled
+    full-width buffer and the buffers are summed, which is exact: every
+    element is one rank's value plus zeros. Gloo's own gather of CUDA
+    tensors is not documented, and its output shapes differ between torch
+    versions; its all-reduce is the same everywhere."""
+    lead, vl = y.shape[:-1], y.shape[-1]
+    if tp.backend == "nccl":
+        rows = y.reshape(-1, vl).contiguous()
+        out = y.new_empty((tp.size * rows.shape[0], vl))  # rank-major rows
+        tp._run("gather", lambda: dist.all_gather_into_tensor(
+            out, rows, group=tp.group), y)
+        return (out.view(tp.size, -1, vl).transpose(0, 1)
+                .reshape(*lead, tp.size * vl))
+    full = y.new_zeros(*lead, tp.size, vl)
+    full[..., tp.rank, :] = y
+    tp._run("gather", lambda: dist.all_reduce(full, group=tp.group), y)
+    return full.reshape(*lead, tp.size * vl)
+
+
+def kv_heads(model) -> int:
+    """The KV heads whose cache this process holds: the config's, or
+    n_kv_heads / tp on a tensor-parallel shard (``model.tp``)."""
+    tp = getattr(model, "tp", None)
+    return model.config.n_kv_heads // (tp.size if tp else 1)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,

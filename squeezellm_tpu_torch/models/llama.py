@@ -13,6 +13,13 @@ quantized linear through K1
 there. ``plain=True`` runs each kernel's
 plain PyTorch version instead, whatever the device: the reference the
 kernels are held against on the card.
+
+A tensor-parallel shard (``parallel.tp.shard_model``) is the same model
+over its rank's linears, with ``model.tp`` set: the attention block takes
+its head counts from its linears' widths (head_dim stays the config's),
+the row-parallel o and down projections all-reduce their partial outputs
+before the residual joins (:func:`row_parallel`), and the lm_head gathers
+the vocab blocks, as the JAX package's ``axis_name=`` paths do.
 """
 
 from __future__ import annotations
@@ -145,6 +152,9 @@ class Step:
     # ``all_logits``) called with window_gemv: its rows in all, B * W; 0
     # for any other call
     window_rows: int = 0
+    # a tensor-parallel shard's place (``model.tp``): row-parallel outputs
+    # are all-reduced before the residual joins, the lm_head's gathered
+    tp: Optional[common.TPGroup] = None
 
     def lin(self) -> dict:
         """The linears' keyword arguments: the regime, and whether K1/K10
@@ -172,21 +182,49 @@ _PAGED_ATTN = {
 }
 
 
+def row_parallel(linear: Linear, x, step: Step, residual=None):
+    """``_o_proj`` / the down projection of ``_mlp_block``: y = residual +
+    x @ W, the residual folded into the linear's output init on one device.
+    On a tensor-parallel shard the linear is row-parallel and its partial
+    outputs are all-reduced BEFORE the residual joins: folded into each
+    rank's partial, the sum would add it tp times."""
+    lin = step.lin()
+    if step.tp is None:
+        return linear(x, y0=residual, **lin)
+    y = common.all_reduce(linear(x, **lin), step.tp)
+    return y if residual is None else residual + y
+
+
 class AttnBlock(nn.Module):
     """``_attn_block``: q|k|v (fused or not), attention, o-proj with the
-    residual, when one is given, folded into its output init. Shared with
-    OPT, whose steps carry no rope rows."""
+    residual, when one is given, folded into its output init
+    (:func:`row_parallel`). Shared with OPT, whose steps carry no rope
+    rows."""
 
     def __init__(self, config, proj: Dict[str, Linear]):
         super().__init__()
         self.config = config
         self.proj = nn.ModuleDict(proj)
 
+    def heads(self):
+        """(query heads, kv heads) this block holds, from its linears'
+        widths, not the config: a tensor-parallel shard holds n_heads / tp
+        and n_kv_heads / tp of them, while head_dim stays the config's. A
+        fused q|k|v of (nh + 2 nkv) * hd outputs splits in the config's
+        ratio (the JAX package's ``_attn_block``)."""
+        cfg, hd = self.config, self.config.head_dim
+        if "qkv" in self.proj:
+            units = self.proj["qkv"].spec.out_features // hd
+            nkv = cfg.n_kv_heads * units // (cfg.n_heads + 2 * cfg.n_kv_heads)
+            return units - 2 * nkv, nkv
+        return (self.proj["q"].spec.out_features // hd,
+                self.proj["k"].spec.out_features // hd)
+
     def forward(self, x, step: Step, cache=None, residual=None):
         cfg = self.config
         b, s, _ = x.shape
         hd = cfg.head_dim
-        nh, nkv = cfg.n_heads, cfg.n_kv_heads
+        nh, nkv = self.heads()
         lin = step.lin()
         if "qkv" in self.proj:
             qkv = self.proj["qkv"](x, **lin)
@@ -273,12 +311,12 @@ class AttnBlock(nn.Module):
                              sliding_window=cfg.sliding_window,
                              mode=step.mode)
             out = out.to(step.dtype).transpose(1, 2).reshape(b, s, nh * hd)
-        return self.proj["o"](out, y0=residual, **lin)
+        return row_parallel(self.proj["o"], out, step, residual)
 
 
 class MLPBlock(nn.Module):
     """``_mlp_block``: gate|up (fused or not), silu * up, down-proj with the
-    residual folded in."""
+    residual folded in (:func:`row_parallel`)."""
 
     def __init__(self, proj: Dict[str, Linear]):
         super().__init__()
@@ -293,8 +331,9 @@ class MLPBlock(nn.Module):
         else:
             gate = self.proj["gate"](x, **lin)
             up = self.proj["up"](x, **lin)
-        return self.proj["down"](torch.nn.functional.silu(gate) * up,
-                                 y0=residual, **lin)
+        return row_parallel(self.proj["down"],
+                            torch.nn.functional.silu(gate) * up, step,
+                            residual)
 
 
 class DecoderLayer(nn.Module):
@@ -322,14 +361,18 @@ class DecoderLayer(nn.Module):
 
 
 class LMHead(nn.Module):
-    """``_lm_head``: the final linear, logits in f32."""
+    """``_lm_head``: the final linear, logits in f32; on a tensor-parallel
+    shard the vocab-sharded (column-parallel) logits gathered into full
+    rows (the cast to f32 first: exact, so the gather is that of the JAX
+    package, which gathers before its cast)."""
 
     def __init__(self, linear: Linear):
         super().__init__()
         self.linear = linear
 
     def forward(self, x, step: Step):
-        return self.linear(x, **step.lin()).float()
+        y = self.linear(x, **step.lin()).float()
+        return y if step.tp is None else common.gather_vocab(y, step.tp)
 
 
 class Llama(nn.Module):
@@ -344,6 +387,8 @@ class Llama(nn.Module):
         self.layers = nn.ModuleList(layers)
         self.register_buffer("final_norm", final_norm)
         self.lm_head = LMHead(lm_head)
+        # a tensor-parallel shard's place (``parallel.tp.shard_model``)
+        self.tp: Optional[common.TPGroup] = None
 
     @property
     def device(self) -> torch.device:
@@ -359,7 +404,7 @@ class Llama(nn.Module):
         and the (B, W, hd) rope rows. A page pool's table is read from the
         first layer's cache."""
         cfg = self.config
-        step = Step(dtype=dtype, mode=mode, plain=plain)
+        step = Step(dtype=dtype, mode=mode, plain=plain, tp=self.tp)
         if cache is not None and "pk" in cache[0]:
             step.page_table = cache[0]["pt"]
         if decode_pos is not None or window_pos is not None:

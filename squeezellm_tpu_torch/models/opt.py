@@ -9,13 +9,16 @@ page pool K6/K7 and a verify window K8/K9 likewise (over a dense cache a
 verify window's plain attention), prefill and full-sequence attention K3,
 and every quantized linear K1 or K4.
 Unlike LLaMA, the residual is added after each block, not folded into a
-linear's output init, as in the JAX package.
+linear's output init, as in the JAX package. On a tensor-parallel shard
+(``parallel.tp.shard_model``) the o and down projections' partial outputs
+(their biases pre-scaled by 1/tp) are all-reduced before that add, and the
+lm_head gathers its vocab blocks.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -24,7 +27,8 @@ from torch.utils.checkpoint import checkpoint
 from squeezellm_tpu_torch.models import common
 from squeezellm_tpu_torch.models.common import Linear
 from squeezellm_tpu_torch.models.llama import (AttnBlock, LMHead, Step,
-                                               _state_dict_getter)
+                                               _state_dict_getter,
+                                               row_parallel)
 
 MODULE_NAMES = ("q", "k", "v", "o", "up", "down")
 # each linear's name in an HF (and the reference's) state dict of a layer
@@ -134,7 +138,7 @@ class DecoderLayer(nn.Module):
         x = x + self.attn(h, step, cache)
         h = common.layer_norm(x, self.ffn_norm_w, self.ffn_norm_b, eps)
         h = torch.relu(self.up(h, **lin))
-        return x + self.down(h, **lin)
+        return x + row_parallel(self.down, h, step)
 
 
 class OPT(nn.Module):
@@ -153,6 +157,8 @@ class OPT(nn.Module):
         self.register_buffer("final_norm_w", final_norm[0])
         self.register_buffer("final_norm_b", final_norm[1])
         self.lm_head = LMHead(lm_head)
+        # a tensor-parallel shard's place (``parallel.tp.shard_model``)
+        self.tp: Optional[common.TPGroup] = None
 
     @property
     def device(self) -> torch.device:
@@ -176,7 +182,7 @@ class OPT(nn.Module):
         the rest (``torch.utils.checkpoint``, for Fisher gradients)."""
         s = tokens.shape[1]
         x = self._embed(tokens, torch.arange(s, device=self.device), dtype)
-        step = Step(dtype=dtype, mode=mode, plain=plain)
+        step = Step(dtype=dtype, mode=mode, plain=plain, tp=self.tp)
         for layer in self.layers:
             x = (checkpoint(layer, x, step, use_reentrant=False) if remat
                  else layer(x, step))
@@ -185,7 +191,7 @@ class OPT(nn.Module):
     def _cache_step(self, dtype, mode, plain, cache, **fields) -> Step:
         """A step over a cache; a page pool's table is read from the first
         layer's cache."""
-        step = Step(dtype=dtype, mode=mode, plain=plain, **fields)
+        step = Step(dtype=dtype, mode=mode, plain=plain, tp=self.tp, **fields)
         if "pk" in cache[0]:
             step.page_table = cache[0]["pt"]
         return step
@@ -205,7 +211,8 @@ class OPT(nn.Module):
             start = start.reshape(()).long()
         x = self._embed(tokens, start + torch.arange(s, device=self.device),
                         dtype)
-        step = Step(dtype=dtype, mode=mode, plain=plain, start=start)
+        step = Step(dtype=dtype, mode=mode, plain=plain, start=start,
+                    tp=self.tp)
         if s == 1:
             # a one-token prompt is a decode step at position start
             step.lengths = ((start + 1).to(torch.int32).expand(b).contiguous()

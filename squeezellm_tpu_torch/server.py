@@ -25,6 +25,17 @@ engine thread warms the step programs with a one-request run (their
 first call captures them). The engine thread batches whatever requests
 are in flight: HTTP concurrency maps onto the engine's slots. A failure of
 the engine fails every pending request and turns /health to failed.
+
+Tensor parallel (``serve --tp N``): every rank holds a TP engine
+(``serving.TPContinuousBatchEngine`` or ``TPPagedContinuousBatchEngine``),
+and they must make the same engine calls in the same order. Rank 0 runs
+the HTTP front end and this loop; before each engine call (the warm-up,
+an admission, a cancellation, a step window) its loop broadcasts the call
+over a gloo process group on the CPU (``broadcast_object_list``), and the
+other ranks, in :func:`follow`, make it too, in lockstep. An idle loop
+broadcasts a heartbeat every ``HEARTBEAT_S`` seconds, so that a waiting
+rank's broadcast never reaches its group's timeout, and the loop's end
+broadcasts the stop.
 """
 
 from __future__ import annotations
@@ -32,6 +43,7 @@ from __future__ import annotations
 import json
 import queue
 import threading
+import time
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any, Dict, Optional
@@ -39,6 +51,8 @@ from typing import Any, Dict, Optional
 import torch
 
 from squeezellm_tpu_torch.sampling import SamplingParams
+
+HEARTBEAT_S = 1.0  # an idle tensor-parallel loop's broadcast period
 
 
 class _Pending:
@@ -60,12 +74,17 @@ class ServingLoop:
     (so that the step programs are captured before :meth:`start` returns
     and any client waits on them), then admits queued requests into slots,
     steps decode (or speculative) windows and fans the results out to
-    each request's queue."""
+    each request's queue. control: on rank 0 of a tensor-parallel group,
+    the gloo process group over which each engine call goes first to the
+    other ranks (module docstring, :func:`follow`)."""
 
-    def __init__(self, engine, window: int = 8, poll_s: float = 0.002):
+    def __init__(self, engine, window: int = 8, poll_s: float = 0.002,
+                 control=None):
         self.engine = engine
         self.window = window
         self.poll_s = poll_s
+        self.control = control
+        self._sent = time.monotonic()  # the last broadcast's time
         self.pending: "queue.Queue[_Pending]" = queue.Queue()
         self.cancels: "queue.Queue[_Pending]" = queue.Queue()
         self.served = 0
@@ -95,6 +114,14 @@ class ServingLoop:
         """Thread-safe: the engine thread applies the cancel."""
         self.cancels.put(req)
 
+    def _do(self, op: str, *args):
+        """Make one engine call (:func:`_apply`), sent first to the other
+        ranks of a tensor-parallel group."""
+        if self.control is not None:
+            _broadcast(self.control, (op, args))
+            self._sent = time.monotonic()
+        return _apply(self.engine, op, args)
+
     def _admit(self) -> None:
         while self.engine.free_slots():
             try:
@@ -102,9 +129,8 @@ class ServingLoop:
             except queue.Empty:
                 return
             try:
-                rid = self.engine.add_request(
-                    req.tokens, req.max_tokens, sampling=req.sampling,
-                    stop_tokens=req.stop)
+                rid = self._do("add", req.tokens, req.max_tokens,
+                               req.sampling, req.stop)
             except ValueError as e:  # the request's own fault
                 req.out.put({"error": str(e)})
                 continue
@@ -123,13 +149,13 @@ class ServingLoop:
             except queue.Empty:
                 return
             if req.rid is not None and req.rid in self._live:
-                self.engine.cancel(req.rid)
+                self._do("cancel", req.rid)
                 del self._live[req.rid]
 
     def _run(self) -> None:
         try:
             with torch.no_grad():
-                self.engine.run([[0]], max_new_tokens=2, window=self.window)
+                self._do("run", [[0]], 2, self.window)
                 self._ready.set()
                 self._run_inner()
         except Exception as e:  # a fatal engine error (OOM, device, bug)
@@ -148,20 +174,27 @@ class ServingLoop:
                 req.out.put({"error": f"engine failed: {self.failed}"})
         finally:
             self._ready.set()
+            if self.control is not None:
+                try:
+                    _broadcast(self.control, ("stop", ()))
+                except RuntimeError:  # the group itself failed
+                    pass
 
     def _run_inner(self) -> None:
-        eng = self.engine
         while not self._stop.is_set():
             self._drain_cancels()
             self._admit()
             if not self._live:
+                if (self.control is not None and time.monotonic()
+                        - self._sent > HEARTBEAT_S):
+                    self._do("idle")
                 try:
                     req = self.pending.get(timeout=self.poll_s)
                     self.pending.put(req)
                 except queue.Empty:
                     pass
                 continue
-            res = eng.step_any(self.window)
+            res = self._do("step", self.window)
             for rid, r in res.items():
                 req = self._live.get(rid)
                 if req is None:
@@ -171,6 +204,51 @@ class ServingLoop:
                 if r["done"]:
                     del self._live[rid]
                     self.served += 1
+
+
+def _apply(eng, op: str, args):
+    """One engine call of the serving loop, by name: the warm-up run, an
+    admission (-> request id), a cancellation, a step window (-> its
+    results), or a heartbeat, which does nothing."""
+    if op == "run":
+        prompts, max_new, window = args
+        return eng.run(prompts, max_new_tokens=max_new, window=window)
+    if op == "add":
+        tokens, max_tokens, sampling, stop = args
+        return eng.add_request(tokens, max_tokens, sampling=sampling,
+                               stop_tokens=stop)
+    if op == "cancel":
+        return eng.cancel(*args)
+    if op == "step":
+        return eng.step_any(*args)
+    if op != "idle":
+        raise ValueError(f"unknown serving op {op!r}")
+    return None
+
+
+def _broadcast(group, msg=None):
+    """Rank 0's ``msg`` on every rank of ``group`` (a gloo group on the
+    CPU); a non-zero rank passes nothing and gets rank 0's."""
+    box = [msg]
+    torch.distributed.broadcast_object_list(box, src=0, group=group)
+    return box[0]
+
+
+def follow(engine, control) -> None:
+    """A non-zero rank of ``serve --tp N``: make every engine call that rank
+    0's loop broadcasts over ``control``, in order, until it broadcasts the
+    stop. An admission that rank 0 refused (a ValueError: the request's
+    own fault) is refused here too, and skipped."""
+    with torch.no_grad():
+        while True:
+            op, args = _broadcast(control)
+            if op == "stop":
+                return
+            try:
+                _apply(engine, op, args)
+            except ValueError:
+                if op != "add":
+                    raise
 
 
 def make_handler(loop: ServingLoop):
@@ -273,12 +351,14 @@ def make_handler(loop: ServingLoop):
 
 
 def serve(engine, host: str = "127.0.0.1", port: int = 8000,
-          window: int = 8) -> ThreadingHTTPServer:
+          window: int = 8, control=None) -> ThreadingHTTPServer:
     """Warm the engine on its thread, then start the HTTP server (not
     blocking; returns the server, whose ``serving_loop`` is the engine
     thread). port 0 takes a free port (``server_port``). Stop with
-    ``.serving_loop.shutdown()`` and ``.shutdown()``."""
-    loop = ServingLoop(engine, window=window).start()
+    ``.serving_loop.shutdown()`` and ``.shutdown()``. control: rank 0's
+    gloo group of a tensor-parallel server (:class:`ServingLoop`), whose
+    other ranks run :func:`follow`."""
+    loop = ServingLoop(engine, window=window, control=control).start()
     httpd = ThreadingHTTPServer((host, port), make_handler(loop))
     httpd.serving_loop = loop
     threading.Thread(target=httpd.serve_forever, daemon=True).start()

@@ -20,6 +20,12 @@ prompt per engine step, interleaved with decode).
   prompts that share full-page prefixes reuse the pages and skip
   recomputing them. Decode attention runs K6/K7, a speculative verify
   window K8/K9 (``ops/paged_attn``), the admission prefill K3.
+* :class:`TPContinuousBatchEngine` and :class:`TPPagedContinuousBatchEngine`
+  are the two over one rank's tensor-parallel shards
+  (``parallel.tp.shard_model``), run SPMD: every rank of the group makes
+  the same calls, its cache or pool over its n_kv_heads / tp heads. They
+  differ from the single-device engines only in the model they are given
+  and the kv heads they size for; the collectives live in the model.
 
 Caches are updated in place. The per-token decode step (greedy and sampled
 are two programs) and the speculative window are step programs
@@ -62,7 +68,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from squeezellm_tpu_torch import graphs
+from squeezellm_tpu_torch import graphs as graphs_mod
 from squeezellm_tpu_torch import sampling as sampling_mod
 from squeezellm_tpu_torch.models import common
 from squeezellm_tpu_torch.ops import kv_quant, paged_attn
@@ -426,6 +432,9 @@ class _SlotEngine:
         self.model = model
         self.config = config
         self.device = model.device
+        # the kv heads whose cache this process holds (n_kv_heads / tp on
+        # a tensor-parallel shard)
+        self.n_kv_heads = common.kv_heads(model)
         self.n_slots = slots
         self.max_seq = max_seq or config.max_seq
         self.dtype = dtype
@@ -467,6 +476,8 @@ class _SlotEngine:
             b.spec = torch.zeros((slots, self.speculative[0] + 2),
                                  dtype=torch.long, device=dev)
         self._capture = graphs and not self.plain
+        if self._capture:
+            graphs_mod.check_capturable(self.model)
         self._pool = (torch.cuda.graph_pool_handle()
                       if self._capture and dev.type == "cuda" else None)
         self._steps = {}  # name -> graphs.StepGraph
@@ -499,7 +510,7 @@ class _SlotEngine:
                                b, self.speculative) if name == "spec"
                     else _decode_body(model, kw, b, name == "sampled",
                                       self.seed))
-            self._steps[name] = graphs.StepGraph(
+            self._steps[name] = graphs_mod.StepGraph(
                 body, self.device, capture=self._capture, pool=self._pool)
         return self._steps[name]
 
@@ -766,13 +777,13 @@ class ContinuousBatchEngine(_SlotEngine):
         align = 128 if common.is_int8(cache_dtype) else 16
         self.cache = common.init_kv_cache(
             slots, -(-self.max_seq // align) * align, c.n_layers,
-            c.n_kv_heads, c.head_dim, cache_dtype, self.device)
+            self.n_kv_heads, c.head_dim, cache_dtype, self.device)
         self._init_buffers(graphs)
         self._bufs.caches = self.cache
 
     def _staging_cache(self, batch: int, rows: int):
         c = self.config
-        return common.init_kv_cache(batch, rows, c.n_layers, c.n_kv_heads,
+        return common.init_kv_cache(batch, rows, c.n_layers, self.n_kv_heads,
                                     c.head_dim, self.cache_dtype,
                                     self.device)
 
@@ -881,7 +892,7 @@ class PagedContinuousBatchEngine(_SlotEngine):
         config = self.config
         self.ps = page_size
         self.maxp = -(-self.max_seq // page_size)
-        self.pool = PagedKVPool(config.n_layers, n_pages, config.n_kv_heads,
+        self.pool = PagedKVPool(config.n_layers, n_pages, self.n_kv_heads,
                                 page_size, config.head_dim, cache_dtype,
                                 self.device)
         # an int8 pool's prefill temp cache stays full precision; rows
@@ -911,9 +922,8 @@ class PagedContinuousBatchEngine(_SlotEngine):
 
     def _fresh_dense(self, batch: int, pages: int):
         return common.init_kv_cache(
-            batch, pages * self.ps, self.config.n_layers,
-            self.config.n_kv_heads, self.config.head_dim, self._dense_dtype,
-            self.device)
+            batch, pages * self.ps, self.config.n_layers, self.n_kv_heads,
+            self.config.head_dim, self._dense_dtype, self.device)
 
     @torch.no_grad()
     def add_request(self, prompt_tokens, max_new_tokens: int,
@@ -945,7 +955,7 @@ class PagedContinuousBatchEngine(_SlotEngine):
         dense = self._fresh_dense(1, covered)
         if n_shared:
             _prime_dense_impl(self.pool.pools, dense, shared_pids, ps=self.ps,
-                              n_kv_heads=self.config.n_kv_heads)
+                              n_kv_heads=self.n_kv_heads)
         rid = self._take_id(_rid)
         _set_slot_sampling(self, idx, rid, sampling)
         chunked = bool(self.prefill_chunk
@@ -1017,7 +1027,7 @@ class PagedContinuousBatchEngine(_SlotEngine):
         covered = -(-plen // self.ps)
         _scatter_all_impl(self.pool.pools, dense, row,
                           pids[n_shared:covered], n_shared, ps=self.ps,
-                          n_kv_heads=self.config.n_kv_heads)
+                          n_kv_heads=self.n_kv_heads)
         # register the prompt's full pages (excl. the final page) for reuse
         self.pool.register_chain(chain_key, prompt, n_shared,
                                  max(n_shared, (plen - 1) // self.ps), pids)
@@ -1033,3 +1043,65 @@ class PagedContinuousBatchEngine(_SlotEngine):
         self._slot_pages[idx] = []
         self._pt[idx] = 0
         super()._release(idx)
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel serving: the same engines on every rank's shards
+# ---------------------------------------------------------------------------
+
+
+def _shard_for_engine(model, tp: int, group, fuse: bool):
+    """This rank's shards of the full, unfused ``model`` on ``group`` (None:
+    the default group), which must hold ``tp`` ranks; fused after when
+    asked."""
+    import torch.distributed as dist
+
+    from squeezellm_tpu_torch.parallel import tp as tp_mod
+
+    size = dist.get_world_size(group)
+    if size != tp:
+        raise ValueError(f"tp={tp} on a process group of {size} ranks")
+    return tp_mod.shard_model(model, group=group, fuse=fuse)
+
+
+class TPContinuousBatchEngine(ContinuousBatchEngine):
+    """Tensor-parallel continuous batching over dense slots: the JAX
+    package's ``TPContinuousBatchEngine``, run SPMD. Every rank of a
+    ``tp``-rank process group constructs it over the same full, unfused
+    model and calls it identically; it serves the rank's shards
+    (``parallel.tp.shard_model``: Megatron column/row-parallel linears, KV
+    heads split, two all-reduces a layer and the lm_head's gather), with a
+    cache over the rank's n_kv_heads / tp heads. Every rank ends each step
+    with the same full logits, so its host bookkeeping (slots, sampler
+    state, ids) stays identical to the others'. Speculation, chunked
+    admission, windows, sampling, stop tokens and cancellation are the
+    dense engine's.
+
+    tp: the group's size; group: the process group (None: the default);
+    fuse: fuse the local q|k|v and gate|up (``models.fuse``). graphs: on a
+    CUDA device the steps are captured only over NCCL; asked for graphs on
+    a gloo group (ranks sharing one card) the engine raises
+    (``graphs.check_capturable``). The other arguments are the dense
+    engine's."""
+
+    def __init__(self, model, *, tp: int, group=None, fuse: bool = False,
+                 **kw):
+        super().__init__(_shard_for_engine(model, tp, group, fuse), **kw)
+
+
+class TPPagedContinuousBatchEngine(PagedContinuousBatchEngine):
+    """Tensor-parallel paged serving: the JAX package's
+    ``TPPagedContinuousBatchEngine``, run SPMD as
+    :class:`TPContinuousBatchEngine`. Each rank's page pool (and its
+    admission's dense temporary cache) holds the rank's kv heads, so every
+    paged operation (prime, scatter, K6-K9) stays on the rank; page ids,
+    refcounts and the prefix registry are identical on every rank, since
+    a page id spans all heads. An int8 pool's scale sidecars are
+    (pages, n_kv_heads / tp, page_size): the JAX package pads the head
+    rows to 8 a shard (``ops/kv_quant.head_rows``), a TPU tile rule that
+    is not ported. Arguments: :class:`TPContinuousBatchEngine`'s tp,
+    group and fuse, and the paged engine's."""
+
+    def __init__(self, model, *, tp: int, group=None, fuse: bool = False,
+                 **kw):
+        super().__init__(_shard_for_engine(model, tp, group, fuse), **kw)

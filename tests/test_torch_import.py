@@ -4,7 +4,10 @@ ops.paged_attn among them) and running a CPU forward, greedy generation,
 the decode benchmark, an int8-cache OPT request, a perplexity through the
 dequantize-then-matmul route, a paged serving run (int8 pool, speculation,
 then sampling), a dense-slot one (int8 cache, speculation) and a
-completion through the HTTP server, the command line, the offline quantization (Fisher
+completion through the HTTP server, the command line, the tensor-parallel
+plan (`parallel.gspmd`, `parallel.multihost`, `parallel.tp`: a row- and a
+column-parallel shard of a linear, the placement tree, the backend rule),
+the offline quantization (Fisher
 gradients, a structured and a free `quantize_model`, outliers from an IQR
 config, the checkpoint writer, the HF loader) and the structured and
 transposed decode tables (K10, K11 and K12's plain versions) loads neither
@@ -92,6 +95,16 @@ qmodel = fuse.fuse_for_decode(checkpoint.load_quantized(ckpt, "cpu")[1])
 struct = engine.Engine(qmodel).generate(np.array([[1, 2, 3]]), 4)
 fuse.attach_decode_luts(qmodel, transposed=True)
 transposed = engine.Engine(qmodel).generate(np.array([[1, 2, 3]]), 4)
+from squeezellm_tpu_torch.parallel import gspmd, multihost, tp
+lin = omodel.layers[0].down
+halves = [tp.shard_linear("down", lin, r, 2) for r in range(2)]
+x = __import__("torch").randn(2, lin.spec.in_features)
+split = sum(h(x[:, r * 48: (r + 1) * 48]) for r, h in enumerate(halves))
+full = lin(x)
+tp_ok = (bool((split - full).abs().max() <= 1e-5 * full.abs().max())
+         and gspmd.validate_shardable("opt", ocfg, 2) is None
+         and "lm_head" in gspmd.param_partition_specs(omodel)
+         and multihost.backend_for("cpu", 2) == "gloo")
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "squeezellm_tpu"
              or m.startswith("squeezellm_tpu."))
@@ -101,6 +114,7 @@ print(json.dumps({"bad": bad, "shape": list(out.shape),
                              len(dense[0]), len(dense[1]),
                              len(answer["tokens"])],
                   "quantized": [list(struct.shape), list(transposed.shape)],
+                  "tp": tp_ok,
                   "finite": bool(np.isfinite(stats["check_ppl"])
                                  and np.isfinite(ppl))}))
 """
@@ -117,4 +131,5 @@ def test_port_imports_no_jax():
     assert got["opt"] == [1, 7]
     assert got["served"] == [3, 3, 3, 3, 3, 3]
     assert got["quantized"] == [[1, 7], [1, 7]]
+    assert got["tp"]
     assert got["finite"]

@@ -3,7 +3,8 @@ kernel a verify window asks for:
 
 * `serve-bench` on a tiny saved checkpoint, dense, `--paged`,
   `--kv-dtype int8` and `--speculative`, printing the JAX command's keys;
-  `--tp 2` refused;
+  `--tp 2` with an int8 dense cache refused, as the JAX command refuses it
+  (tests/test_torch_tp_serving.py runs `--tp 2`);
 * `serve` as a user starts it (`python -m squeezellm_tpu_torch serve`),
   answering a completion with the engine's greedy tokens and /health;
 * `benchmark --profile DIR` writing its trace, and
@@ -75,9 +76,11 @@ def test_serve_bench(ckpt, capsys, flags, name):
 
 
 def test_serve_bench_refuses_tensor_parallel(ckpt):
+    # the one tensor-parallel configuration the JAX ladder refuses: an
+    # int8 cache on the dense engine (before any rank is started)
     with pytest.raises(SystemExit, match="tensor-parallel"):
         cli.main(["serve-bench", "--model", ckpt, "--device", "cpu",
-                  "--tp", "2"])
+                  "--tp", "2", "--kv-dtype", "int8"])
 
 
 def test_serve_command_answers(ckpt):
