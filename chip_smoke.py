@@ -1233,9 +1233,6 @@ def counters():
 
 
 def reset_counts():
-    from squeezellm_tpu_torch import graphs
-
-    graphs.REPLAYED[:] = [0] * len(graphs.REPLAYED)
     for fn in counters():
         fn.launches = 0
     counters()[1].ropeless_launches = 0
@@ -1253,10 +1250,7 @@ def expect_counts(record, path, want):
     want = list(want) + [0] * (len(got) - len(want))
     if got != want:
         raise AssertionError(f"{path}: launches K1..K12 {got} != {want}")
-    from squeezellm_tpu_torch import graphs
-
     record["paths"].append({"path": path, "launches": got,
-                            "replayed": list(graphs.REPLAYED),
                             "variants": variants()})
     return got
 
@@ -1547,8 +1541,7 @@ def run_model(torch, config, bits, record):
           f"tokens) in {res['requests_s']:.2f} s graphed, "
           f"{res['requests_eager_s']:.2f} s eager, tokens identical to each "
           f"other and to the plain path; launches K1..K12 "
-          f"{res['launches']} (of them by graph replays "
-          f"{record['paths'][-1]['replayed']}); f32 teacher-forced logits "
+          f"{res['launches']}; f32 teacher-forced logits "
           f"rel err {res['tf_exact_rel_err']:.3g}")
 
     # (ii) the bf16 flagship benchmark: the timed call without the check,
@@ -3958,7 +3951,6 @@ def run_tp(torch, config, record, smi):
         for label, p in got["paths"].items():
             record["paths"].append({"path": f"tp rank {r} {label}",
                                     "launches": p["launches"],
-                                    "replayed": [0] * 12,
                                     "variants": p["variants"]})
         res["by_rank"].append({"paths": got["paths"],
                                "bf16_step": got["bf16_step"]})
@@ -4007,9 +3999,6 @@ def kernel_lines(record):
     k6, k7, k8, k9 = (record[f"k{n}_detail"][0] for n in (6, 7, 8, 9))
     # every path's run: counts set to 0 just before it, read just after
     launches = [sum(p["launches"][i] for p in record["paths"])
-                for i in range(len(counters()))]
-    # of them, added by CUDA graph replays
-    replayed = [sum(p["replayed"][i] for p in record["paths"])
                 for i in range(len(counters()))]
     k3_launches = {regime: sum(p["variants"]["K3"][regime]
                                for p in record["paths"])
@@ -4100,13 +4089,10 @@ def kernel_lines(record):
     ]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     lines = []
-    names = [fn.__name__ for fn in counters()]
     for name, src, rep, n, err, r, at in rows:
         line = {"name": name, "route": "cuda", "source": src, "replaces": rep,
                 "launches": n, "max_abs_err": err, **{k: r[k] for k in keys},
                 "at": at}
-        if name in names:  # K3's regimes share one wrapper's count
-            line["launches_replayed"] = replayed[names.index(name)]
         if "device_ms" in r:  # the profiler's, beside the timer's ms
             line["device_ms"] = r["device_ms"]
         if name in long_:

@@ -90,11 +90,6 @@ def count_increase(before: Counts, after: Counts) -> Counts:
     return out
 
 
-# what replays added to the wrappers' "launches" since the last reset, by
-# wrapper (K1 to K12), for a measurement that reports it
-REPLAYED = [0] * 12
-
-
 def add_counts(delta: Counts, sign: int = 1) -> None:
     """Add `delta` (or take it back, sign -1) to the wrappers' counters."""
     fns = counted_wrappers()
@@ -157,9 +152,6 @@ class StepGraph:
             return
         self.graph.replay()
         add_counts(self.delta)
-        for (i, name), n in self.delta.items():
-            if name == "launches":
-                REPLAYED[i] += n
         self.replays += 1
 
     def _warm_up_and_capture(self) -> None:

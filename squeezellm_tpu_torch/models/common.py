@@ -23,6 +23,7 @@ from squeezellm_tpu_torch.ops.quant_linear import (
     QuantLinearSpec,
     quant_linear_apply,
 )
+from squeezellm_tpu_torch.tracing import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -171,20 +172,22 @@ def kv_heads(model) -> int:
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float) -> torch.Tensor:
-    dt = x.dtype
-    xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    return (xf * torch.rsqrt(var + eps)).to(dt) * weight.to(dt)
+    with span("norm"):
+        dt = x.dtype
+        xf = x.float()
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        return (xf * torch.rsqrt(var + eps)).to(dt) * weight.to(dt)
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                eps: float) -> torch.Tensor:
-    dt = x.dtype
-    xf = x.float()
-    mu = torch.mean(xf, dim=-1, keepdim=True)
-    var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
-    y = (xf - mu) * torch.rsqrt(var + eps)
-    return (y * weight.float() + bias.float()).to(dt)
+    with span("norm"):
+        dt = x.dtype
+        xf = x.float()
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        return (y * weight.float() + bias.float()).to(dt)
 
 
 # ---------------------------------------------------------------------------
@@ -207,14 +210,15 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
 def apply_rope_tm(x: torch.Tensor, cos: torch.Tensor,
                   sin: torch.Tensor) -> torch.Tensor:
     """x: (B, S, H, D) TOKEN-major; cos/sin: (B, S, D) or (S, D)."""
-    if cos.dim() == x.dim() - 2:
-        cos = cos[None]
-        sin = sin[None]
-    cos = cos[:, :, None, :]
-    sin = sin[:, :, None, :]
-    d2 = x.shape[-1] // 2
-    rotated = torch.cat([-x[..., d2:], x[..., :d2]], dim=-1)
-    return x * cos + rotated * sin
+    with span("rope"):
+        if cos.dim() == x.dim() - 2:
+            cos = cos[None]
+            sin = sin[None]
+        cos = cos[:, :, None, :]
+        sin = sin[:, :, None, :]
+        d2 = x.shape[-1] // 2
+        rotated = torch.cat([-x[..., d2:], x[..., :d2]], dim=-1)
+        return x * cos + rotated * sin
 
 
 # ---------------------------------------------------------------------------

@@ -34,6 +34,7 @@ from torch.utils.checkpoint import checkpoint
 from squeezellm_tpu_torch.models import common
 from squeezellm_tpu_torch.models.common import Linear
 from squeezellm_tpu_torch.ops import decode_attn, flash_attn, paged_attn
+from squeezellm_tpu_torch.tracing import span
 
 
 # each linear's name in an HF (and the reference's) state dict of a layer
@@ -296,8 +297,9 @@ class AttnBlock(nn.Module):
                     # quantizes them at insert), then attends the cache as
                     # it holds them, the rows before start included: the
                     # history decode will read
-                    common.write_kv_rows(cache, k, v, step.start)
-                    kh, vh = common.read_kv(cache, step.dtype, nkv)
+                    with span("kv"):
+                        common.write_kv_rows(cache, k, v, step.start)
+                        kh, vh = common.read_kv(cache, step.dtype, nkv)
                 else:
                     if k.stride() != v.stride():
                         # a roped k is a new tensor while v is still a
@@ -307,9 +309,10 @@ class AttnBlock(nn.Module):
                     kh, vh = k.transpose(1, 2), v.transpose(1, 2)
                 attend = (flash_attn.flash_attention_plain if step.plain
                           else flash_attn.flash_attention)
-                out = attend(qh, kh, vh, step.start,
-                             sliding_window=cfg.sliding_window,
-                             mode=step.mode)
+                with span("attn"):
+                    out = attend(qh, kh, vh, step.start,
+                                 sliding_window=cfg.sliding_window,
+                                 mode=step.mode)
             out = out.to(step.dtype).transpose(1, 2).reshape(b, s, nh * hd)
         return row_parallel(self.proj["o"], out, step, residual)
 
@@ -331,9 +334,9 @@ class MLPBlock(nn.Module):
         else:
             gate = self.proj["gate"](x, **lin)
             up = self.proj["up"](x, **lin)
-        return row_parallel(self.proj["down"],
-                            torch.nn.functional.silu(gate) * up, step,
-                            residual)
+        with span("act"):
+            h = torch.nn.functional.silu(gate) * up
+        return row_parallel(self.proj["down"], h, step, residual)
 
 
 class DecoderLayer(nn.Module):
@@ -427,8 +430,9 @@ class Llama(nn.Module):
         return step
 
     def _finish(self, x, step: Step):
-        x = common.rms_norm(x, self.final_norm, self.config.rms_eps)
-        return self.lm_head(x, step)
+        with span("head"):
+            x = common.rms_norm(x, self.final_norm, self.config.rms_eps)
+            return self.lm_head(x, step)
 
     def forward(self, tokens: torch.Tensor, *, dtype=torch.float32,
                 mode: str = "exact", plain: bool = False,

@@ -29,6 +29,7 @@ from squeezellm_tpu_torch.models.common import Linear
 from squeezellm_tpu_torch.models.llama import (AttnBlock, LMHead, Step,
                                                _state_dict_getter,
                                                row_parallel)
+from squeezellm_tpu_torch.tracing import span
 
 MODULE_NAMES = ("q", "k", "v", "o", "up", "down")
 # each linear's name in an HF (and the reference's) state dict of a layer
@@ -137,7 +138,9 @@ class DecoderLayer(nn.Module):
         h = common.layer_norm(x, self.attn_norm_w, self.attn_norm_b, eps)
         x = x + self.attn(h, step, cache)
         h = common.layer_norm(x, self.ffn_norm_w, self.ffn_norm_b, eps)
-        h = torch.relu(self.up(h, **lin))
+        h = self.up(h, **lin)
+        with span("act"):
+            h = torch.relu(h)
         return x + row_parallel(self.down, h, step)
 
 
@@ -170,9 +173,10 @@ class OPT(nn.Module):
         return self.embed[tokens].to(dtype) + pos
 
     def _finish(self, x, step: Step):
-        x = common.layer_norm(x, self.final_norm_w, self.final_norm_b,
-                              self.config.ln_eps)
-        return self.lm_head(x, step)
+        with span("head"):
+            x = common.layer_norm(x, self.final_norm_w, self.final_norm_b,
+                                  self.config.ln_eps)
+            return self.lm_head(x, step)
 
     def forward(self, tokens: torch.Tensor, *, dtype=torch.float32,
                 mode: str = "exact", plain: bool = False,

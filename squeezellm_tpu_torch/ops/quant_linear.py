@@ -67,6 +67,7 @@ from squeezellm_tpu_torch.ops.lut_matmul_t import (
     lut_matmul_t_plain,
 )
 from squeezellm_tpu_torch.ops.spmv import spmv, spmv_plain
+from squeezellm_tpu_torch.tracing import span
 
 BIG_BATCH = 1024  # rows from which the weight is dequantized once (K4)
 
@@ -99,49 +100,64 @@ def quant_linear_apply(spec: QuantLinearSpec,
     the kernels' plain versions whatever the device (the reference they
     are held against).
     decode: the call is a decode step (one token a slot), which K1 and
-    K10 run as their GEMV at any slot count."""
-    lead = x.shape[:-1]
-    x2 = x.reshape(-1, spec.in_features).contiguous()
-    y0_2 = (None if y0 is None
-            else y0.reshape(-1, spec.out_features).contiguous())
-    sparse = {}
-    if spec.include_sparse:
-        sparse = dict(rowptr=params["sp_rowptr"], cols=params["sp_cols"],
-                      vals=params["sp_vals"])
-    rows = x2.shape[0]
-    kernel = {} if plain else {"variant": "gemv" if decode else None}
+    K10 run as their GEMV at any slot count.
+
+    The call runs inside the span ``linear.<route>`` (``tracing``), the
+    route named by the kernel it runs on the card, whatever ``plain``
+    says: ``t`` (K11 + K12), ``struct`` (K10), ``dequant`` (K4 and the
+    dense matmul), ``gemv`` or ``mma`` (K1's two kernels)."""
+    rows = x.numel() // spec.in_features
     if rows <= T_MAX_ROWS and spec.bits == 4 and "qweight_t" in params:
-        fn = lut_matmul_t_plain if plain else lut_matmul_t
-        y = fn(x2, params["qweight_t"], params["lut"], mode=mode)
-        if sparse:  # y = (y + y0) + sparse, in place in K12's launch
-            fn = spmv_plain if plain else spmv
-            fn(x2, sparse["rowptr"], sparse["cols"], sparse["vals"],
-               spec.out_features, y=y, y0=y0_2)
-        elif y0_2 is not None:
-            y = y + y0_2.float()
+        route = "t"
     elif "struct_a" in params and rows < BIG_BATCH:
-        fn = lut_matmul_struct_plain if plain else lut_matmul_struct
-        y = fn(x2, params["qweight"], params["struct_a"], params["struct_d"],
-               y0=y0_2, mode=mode, **sparse, **kernel)
+        route = "struct"
     elif rows >= BIG_BATCH and spec.bits <= 4:
-        fn = dequant_dense_plain if plain else dequant_dense
-        w = fn(params["qweight"], params["lut"], spec.bits,
-               spec.in_features, mode=mode, **sparse)
-        y = dense_matmul(x2, w, plain=plain)
-        del w
-        if y0_2 is not None:
-            y = y + y0_2.float()
-    else:
-        fn = lut_matmul_plain if plain else lut_matmul
-        y = fn(x2, params["qweight"], params["lut"], spec.bits, y0=y0_2,
-               mode=mode, **sparse, **kernel)
-    if spec.topx > 0:
-        y = plain_ops.hybrid_matmul(x2, params["topx_weights"],
-                                    params["topx_indices"],
-                                    spec.out_features, base=y)
-    if spec.has_bias:
-        y = y + params["bias"].to(y.dtype)
-    return y.to(x.dtype).reshape(*lead, spec.out_features)
+        route = "dequant"
+    else:  # K1: the GEMV for a decode call and in exact mode
+        route = "gemv" if decode or mode != "bf16" else "mma"
+    with span("linear." + route):
+        lead = x.shape[:-1]
+        x2 = x.reshape(-1, spec.in_features).contiguous()
+        y0_2 = (None if y0 is None
+                else y0.reshape(-1, spec.out_features).contiguous())
+        sparse = {}
+        if spec.include_sparse:
+            sparse = dict(rowptr=params["sp_rowptr"], cols=params["sp_cols"],
+                          vals=params["sp_vals"])
+        kernel = {} if plain else {"variant": "gemv" if decode else None}
+        if route == "t":
+            fn = lut_matmul_t_plain if plain else lut_matmul_t
+            y = fn(x2, params["qweight_t"], params["lut"], mode=mode)
+            if sparse:  # y = (y + y0) + sparse, in place in K12's launch
+                fn = spmv_plain if plain else spmv
+                fn(x2, sparse["rowptr"], sparse["cols"], sparse["vals"],
+                   spec.out_features, y=y, y0=y0_2)
+            elif y0_2 is not None:
+                y = y + y0_2.float()
+        elif route == "struct":
+            fn = lut_matmul_struct_plain if plain else lut_matmul_struct
+            y = fn(x2, params["qweight"], params["struct_a"],
+                   params["struct_d"], y0=y0_2, mode=mode, **sparse,
+                   **kernel)
+        elif route == "dequant":
+            fn = dequant_dense_plain if plain else dequant_dense
+            w = fn(params["qweight"], params["lut"], spec.bits,
+                   spec.in_features, mode=mode, **sparse)
+            y = dense_matmul(x2, w, plain=plain)
+            del w
+            if y0_2 is not None:
+                y = y + y0_2.float()
+        else:
+            fn = lut_matmul_plain if plain else lut_matmul
+            y = fn(x2, params["qweight"], params["lut"], spec.bits, y0=y0_2,
+                   mode=mode, **sparse, **kernel)
+        if spec.topx > 0:
+            y = plain_ops.hybrid_matmul(x2, params["topx_weights"],
+                                        params["topx_indices"],
+                                        spec.out_features, base=y)
+        if spec.has_bias:
+            y = y + params["bias"].to(y.dtype)
+        return y.to(x.dtype).reshape(*lead, spec.out_features)
 
 
 def pack_linear(weight: torch.Tensor, lut: torch.Tensor,

@@ -73,6 +73,7 @@ from squeezellm_tpu_torch import sampling as sampling_mod
 from squeezellm_tpu_torch.models import common
 from squeezellm_tpu_torch.ops import kv_quant, paged_attn
 from squeezellm_tpu_torch.sampling import SamplingParams
+from squeezellm_tpu_torch.tracing import span
 
 
 @dataclasses.dataclass
@@ -548,7 +549,8 @@ class _SlotEngine:
         return rid
 
     def _prefill(self, tokens, dense, start: int) -> None:
-        self.model.prefill(tokens, dense, start=start, **self._run())
+        with span("prefill"):
+            self.model.prefill(tokens, dense, start=start, **self._run())
         self.stats["prefills"] += 1
 
     def _tokens(self, rows) -> torch.Tensor:
@@ -591,7 +593,9 @@ class _SlotEngine:
             entry = self._staging[i]  # [staging, prompt, offset, ...]
             staging, prompt, off = entry[:3]
             r = min(self.prefill_chunk, len(prompt) - off)
-            self._prefill(self._tokens([prompt[off:off + r]]), staging, off)
+            with span("admit.stage"):
+                tokens = self._tokens([prompt[off:off + r]])
+            self._prefill(tokens, staging, off)
             off += r
             if off < len(prompt):
                 entry[2] = off
@@ -643,18 +647,21 @@ class _SlotEngine:
     def _decode_window(self, k: int) -> Dict[int, Any]:
         if not self._decoding():
             return {}
-        self._upload()
-        sampled = bool((self._temp > 0).any())
-        step = self._program("sampled" if sampled else "greedy")
-        self._bufs.widx.zero_()
-        for _ in range(k):
-            step()
-            self.stats["decode_steps"] += 1
-        # the window's one sync
-        toks_host = self._bufs.toks[:k].cpu().numpy()
-        sent = self._sent["pos"]
-        sent[sent >= 0] += k  # as the device advanced them
-        return self._collect(lambda i: toks_host[:, i])
+        with span("window.upload"):
+            self._upload()
+        with span("window.launch"):
+            sampled = bool((self._temp > 0).any())
+            step = self._program("sampled" if sampled else "greedy")
+            self._bufs.widx.zero_()
+            for _ in range(k):
+                step()
+                self.stats["decode_steps"] += 1
+        with span("window.sync"):  # the window's one sync
+            toks_host = self._bufs.toks[:k].cpu().numpy()
+        with span("window.collect"):
+            sent = self._sent["pos"]
+            sent[sent >= 0] += k  # as the device advanced them
+            return self._collect(lambda i: toks_host[:, i])
 
     @torch.no_grad()
     def step_spec_window(self) -> Dict[int, Any]:
@@ -672,18 +679,22 @@ class _SlotEngine:
         if not self._decoding():
             return {}
         draft_len = self.speculative[0]
-        self._upload()
-        self._program("spec")()
-        self.stats["spec_windows"] += 1
-        spec = self._bufs.spec.cpu().numpy()  # the window's one sync
-        emit_h, nacc_h = spec[:, :-1], spec[:, -1]
-        sent = self._sent["pos"]
-        sent[sent >= 0] += nacc_h[sent >= 0] + 1  # as the device did
-        for i, s in enumerate(self._slots):
-            if s.active and not s.prefilling:
-                self.stats["drafted"] += draft_len
-                self.stats["accepted"] += int(nacc_h[i])
-        return self._collect(lambda i: emit_h[i, : int(nacc_h[i]) + 1])
+        with span("window.upload"):
+            self._upload()
+        with span("window.launch"):
+            self._program("spec")()
+            self.stats["spec_windows"] += 1
+        with span("window.sync"):  # the window's one sync
+            spec = self._bufs.spec.cpu().numpy()
+        with span("window.collect"):
+            emit_h, nacc_h = spec[:, :-1], spec[:, -1]
+            sent = self._sent["pos"]
+            sent[sent >= 0] += nacc_h[sent >= 0] + 1  # as the device did
+            for i, s in enumerate(self._slots):
+                if s.active and not s.prefilling:
+                    self.stats["drafted"] += draft_len
+                    self.stats["accepted"] += int(nacc_h[i])
+            return self._collect(lambda i: emit_h[i, : int(nacc_h[i]) + 1])
 
     def cancel(self, request_id: int) -> bool:
         """Abort an in-flight request (e.g. the HTTP client went away) and
@@ -805,12 +816,14 @@ class ContinuousBatchEngine(_SlotEngine):
         idx = self._free_slot()
         rid = self._take_id(_rid)
         _set_slot_sampling(self, idx, rid, sampling)
-        staging = self._staging_cache(1, plen)
         chunked = bool(self.prefill_chunk and plen > self.prefill_chunk)
+        with span("admit.stage"):
+            staging = self._staging_cache(1, plen)
+            tokens = None if chunked else self._tokens([prompt])
         if chunked:  # the slot stays at pos -1 until its last chunk is in
             self._staging[idx] = [staging, prompt, 0]
         else:
-            self._prefill(self._tokens([prompt]), staging, 0)
+            self._prefill(tokens, staging, 0)
             self._finish_admission(idx, prompt, staging, 0)
         self._slots[idx] = _Slot(active=True, request_id=rid, pos=plen - 1,
                                  max_new=max_new_tokens, generated=0,
@@ -830,8 +843,10 @@ class ContinuousBatchEngine(_SlotEngine):
         """Admit same-length prompts through one batched prefill."""
         plen = len(prompts[0])
         idxs = [i for i, s in enumerate(self._slots) if not s.active]
-        staging = self._staging_cache(len(prompts), plen)
-        self._prefill(self._tokens(np.stack(prompts)), staging, 0)
+        with span("admit.stage"):
+            staging = self._staging_cache(len(prompts), plen)
+            tokens = self._tokens(np.stack(prompts))
+        self._prefill(tokens, staging, 0)
         for r, p in enumerate(prompts):
             idx = idxs[r]
             _set_slot_sampling(self, idx, rids[r], sampling)
@@ -846,13 +861,15 @@ class ContinuousBatchEngine(_SlotEngine):
         rows; for an int8 cache its codes and scales) into slot idx's
         rows, and seed the slot for decode."""
         plen = len(prompt)
-        for c, s in zip(self.cache, staging):
-            for name, t in c.items():
-                if name in ("ks", "vs"):  # (B, H_kv, S)
-                    t[idx, :, :plen] = s[name][row]
-                else:
-                    t[idx, :plen] = s[name][row]
-        self._seed_slot(idx, prompt)
+        with span("admit.scatter"):
+            for c, s in zip(self.cache, staging):
+                for name, t in c.items():
+                    if name in ("ks", "vs"):  # (B, H_kv, S)
+                        t[idx, :, :plen] = s[name][row]
+                    else:
+                        t[idx, :plen] = s[name][row]
+        with span("admit.seed"):
+            self._seed_slot(idx, prompt)
 
 
 class PagedContinuousBatchEngine(_SlotEngine):
@@ -935,31 +952,34 @@ class PagedContinuousBatchEngine(_SlotEngine):
         self._validate(prompt, max_new_tokens)
         idx = self._free_slot()
 
-        shared_pids, chain_key = self.pool.lookup_chain(prompt)
-        n_shared = len(shared_pids)
-        start = n_shared * self.ps
-        for pid in shared_pids:
-            self.pool.retain(pid)
-        # pages covering [start, plen + max_new_tokens + reserve); every
-        # refcount rolls back if the pool runs out mid-allocation
-        total_pages = -(-(plen + max_new_tokens + self._reserve()) // self.ps)
-        new_pids = self._alloc_pages(total_pages - n_shared, shared_pids)
-        pids = shared_pids + new_pids
-        self._slot_pages[idx] = pids
-        self._slot_shared[idx] = n_shared
+        with span("admit.stage"):
+            shared_pids, chain_key = self.pool.lookup_chain(prompt)
+            n_shared = len(shared_pids)
+            start = n_shared * self.ps
+            for pid in shared_pids:
+                self.pool.retain(pid)
+            # pages covering [start, plen + max_new_tokens + reserve); every
+            # refcount rolls back if the pool runs out mid-allocation
+            total_pages = -(-(plen + max_new_tokens + self._reserve())
+                            // self.ps)
+            new_pids = self._alloc_pages(total_pages - n_shared, shared_pids)
+            pids = shared_pids + new_pids
+            self._slot_pages[idx] = pids
+            self._slot_shared[idx] = n_shared
 
-        # continuation prefill of the suffix on a dense temp cache primed
-        # with the shared pages
-        suffix = prompt[start:]
-        covered = -(-plen // self.ps)  # pages with any prompt content
-        dense = self._fresh_dense(1, covered)
-        if n_shared:
-            _prime_dense_impl(self.pool.pools, dense, shared_pids, ps=self.ps,
-                              n_kv_heads=self.n_kv_heads)
-        rid = self._take_id(_rid)
-        _set_slot_sampling(self, idx, rid, sampling)
-        chunked = bool(self.prefill_chunk
-                       and len(suffix) > self.prefill_chunk)
+            # continuation prefill of the suffix on a dense temp cache
+            # primed with the shared pages
+            suffix = prompt[start:]
+            covered = -(-plen // self.ps)  # pages with any prompt content
+            dense = self._fresh_dense(1, covered)
+            if n_shared:
+                _prime_dense_impl(self.pool.pools, dense, shared_pids,
+                                  ps=self.ps, n_kv_heads=self.n_kv_heads)
+            rid = self._take_id(_rid)
+            _set_slot_sampling(self, idx, rid, sampling)
+            chunked = bool(self.prefill_chunk
+                           and len(suffix) > self.prefill_chunk)
+            tokens = None if chunked else self._tokens([suffix])
         if chunked:
             # the page table stays zeroed and pos -1 (inactive to every
             # kernel) until the staging cache is complete and scattered;
@@ -970,7 +990,7 @@ class PagedContinuousBatchEngine(_SlotEngine):
             self._pt[idx] = 0
             self._pos[idx] = -1
         else:
-            self._prefill(self._tokens([suffix]), dense, start)
+            self._prefill(tokens, dense, start)
             self._finish_admission(idx, prompt, dense, 0, pids, n_shared,
                                    chain_key)
         self._slots[idx] = _Slot(active=True, request_id=rid, pos=plen - 1,
@@ -995,16 +1015,18 @@ class PagedContinuousBatchEngine(_SlotEngine):
         plen = len(prompts[0])
         idxs = [i for i, s in enumerate(self._slots) if not s.active]
         idxs = idxs[:len(prompts)]
-        total = -(-(plen + max_new_tokens + self._reserve()) // self.ps)
-        allocs: List[List[int]] = []
-        for _ in prompts:
-            # page by page into a list the rollback sees: a request that
-            # the pool cannot finish leaks nothing
-            held = [pid for pids in allocs for pid in pids]
-            allocs.append(self._alloc_pages(total, held))
-        covered = -(-plen // self.ps)
-        dense = self._fresh_dense(len(prompts), covered)
-        self._prefill(self._tokens(np.stack(prompts)), dense, 0)
+        with span("admit.stage"):
+            total = -(-(plen + max_new_tokens + self._reserve()) // self.ps)
+            allocs: List[List[int]] = []
+            for _ in prompts:
+                # page by page into a list the rollback sees: a request
+                # that the pool cannot finish leaks nothing
+                held = [pid for pids in allocs for pid in pids]
+                allocs.append(self._alloc_pages(total, held))
+            covered = -(-plen // self.ps)
+            dense = self._fresh_dense(len(prompts), covered)
+            tokens = self._tokens(np.stack(prompts))
+        self._prefill(tokens, dense, 0)
         for r, p in enumerate(prompts):
             idx = idxs[r]
             self._slot_pages[idx] = allocs[r]
@@ -1025,15 +1047,19 @@ class PagedContinuousBatchEngine(_SlotEngine):
         chunked prefill."""
         plen = len(prompt)
         covered = -(-plen // self.ps)
-        _scatter_all_impl(self.pool.pools, dense, row,
-                          pids[n_shared:covered], n_shared, ps=self.ps,
-                          n_kv_heads=self.n_kv_heads)
-        # register the prompt's full pages (excl. the final page) for reuse
-        self.pool.register_chain(chain_key, prompt, n_shared,
-                                 max(n_shared, (plen - 1) // self.ps), pids)
-        self._pt[idx] = 0
-        self._pt[idx, : len(pids)] = pids
-        self._seed_slot(idx, prompt)
+        with span("admit.scatter"):
+            _scatter_all_impl(self.pool.pools, dense, row,
+                              pids[n_shared:covered], n_shared, ps=self.ps,
+                              n_kv_heads=self.n_kv_heads)
+        with span("admit.seed"):
+            # register the prompt's full pages (excl. the final page) for
+            # reuse
+            self.pool.register_chain(chain_key, prompt, n_shared,
+                                     max(n_shared, (plen - 1) // self.ps),
+                                     pids)
+            self._pt[idx] = 0
+            self._pt[idx, : len(pids)] = pids
+            self._seed_slot(idx, prompt)
 
     def _release(self, idx: int) -> None:
         """Free the slot AND its pages (refcounts released; registered

@@ -30,9 +30,12 @@ def _find_traces(trace_dir: str) -> List[str]:
 
 
 def base_name(name: str) -> str:
-    """A kernel's name without its return type, template arguments,
-    parameters and trailing numbering: ``void gemv_kernel<true, 4>(float
-    const*, ...)`` -> ``gemv_kernel``."""
+    """A kernel's name without its return type, ``(anonymous
+    namespace)::`` (where the port's kernels live), template arguments,
+    parameters and trailing numbering: ``void (anonymous
+    namespace)::gemv_kernel<true, 4>(float const*, ...)`` ->
+    ``gemv_kernel``."""
+    name = name.replace("(anonymous namespace)::", "")
     name = re.sub(r"^void\s+", "", name.strip())
     name = re.split(r"[<(]", name, maxsplit=1)[0].strip()
     return re.sub(r"[.\d]+$", "", name) or name

@@ -157,6 +157,22 @@ def test_summarize_trace_counts_kernels_by_base_name(tmp_path, capsys):
     assert profiling.summarize_trace(str(tmp_path / "none")) == []
 
 
+@pytest.mark.parametrize("name, want", [
+    ("void (anonymous namespace)::gemv_kernel<true, 4>(float const*)",
+     "gemv_kernel"),
+    ("(anonymous namespace)::paged_attn_kernel<__nv_bfloat16, 128>",
+     "paged_attn_kernel"),
+    ("void at::native::elementwise_kernel<128, 2>(int)",
+     "at::native::elementwise_kernel"),
+    ("nvjet_tss_256x160_64x4_1x2_h_bz_coopA_NNT",
+     "nvjet_tss_256x160_64x4_1x2_h_bz_coopA_NNT"),
+])
+def test_base_name_names_the_ports_kernels(name, want):
+    # the port's kernels live in an anonymous namespace: their names keep
+    # the kernel's own, not "" (the split at the namespace's parenthesis)
+    assert profiling.base_name(name) == want
+
+
 def test_verify_windows_ask_k1_for_the_decode_steps_kernel(monkeypatch):
     """bf16 mode: `Engine`'s prompt-lookup and draft-model windows (5 rows)
     and a dense slot window at 2 slots (10 rows) ask K1 for the GEMV, as
