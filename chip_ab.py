@@ -10,8 +10,10 @@ DIR, this, this, DIR, and reports:
 
 * K1 in bf16 mode (w4, the decode shapes' 0.45% sidecar) at AB_K1_ROWS,
   through the kernel the model's call at those rows takes on that side (a
-  decode step of 12 or 16 slots and a prompt or verify window of 40, 100
-  or 1023 rows);
+  decode step of 1, 8, 12 or 16 slots: the decode tensor-core kernel on a
+  side that has one, else the GEMV; a prompt or verify window of 40, 100
+  or 1023 rows), and at the decode rows the GEMV beside it and the
+  launch's bound (``chip_smoke.bound_ms``);
 * K2 and K5 at chip_smoke.DECODE_LENS valid rows of a 2048-row cache, and
   K3 on bf16 q/k/v at chip_smoke.K3_LENS (mode "bf16" where the wrapper
   takes a mode; by the timer and the profiler, and a digest of its output
@@ -58,9 +60,9 @@ import time
 
 import chip_smoke as cs
 
-AB_K1_ROWS = (12, 16, 40, 100, 1023)
+AB_K1_ROWS = (1, 8, 12, 16, 40, 100, 1023)
 AB_K11_ROWS = (1, 8)
-AB_K1_DECODE_ROWS = (12, 16)
+AB_K1_DECODE_ROWS = (1, 8, 12, 16)
 # 8 slots' lengths in the paged serving run (prompts of 37-300 tokens and
 # up to 32 new ones)
 PAGED_CONTEXTS = (40, 64, 100, 137, 200, 300, 310, 330)
@@ -211,12 +213,14 @@ def worker(root):
     _build.lib()
     timer = cs.Timer(torch)
     dev = torch.device("cuda")
-    out = {"root": root, "k1": {}, "k2": {}, "k5": {}, "k3": {},
-           "k3_device": {}, "k3_sha": {}}
-    # a decode step passes decode=True where the port has it (the GEMV at
-    # any slot count); elsewhere the wrapper's plan picks by the rows
+    out = {"root": root, "k1": {}, "k1_gemv": {}, "k1_bound": {}, "k2": {},
+           "k5": {}, "k3": {}, "k3_device": {}, "k3_sha": {}}
+    # a decode step passes decode=True where the port has it (the decode
+    # tensor-core kernel where the port has one, else the GEMV, at any slot
+    # count); elsewhere the wrapper's plan picks by the rows
     call_site = "decode" in inspect.signature(
         quant_linear.quant_linear_apply).parameters
+    decode_kernel = "dec" if "dec" in lut_matmul.VARIANTS else "gemv"
     gen = torch.Generator(device=dev).manual_seed(19)
     for name, out_f, in_f, _ in cs.K1_SHAPES:
         sp = 0.0 if name == "lm_head" else 0.0045
@@ -226,15 +230,27 @@ def worker(root):
         if "sp_rowptr" in t:
             kw = dict(rowptr=t["sp_rowptr"], cols=t["sp_cols"],
                       vals=t["sp_vals"])
-        out["k1"][name] = {}
+        out["k1"][name], out["k1_gemv"][name] = {}, {}
+        out["k1_bound"][name] = {}
+        nnz = t["sp_vals"].numel() if kw else 0
         for M in AB_K1_ROWS:
             x = torch.randn(M, in_f, generator=gen,
                             device=dev).to(torch.bfloat16)
-            variant = ("gemv" if call_site and M in AB_K1_DECODE_ROWS
-                       else None)
+            decode = call_site and M in AB_K1_DECODE_ROWS
+            variant = decode_kernel if decode else None
             out["k1"][name][M] = timer.ms(lambda: lut_matmul.lut_matmul(
                 x, t["qweight"], t["lut"], 4, mode="bf16", variant=variant,
                 **kw))
+            if decode:
+                out["k1_gemv"][name][M] = timer.ms(
+                    lambda: lut_matmul.lut_matmul(
+                        x, t["qweight"], t["lut"], 4, mode="bf16",
+                        variant="gemv", **kw))
+                nbytes = (t["qweight"].numel() * 4 + t["lut"].numel() * 4
+                          + x.numel() * 2 + M * out_f * 4
+                          + (nnz * 8 + (out_f + 1) * 4 if nnz else 0))
+                out["k1_bound"][name][M] = cs.bound_ms(nbytes, [
+                    (2 * M * in_f * out_f, "bf16"), (2 * M * nnz, "f32")])[0]
         del t
 
     out.update(k4_k11_ms(torch, timer, dequant_dense, lut_matmul_t))
@@ -417,6 +433,12 @@ def main(other):
                   f"{r[k].get('idle_share')}, profile failed: "
                   f"{r[k].get('profile_failed')}), eager {eh} / {ed} "
                   f"[{smi}]")
+        print(f"{label} ({r['root']}): K1 at the decode rows, the model's "
+              f"kernel / the GEMV / the bound, ms: " + "; ".join(
+                  f"{n} M={m}: {r['k1'][n][m]:.4f} / {g:.4f} / "
+                  f"{r['k1_bound'][n][m]:.4f}"
+                  for n, by in r["k1_gemv"].items() for m, g in by.items())
+              + f" [{smi}]")
         print(f"{label} ({r['root']}, {r['seconds']:.0f} s): K1 ms {r['k1']} "
               f"K2 ms {r['k2']} K5 ms {r['k5']} K3 ms {r['k3']} (causal "
               f"sdpa at {cs.K3_LENS[-1]}: {r['k3_causal_sdpa_ms']:.4f}); "

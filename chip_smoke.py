@@ -34,7 +34,8 @@ checking after each that it went through its kernels:
   cache, the same 16 requests: f32 greedy by steps, windows, speculation
   and the plain path (K1, K2, K3; K4 where six 300-token prompts are
   admitted together), bf16 sampled admitted in reverse, the int8 cache
-  (K5), one bf16 decode step at 8 slots held to 4L+1 K1 (GEMV) and L K2
+  (K5), one bf16 decode step at 8 slots held to 4L+1 K1 (its decode
+  kernel) and L K2
   launches, the step's host and device time beside the paged engine's;
   then server.serve over the bf16 engine answering eight concurrent HTTP
   completions (greedy answers held to a fresh engine's run()), and the
@@ -130,13 +131,21 @@ K3_LENS = PROMPT_LENS + (2048,)  # and the eval stride
 # decode, 8 slots, 16 rows, a verify window of 5 x 8 slots, a prompt
 K1_ROWS = (1, 8, 16, 40, 100)
 K10_ROWS = K1_ROWS
-# the rows a decode step gives K1 (one token a slot: the GEMV in bf16
-# mode, as the model asks, as it does for a verify window of up to 16
-# rows); the others are prompts and the 40-row verify window of 8 slots
-# (the tensor-core kernel in bf16 mode)
+# the rows a decode step gives K1 (one token a slot: the decode tensor-core
+# kernel in bf16 mode, the GEMV in exact mode, as the model asks, as it
+# does for a verify window of up to 16 rows); the others are prompts and
+# the 40-row verify window of 8 slots (the prefill tensor-core kernel in
+# bf16 mode)
 K1_DECODE_ROWS = (1, 8, 16)
-# bf16 mode: both K1 kernels (GEMV, tensor cores) are timed at these rows
-# to place their crossover
+
+
+def decode_variant(M, mode):
+    """The K1/K10 kernel the model's call of M rows in `mode` asks for, M
+    taken as a decode step's when it is one of K1_DECODE_ROWS."""
+    return "dec" if M in K1_DECODE_ROWS and mode == "bf16" else None
+
+# bf16 mode: K1's three kernels (GEMV, decode and prefill tensor-core
+# kernels) are timed at these rows to place their crossover
 CROSS_ROWS = (8, 12, 16, 17, 24, 32, 40)
 # K2 and K5: valid rows of a 2048-row cache; the decode profile at a long
 # context starts here
@@ -405,7 +414,7 @@ def check_k1(torch, timer, record, shapes=K1_SHAPES, rows=K1_ROWS,
                                      device=dev).to(dt)
                     args = (x, t["qweight"], t["lut"], bits)
                     # the kernel the model's call at these rows takes
-                    kw["variant"] = "gemv" if M in K1_DECODE_ROWS else None
+                    kw["variant"] = decode_variant(M, mode)
                     got = lut_matmul.lut_matmul(*args, y0=y0, mode=mode, **kw)
                     again = lut_matmul.lut_matmul(*args, y0=y0, mode=mode,
                                                   **kw)
@@ -454,18 +463,23 @@ def check_k1(torch, timer, record, shapes=K1_SHAPES, rows=K1_ROWS,
                         variant=lut_matmul.plan(M, in_f, out_f, bits, mode,
                                                 kw["variant"]).variant)
                     row["gb_s"] = nbytes / row["ms"] / 1e6
+                    if kw["variant"] == "dec":  # the GEMV it replaced
+                        row["gemv_ms"] = timer.ms(
+                            lambda: lut_matmul.lut_matmul(
+                                *args, y0=y0, mode=mode,
+                                **dict(kw, variant="gemv")))
                     if M == 1 and nnz:  # the same launch, sidecar withheld
                         bare = lut_matmul.lut_matmul(*args, y0=y0, mode=mode,
-                                                     variant="gemv")
+                                                     variant=kw["variant"])
                         want = lut_matmul.lut_matmul_plain(*args, y0=y0,
                                                            mode=mode)
                         if rel_err(bare, want) > TOL_K1[mode]:
                             raise AssertionError(f"K1 {name} w{bits} {mode} "
                                                  f"without its sidecar")
                         row["ms_no_sidecar"] = timer.ms(
-                            lambda: lut_matmul.lut_matmul(*args, y0=y0,
-                                                          mode=mode,
-                                                          variant="gemv"))
+                            lambda: lut_matmul.lut_matmul(
+                                *args, y0=y0, mode=mode,
+                                variant=kw["variant"]))
                     record[key].append(row)
             del t, w32, lib_w
     print(f"  {label} ms (bound by b=bytes/o=operations, plain, library "
@@ -480,6 +494,7 @@ def check_k1(torch, timer, record, shapes=K1_SHAPES, rows=K1_ROWS,
             f"{q['mode']} {q['ms']:.4f} ({q['bound_ms']:.4f}"
             f"{q['bound_by'][0]}, {q['plain_ms']:.3f}, {q['library_ms']:.4f}"
             f", {q['variant']})" for q in (r, e)) + (
+            f"  bf16 GEMV {r['gemv_ms']:.4f}" if "gemv_ms" in r else "") + (
             f"  no sidecar bf16 {r['ms_no_sidecar']:.4f} exact "
             f"{e['ms_no_sidecar']:.4f}" if "ms_no_sidecar" in r else ""))
     for M in (m for m in (1, 8) if m in rows):
@@ -506,10 +521,10 @@ def check_k1(torch, timer, record, shapes=K1_SHAPES, rows=K1_ROWS,
 
 
 def check_k1_cross(torch, timer, record):
-    """Both K1 kernels in bf16 mode (w4, the decode shapes' 0.45% sidecar)
-    at CROSS_ROWS: each held to the plain version, and timed, to place
-    their crossover (a decode step takes the GEMV at any slot count, every
-    other call the tensor-core kernel)."""
+    """K1's three kernels in bf16 mode (w4, the decode shapes' 0.45%
+    sidecar) at CROSS_ROWS: each held to the plain version, and timed, to
+    place their crossover (a decode step takes the decode tensor-core
+    kernel at any slot count, every other call the prefill one)."""
     from squeezellm_tpu_torch import synthetic
     from squeezellm_tpu_torch.ops import lut_matmul
 
@@ -540,14 +555,17 @@ def check_k1_cross(torch, timer, record):
                 row[f"{v}_ms"] = timer.ms(run)
             record["k1_cross"].append(row)
         del t
-    print("  K1 crossover, w4 bf16 (ms: GEMV / tensor cores; a decode step "
-          "takes the GEMV, every other call the tensor cores)")
+    print("  K1 crossover, w4 bf16 (ms: GEMV / decode / prefill kernel; a "
+          "decode step takes the decode kernel, every other call the "
+          "prefill kernel)")
     for name, *_ in K1_SHAPES:
         print(f"  K1 {name:8s} " + "  ".join(
-            f"M={r['M']}: {r['gemv_ms']:.4f} / {r['mma_ms']:.4f}"
+            f"M={r['M']}: " + " / ".join(
+                f"{r[v + '_ms']:.4f}" for v in ("gemv", "dec", "mma"))
             for r in record["k1_cross"] if r["shape"] == name))
-    print(f"K1 crossover ok: {len(record['k1_cross'])} row counts x 2 "
-          f"kernels within {TOL_K1['bf16']} of max |y|")
+    print(f"K1 crossover ok: {len(record['k1_cross'])} row counts x "
+          f"{len(lut_matmul.VARIANTS)} kernels within {TOL_K1['bf16']} of "
+          f"max |y|")
 
 
 def check_k2(torch, timer, record):
@@ -992,7 +1010,7 @@ def check_k10(torch, timer, record):
                 x = torch.randn(M, in_f, generator=gen, device=dev).to(dt)
                 y0 = torch.randn(M, out_f, generator=gen, device=dev).to(dt)
                 args = (x, t["qweight"], a, d)
-                variant = "gemv" if M in K1_DECODE_ROWS else None
+                variant = decode_variant(M, mode)
 
                 def kernel():
                     return lut_matmul.lut_matmul_struct(
@@ -1366,7 +1384,8 @@ def profile_decode(torch, eng, ids, steps=8, start=2):
 
 
 # a decode step's linears' kernels by name, for their shares of a trace
-STEP_KERNELS = {"K1 GEMV": ("gemv_kernel",), "K11": ("k11_kernel",),
+STEP_KERNELS = {"K1 GEMV": ("gemv_kernel",),
+                "K1 decode": ("dec_mma_kernel",), "K11": ("k11_kernel",),
                 "K12": K12_KERNELS}
 
 
@@ -1792,12 +1811,12 @@ def run_speculation(torch, model, record):
     their launches held to their windows; the target as its own draft
     (acceptance reported); in bf16 mode the share of tokens that agree
     with greedy, reported, not held: a verify window's linears take the
-    decode step's GEMV (``Step.lin``), but its attention is K3 (rope in
+    decode step's kernel (``Step.lin``), but its attention is K3 (rope in
     bf16, P rounded to bf16) where a decode step's is K2, as the JAX
     package splits them. The share is also taken with the windows on K1's
-    tensor-core kernel (``window_gemv=False``), the routing before windows
-    took the GEMV, and one bf16 prompt-lookup window (5 rows) is timed
-    with either routing."""
+    prefill kernel (``window_decode=False``), the routing before windows
+    took the decode kernel, and one bf16 prompt-lookup window (5 rows) is
+    timed with either routing."""
     import numpy as np
 
     from squeezellm_tpu_torch import engine
@@ -1847,7 +1866,7 @@ def run_speculation(torch, model, record):
         if mode == "bf16":
             # a fresh engine: a captured window replays the kernels it
             # was captured with
-            tc = engine.Engine(model, **ekw, window_gemv=False)
+            tc = engine.Engine(model, **ekw, window_decode=False)
             for name, fn, args in (
                     ("lookup", tc.generate_speculative, ()),
                     ("draft", tc.generate_draft_speculative, (draft,))):
@@ -1856,14 +1875,16 @@ def run_speculation(torch, model, record):
                     fn(prompt, NEW_TOKENS, *args, draft_len=K, **kw2, **kw),
                     dict(tc.spec_stats))
             res["bf16_lookup_window"] = {}
-            for label, e in (("GEMV", eng), ("tensor cores", tc)):
+            for label, e in (("decode kernel", eng), ("prefill kernel",
+                                                      tc)):
                 # after a call every token is emitted: each replay of the
                 # window verifies its 5 rows at one position
                 e.generate_speculative(prompt, NEW_TOKENS, draft_len=K,
                                        ngram=ngram, **kw)
                 res["bf16_lookup_window"][label] = window_ms(
                     torch, e._state[2]["window"], f"Engine bf16 prompt-"
-                    f"lookup window, {label}", k1_call, label == "GEMV")
+                    f"lookup window, {label}", k1_call,
+                    label == "decode kernel")
             print_window_ms(f"w4 bf16 Engine prompt-lookup window ({K + 1} "
                             f"rows)", res["bf16_lookup_window"])
             del tc
@@ -1893,12 +1914,12 @@ def run_speculation(torch, model, record):
     return res
 
 
-def window_ms(torch, window, label, k1_call, gemv, n=8):
+def window_ms(torch, window, label, k1_call, dec, n=8):
     """Host and device ms of one call of `window` (one verify window: an
     Engine's step program, or a serving engine's ``step_spec_window``)
     over `n` calls after a warm-up call, each of the `n` on the host clock
     together, then traced. Holds its K1 launches to `k1_call` a window,
-    all through the GEMV when `gemv`, else none."""
+    all through bf16 mode's decode kernel when `dec`, else none."""
     window()
     torch.cuda.synchronize()
     reset_counts()
@@ -1908,10 +1929,10 @@ def window_ms(torch, window, label, k1_call, gemv, n=8):
     torch.cuda.synchronize()
     host = (time.perf_counter() - t0) / n * 1e3
     k1 = counters()[0]
-    on_gemv = k1.variant_launches.get("gemv", 0)
-    if k1.launches != k1_call * n or on_gemv != (k1.launches if gemv else 0):
+    on_dec = k1.variant_launches.get("dec", 0)
+    if k1.launches != k1_call * n or on_dec != (k1.launches if dec else 0):
         raise AssertionError(f"{label}: {k1.launches} K1 launches in {n} "
-                             f"windows, {on_gemv} of them the GEMV")
+                             f"windows, {on_dec} of them the decode kernel")
 
     def run():
         for _ in range(n):
@@ -1923,12 +1944,12 @@ def window_ms(torch, window, label, k1_call, gemv, n=8):
             else sum(by_name.values()) / n,
             "k1_ms": None if by_name is None else sum(
                 v for k, v in by_name.items()
-                if re.search(r"\b(gemv|mma)_kernel\b", k)) / n}
+                if re.search(r"\b(gemv|mma|dec_mma)_kernel\b", k)) / n}
 
 
 def print_window_ms(label, reads, smi=""):
-    print(f"{label}, linears through K1's GEMV against its tensor-core "
-          f"kernel: " + "; ".join(
+    print(f"{label}, linears through K1's decode kernel against its "
+          f"prefill kernel: " + "; ".join(
               f"{k} {r['host_ms']:.3f} ms on the host clock, device "
               + ("not measured" if r["device_ms"] is None else
                  f"{r['device_ms']:.3f} (K1 {r['k1_ms']:.3f})")
@@ -2811,22 +2832,23 @@ def run_dense_slots(torch, config, record, smi):
           f"tokens equal the f32 cache's (reported)")
 
     # (iv) one bf16 decode step at 8 active slots: 129 K1 launches, all the
-    # GEMV, and 32 K2
+    # decode kernel, and 32 K2
     eng = engine(**bkw)
     eng.add_requests(prompts[:PAGED_SLOTS], 8)
     eng.step()  # the capture
     reset_counts()
     eng.step()
     torch.cuda.synchronize()
-    gemv = counters()[0].variant_launches.get("gemv", 0)
+    dec = counters()[0].variant_launches.get("dec", 0)
     res["decode_step_launches"] = expect_counts(
         record, "dense bf16 decode step at 8 slots", [k1_call, L])
-    if gemv != k1_call:
-        raise AssertionError(f"dense decode step: {gemv} of {k1_call} K1 "
-                             f"launches ran the GEMV")
+    if dec != k1_call:
+        raise AssertionError(f"dense decode step: {dec} of {k1_call} K1 "
+                             f"launches ran the decode kernel")
     cancel_all(eng)
     print(f"dense bf16 decode step at {PAGED_SLOTS} slots: launches K1..K12 "
-          f"{res['decode_step_launches']}, all {gemv} K1 launches the GEMV")
+          f"{res['decode_step_launches']}, all {dec} K1 launches the decode "
+          f"kernel")
     del eng
 
     # (v) host and device time a step at 8 active slots, beside the paged
@@ -2857,12 +2879,12 @@ def run_dense_slots(torch, config, record, smi):
                   f"{k} {v:.3f}" for k, v in prof["top_ms_per_step"])
               + f" [{smi}]")
     # one speculative window of an engine of 2 slots (10 rows), its
-    # linears through K1's GEMV (the default) and its tensor-core kernel
+    # linears through K1's decode kernel (the default) and its prefill one
     res["spec_window_2_slots"] = {}
-    for label, g in (("GEMV", True), ("tensor cores", False)):
+    for label, g in (("decode kernel", True), ("prefill kernel", False)):
         eng = serving.ContinuousBatchEngine(
             model, slots=2, max_seq=DENSE_MAX_SEQ, speculative=SPECULATIVE,
-            window_gemv=g, **bkw)
+            window_decode=g, **bkw)
         eng.add_requests(prompts[:2], 3 * NEW_TOKENS)
         eng.step_spec_window()  # the capture
         res["spec_window_2_slots"][label] = window_ms(
@@ -4131,6 +4153,7 @@ def ptxas_lines(source):
                                      "flash_attn_kernel",
                                      "decode_attn_kernel",
                                      "paged_attn_kernel", "gemv_kernel",
+                                     "dec_mma_kernel",
                                      "mma_kernel", "k4_dequant_kernel",
                                      "k11_kernel", "spmv_interleave_kernel",
                                      "spmv_kernel") if k in mangled),

@@ -8,7 +8,7 @@
 // 17..1023 rows, the sparse add of `_spmv_kernel` (`gather_spmv`): the CSR
 // fold below serves every row count, so no slot plans are needed.
 //
-// K10 (slt_lut_matmul_struct) is the same two kernels with a second table
+// K10 (slt_lut_matmul_struct) is the same three kernels with a second table
 // form, for 4-bit STRUCTURED codebooks lut[c] = A[c & 7] + (c >> 3) * d
 // (quantize/kmeans.fit_structured_luts). It replaces the structured bodies
 // of the TPU kernels (`_dequant_plane_struct_sel` and the structured branch
@@ -22,13 +22,13 @@
 // accumulation); the sparse fold always reads x unrounded, transposed
 // (xt, made by the wrapper; x itself at one row) and from L2.
 //
-// Two kernels, picked per call by the caller and laid out by the wrapper
+// Three kernels, picked per call by the caller and laid out by the wrapper
 // (ops/lut_matmul.py `plan`, a pure function): the call site picks, never
 // the row count, so a row's bits do not depend on its batch.
 //
-// gemv_kernel, the decode step's kernel in bf16 mode at any slot count and
-// exact mode's at every row count (16 rows a tile). Bound by the packed words' bytes (25 MB for the fused
-// 4-bit q|k|v of LLaMA-2-7B, 7.5 us at 3.35 TB/s). Design:
+// gemv_kernel, exact mode's kernel at every row count (16 rows a tile).
+// Bound by the packed words' bytes (25 MB for the fused 4-bit q|k|v of
+// LLaMA-2-7B, 7.5 us at 3.35 TB/s). Design:
 //  * a block owns 128 output columns; a lane owns 4 adjacent ones, so a
 //    warp reads a word row's 512 contiguous bytes;
 //  * the words are split across `splits` blocks of a column tile (the
@@ -56,10 +56,45 @@
 //    block; no value is summed by an atomic) adds them in order, then y0.
 //    Same inputs, same bits, every launch.
 //
+// dec_mma_kernel, bf16 mode's decode calls (a decode step at any slot
+// count, a verify window of at most 16 rows): the GEMV's products, bf16 x
+// bf16 with f32 accumulation, on the tensor cores, so that 16 rows cost
+// about what one does. Bound by the words' bytes at every decode row count.
+// mma.sync m16n8k16 with the weights as A (16 output columns an m-tile)
+// and the x rows as N (one n8 tile up to 8 rows, two up to 16; 16-row
+// tiles beyond):
+//  * k is permuted inside each group of 4 word rows, for A and x alike:
+//    lane (g, t) of a warp takes all its A elements of a group's products
+//    from word row t of the group (product h, h < ceil(codes / 4), takes
+//    codes 4h .. 4h + 3; 3-bit words pad the last product with zeros), and
+//    its x from those codes' inputs, one vector load a row;
+//  * each A row is one column: lane (g, t) of column quarter p holds
+//    columns 4g .. 4g + 3 of its 32 (m-tiles 2p, 2p + 1), so one 16-byte
+//    load brings its four words; staged word rows are padded to 136 words,
+//    so those loads never conflict;
+//  * the words are dequantized straight into A fragments through the
+//    block's bf16-rounded table, kept 4 times ([code][column % 4][column /
+//    4][t]), so that the 4 lanes of a column read 4 banks and 32 lookups of
+//    any codes never conflict (one shift, one LOP3, one load an element;
+//    pairs joined by one PRMT);
+//  * the GEMV's ring (16-word stages), its sidecar fold blocks and its
+//    last-block sum of a tile's partials; warp w takes word group w % 4 of
+//    a stage and column half w / 4, and the 4 warps of a half are summed in
+//    a fixed tree. The fold blocks (`folds` a column tile) come after the
+//    word blocks, whose partials come first in the sum: a fold block holds
+//    one of an SM's two slots as a word block does, so fold blocks
+//    launched first would keep the word stream waiting. The last block
+//    loads each partial of its tile's values together (a trip to L2 a
+//    partial, not one a value);
+//  * the k-split is fixed per layer shape and no sum depends on the row
+//    count, nor on whether a call runs one n8 tile or two: a row gets the
+//    same bits at any M and any place in the batch.
+//
 // mma_kernel, bf16 mode's other calls (prompts, prefill chunks, verify
-// windows, an eval forward below 1024 rows): bound by the products from ~80
-// rows, which are bf16 x bf16 with f32 accumulation, what the tensor cores
-// do at 989 TFLOP/s. A block computes 64 rows x 128 columns:
+// windows of more than 16 rows, an eval forward below 1024 rows): bound by
+// the products from ~80 rows, which are bf16 x bf16 with f32 accumulation,
+// what the tensor cores do at 989 TFLOP/s. A block computes 64 rows x 128
+// columns:
 //  * a 4-stage cp.async ring brings 8-word tiles of qweight and the
 //    matching bf16 x tile; a k-step ahead of the products, each stage's
 //    words are dequantized through the bf16-rounded shared table into one
@@ -72,7 +107,8 @@
 //  * the sidecar's fold block and the k-split end as in the GEMV; the
 //    k-split is fixed per layer shape, whatever the row count.
 // f32 x in bf16 mode is rounded on its way into shared memory through
-// registers (not cp.async). Exact mode never takes this kernel: TF32 or
+// registers (not cp.async), and into the decode kernel's B fragments in
+// registers. Exact mode never takes either tensor-core kernel: TF32 or
 // bf16 operands would change its numbers.
 #include "common.cuh"
 
@@ -99,25 +135,31 @@ using slt::cp_async_commit;
 using slt::cp_async_part;
 using slt::cp_async_wait;
 
-// The block's table, shared by both kernels: tab[slot(c, k)] = table value
-// of code k for column col0 + c (0 past out_f), rounded in bf16 mode (the
-// MMA kernel keeps it as bf16, ready for its B tiles). A
-// structured table (sd set, 4-bit) is A (out, 8) and d (out,).
+// Table value of code k for column col (0 past out_f): lut[col][k], or for
+// a structured table (sd set, 4-bit) A (out, 8) and d (out,).
+template <int K>
+__device__ __forceinline__ float table_value(const float* lut,
+                                             const float* sd, int col, int k,
+                                             int out_f) {
+  if (col >= out_f) return 0.f;
+  if (sd) {
+    float v = lut[(size_t)col * 8 + (k & 7)];
+    if (k & 8) v += sd[col];
+    return v;
+  }
+  return lut[(size_t)col * K + k];
+}
+
+// The block's table for the GEMV and the MMA kernel: tab[slot(c, k)] =
+// table value of code k for column col0 + c, rounded in bf16 mode (the MMA
+// kernel keeps it as bf16, ready for its B tiles).
 template <int K, bool LANE_MAJOR, typename T>  // float; uint32_t
 __device__ __forceinline__ void load_table(T* tab, const float* lut,
                                            const float* sd, int col0,
                                            int out_f, int bf16_mode) {
   for (int t = threadIdx.x; t < kCols * K; t += kThreads) {
     const int c = t / K, k = t % K;
-    float v = 0.f;
-    if (col0 + c < out_f) {
-      if (sd) {
-        v = lut[(size_t)(col0 + c) * 8 + (k & 7)];
-        if (k & 8) v += sd[col0 + c];
-      } else {
-        v = lut[(size_t)(col0 + c) * K + k];
-      }
-    }
+    const float v = table_value<K>(lut, sd, col0 + c, k, out_f);
     // GEMV: [k][c % 4][c / 4]: lane l's entries (columns 4l..4l+3) all lie
     // in bank l, so 32 lookups of any codes never conflict, and an entry's
     // byte offset is the lane's base OR'd with k << 9 (lut_offsets);
@@ -150,6 +192,38 @@ __device__ __forceinline__ uint32_t code_offset(uint32_t wd) {
   return v & (((1u << BITS) - 1) << 9);
 }
 
+// Rows base .. base + R of xt (f32 or bf16) as f32 through 16-byte loads,
+// those from row nr on left 0; base and nr are whole 16-byte vectors.
+template <int R>
+__device__ __forceinline__ void load_rows(float (&xv)[R], const void* xt,
+                                          int x_bf16, size_t base, int nr) {
+  if (x_bf16) {
+    const uint4* p = reinterpret_cast<const uint4*>(
+        static_cast<const __nv_bfloat16*>(xt) + base);
+#pragma unroll
+    for (int k = 0; k < (R + 7) / 8; ++k) {
+      const uint4 q = k * 8 < nr ? p[k] : make_uint4(0u, 0u, 0u, 0u);
+      const uint32_t w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        if (8 * k + j < R)
+          xv[8 * k + j] = __uint_as_float(
+              j & 1 ? w[j / 2] & 0xffff0000u : w[j / 2] << 16);
+    }
+  } else {
+    const float4* p = reinterpret_cast<const float4*>(
+        static_cast<const float*>(xt) + base);
+#pragma unroll
+    for (int k = 0; k < (R + 3) / 4; ++k) {
+      const float4 q = k * 4 < nr ? p[k] : make_float4(0.f, 0.f, 0.f, 0.f);
+      const float w[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (4 * k + j < R) xv[4 * k + j] = w[j];
+    }
+  }
+}
+
 // The sidecar fold of a block's tile: Cs [rows][kCsStride] (f32, zeroed by
 // the caller) += sparse(x) for rows m0.. and columns col0.. Warp w takes
 // columns w * 16 .. + 15, 8 lanes a column (lane l: columns w * 16 + 4 cg
@@ -161,7 +235,11 @@ __device__ __forceinline__ uint32_t code_offset(uint32_t wd) {
 // rounds,
 // and no value is summed by an atomic. Products are f32 on the unrounded
 // x, read transposed, xt (in, M), so that an entry's rows share a sector.
-template <int R>
+// VEC (the decode kernel): where M is a multiple of a 16-byte vector's
+// rows, an entry's rows come in 16-byte loads, not one load a row (one
+// trip to the entry's line for 8 bf16 rows, not 8); the products and their
+// order are the same either way.
+template <int R, bool VEC = false>
 __device__ __forceinline__ void fold_tile(float* Cs, int rows, const void* xt,
                                           int x_bf16,
                                           const int* __restrict__ rowptr,
@@ -187,6 +265,10 @@ __device__ __forceinline__ void fold_tile(float* Cs, int rows, const void* xt,
   int most = 0;  // the lane's longest part: rounds of E entries
 #pragma unroll
   for (int cg = 0; cg < 4; ++cg) most = max(most, e1[cg] - e0[cg]);
+  // an entry's rows m0 + r0 .. start 16-byte aligned, and a tile's rows
+  // are whole vectors (m0 is a multiple of R)
+  const bool vec = VEC && M % (x_bf16 ? 8 : 4) == 0 &&
+                   reinterpret_cast<uintptr_t>(xt) % 16 == 0;
   for (int r0 = 0; r0 < rows && m0 + r0 < M; r0 += R) {
     const int nr = min(R, min(rows, M - m0) - r0);
     float f[4][R];
@@ -211,6 +293,16 @@ __device__ __forceinline__ void fold_tile(float* Cs, int rows, const void* xt,
 #pragma unroll
         for (int u = 0; u < E; ++u) {
           const size_t base = (size_t)c[cg][u] * M + m0 + r0;
+          if constexpr (VEC) {
+            if (vec) {
+              float xv[R];
+              load_rows<R>(xv, xt, x_bf16, base, nr);
+#pragma unroll
+              for (int m = 0; m < R; ++m)
+                if (m < nr) f[cg][m] = fmaf(v[cg][u], xv[m], f[cg][m]);
+              continue;
+            }
+          }
 #pragma unroll
           for (int m = 0; m < R; ++m)
             if (m < nr)
@@ -284,7 +376,11 @@ __device__ __forceinline__ void store_out(float v, int row, int col,
 
 // After every thread stored its partials: the last of the tile's `splits`
 // blocks to get here sums the partials in split order, adds y0, writes y
-// and resets the tile's counter for the next launch.
+// and resets the tile's counter for the next launch. E > 0 (the decode
+// kernel, whose tile of `rows` x kCols is E values a thread): a thread's E
+// values load each partial together, so that a partial costs one trip to
+// L2, not E; the sums are the same.
+template <int E = 0>
 __device__ __forceinline__ void splitk_finish(
     float* __restrict__ y, const float* ws, int* counters, const void* y0,
     int y0_bf16, int M, int out_f, int splits, int m0, int rows, int col0) {
@@ -297,35 +393,60 @@ __device__ __forceinline__ void splitk_finish(
   __syncthreads();
   if (!last) return;
   __threadfence();
-  const int ncol = min(kCols, out_f - col0);
-  const int nrow = min(rows, M - m0);
-  for (int t = threadIdx.x; t < nrow * ncol; t += kThreads) {
-    const int r = t / ncol, c = t % ncol;
-    const size_t yi = (size_t)(m0 + r) * out_f + col0 + c;
-    float v = y0 ? load_act(y0, y0_bf16, yi) : 0.f;
-    float s = 0.f;
-    for (int k = 0; k < splits; ++k)
-      s += __ldcg(ws + (size_t)k * M * out_f + yi);
-    y[yi] = v + s;
+  if constexpr (E == 0) {
+    const int ncol = min(kCols, out_f - col0);
+    const int nrow = min(rows, M - m0);
+    for (int t = threadIdx.x; t < nrow * ncol; t += kThreads) {
+      const int r = t / ncol, c = t % ncol;
+      const size_t yi = (size_t)(m0 + r) * out_f + col0 + c;
+      float v = y0 ? load_act(y0, y0_bf16, yi) : 0.f;
+      float s = 0.f;
+      for (int k = 0; k < splits; ++k)
+        s += __ldcg(ws + (size_t)k * M * out_f + yi);
+      y[yi] = v + s;
+    }
+  } else {
+    float s[E];
+    size_t yi[E];
+    bool ok[E];
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int t = threadIdx.x + e * kThreads;
+      const int r = t / kCols, c = t % kCols;
+      ok[e] = m0 + r < M && col0 + c < out_f;
+      yi[e] = ok[e] ? (size_t)(m0 + r) * out_f + col0 + c : 0;
+      s[e] = 0.f;
+    }
+    for (int k = 0; k < splits; ++k) {
+      const float* p = ws + (size_t)k * M * out_f;
+#pragma unroll
+      for (int e = 0; e < E; ++e)
+        if (ok[e]) s[e] += __ldcg(p + yi[e]);
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      if (ok[e])
+        y[yi[e]] = (y0 ? load_act(y0, y0_bf16, yi[e]) : 0.f) + s[e];
   }
   if (threadIdx.x == 0) *cnt = 0;
 }
 
-// One of the `folds` sidecar blocks of a column tile (blockIdx.y < folds;
-// the k-split's blocks follow them): its share of the fold of rows m0..
-// into Cs (`rows` x kCsStride floats of shared memory), stored as partial
-// blockIdx.y. Blocks start in blockIdx order, so the gathers run beside the
-// word stream of the tile's other blocks, not after it.
-template <int R>
+// Fold block f of the `folds` sidecar blocks of a column tile: its share
+// of the fold of rows m0.. into Cs (`rows` x kCsStride floats of shared
+// memory), stored as partial blockIdx.y. In the GEMV and the MMA kernel
+// the fold blocks come first (f = blockIdx.y): blocks start in blockIdx
+// order, so the gathers run beside the word stream of the tile's other
+// blocks, not after it. The decode kernel's come last (see there).
+template <int R, int E = 0, bool VEC = false>
 __device__ __forceinline__ void fold_block(
     float* Cs, int rows, const void* xt, int x_bf16, const int* rowptr,
     const int* cols, const float* vals, float* y, float* ws, int* counters,
     const void* y0, int y0_bf16, int M, int out_f, int m0, int col0,
-    int folds, int parts) {
+    int f, int folds, int parts) {
   for (int t = threadIdx.x; t < rows * kCsStride; t += kThreads) Cs[t] = 0.f;
   __syncthreads();
-  fold_tile<R>(Cs, rows, xt, x_bf16, rowptr, cols, vals, M, out_f, m0,
-               col0, blockIdx.y, folds);
+  fold_tile<R, VEC>(Cs, rows, xt, x_bf16, rowptr, cols, vals, M, out_f, m0,
+                    col0, f, folds);
   __syncthreads();
   for (int t = threadIdx.x; t < rows * kCols; t += kThreads) {
     const int r = t / kCols, c = t % kCols;
@@ -333,8 +454,8 @@ __device__ __forceinline__ void fold_block(
       store_out(Cs[r * kCsStride + c], m0 + r, col0 + c, y, ws, y0, y0_bf16,
                 M, out_f, parts);
   }
-  splitk_finish(y, ws, counters, y0, y0_bf16, M, out_f, parts, m0, rows,
-                col0);
+  splitk_finish<E>(y, ws, counters, y0, y0_bf16, M, out_f, parts, m0, rows,
+                   col0);
 }
 
 // ---------------------------------------------------------------------------
@@ -396,17 +517,19 @@ __device__ __forceinline__ void stage_rows(char* dst, int row, const XT* x,
   }
 }
 
-// The 16 x 128 words of word rows [w0, w0 + 16) into `dst`, zeros past
-// w_end and out_f: 16-byte copies when `vec`, else 4-byte ones.
+// The rows x 128 words of word rows [w0, w0 + rows) into `dst` (rows of
+// `stride` words), zeros past w_end and out_f: 16-byte copies when `vec`,
+// else 4-byte ones.
 __device__ __forceinline__ void stage_words(uint32_t* dst,
                                             const uint32_t* __restrict__ qw,
                                             int rows, int w0, int w_end,
-                                            int col0, int out_f, int vec) {
+                                            int col0, int out_f, int vec,
+                                            int stride = kCols) {
   if (vec) {
     for (int t = threadIdx.x; t < rows * kCols / 4; t += kThreads) {
       const int w = t / (kCols / 4), c = (t % (kCols / 4)) * 4;
       const bool ok = w0 + w < w_end && col0 + c < out_f;
-      cp_async_part<16>(dst + w * kCols + c,
+      cp_async_part<16>(dst + w * stride + c,
                         ok ? qw + (size_t)(w0 + w) * out_f + col0 + c : qw,
                         ok ? 16 : 0);
     }
@@ -414,7 +537,7 @@ __device__ __forceinline__ void stage_words(uint32_t* dst,
     for (int t = threadIdx.x; t < rows * kCols; t += kThreads) {
       const int w = t / kCols, c = t % kCols;
       const bool ok = w0 + w < w_end && col0 + c < out_f;
-      cp_async_part<4>(dst + w * kCols + c,
+      cp_async_part<4>(dst + w * stride + c,
                        ok ? qw + (size_t)(w0 + w) * out_f + col0 + c : qw,
                        ok ? 4 : 0);
     }
@@ -506,7 +629,7 @@ __global__ void __launch_bounds__(kThreads, MT <= 2 ? 4 : (MT <= 4 ? 3 : 2))
   if ((int)blockIdx.y < folds) {
     fold_block<MT>(reinterpret_cast<float*>(pipe), MT, xt, sizeof(XT) == 2,
                    rowptr, cols, vals, y, ws, counters, y0, y0_bf16, M,
-                   out_f, m0, col0, folds, parts);
+                   out_f, m0, col0, blockIdx.y, folds, parts);
     return;
   }
 
@@ -704,7 +827,7 @@ __global__ void __launch_bounds__(kThreads)
   if ((int)blockIdx.y < folds) {
     fold_block<16>(reinterpret_cast<float*>(pipe), kMmaRows, xt,
                    sizeof(XT) == 2, rowptr, cols, vals, y, ws, counters, y0,
-                   y0_bf16, M, out_f, m0, col0, folds, parts);
+                   y0_bf16, M, out_f, m0, col0, blockIdx.y, folds, parts);
     return;
   }
 
@@ -790,6 +913,311 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
+// DEC: the decode calls' tensor-core kernel, 8 or 16 rows a tile, bf16 mode
+// ---------------------------------------------------------------------------
+
+constexpr int kDecStages = 4;
+constexpr int kDecWords = 16;  // packed word rows a stage: 4 groups of 4
+// a staged word row in words: 8 past a multiple of 32, so that the 4 rows
+// of a group land on different banks (dec_mma_kernel's 16-byte loads)
+constexpr int kDecWStride = kCols + 8;
+
+template <int BITS, int NT, typename XT>
+struct DecShape {
+  static constexpr int CPW = Pack<BITS>::CPW, K = Pack<BITS>::K;
+  static constexpr int H = (CPW + 3) / 4;  // products a word group
+  static constexpr int ROWS = 8 * NT;
+  static constexpr int SI = kDecWords * CPW;  // inputs a stage
+  // a stage: the words (16 x kDecWStride), then x's rows [m][SI] in XT,
+  // each row padded by 64 bytes, so that the B loads of rows g and g + 1
+  // fall on different banks
+  static constexpr int XROW = SI * (int)sizeof(XT) + 64;
+  static constexpr int W_BYTES = kDecWords * kDecWStride * 4;
+  static constexpr int STAGE = W_BYTES + ROWS * XROW;
+  static constexpr int PIPE = kDecStages * STAGE;
+  static constexpr int RED = 4 * 32 * 16 * NT * 4;  // 4 warps' partials
+  static constexpr int FOLD = ROWS * kCsStride * 4;
+  static constexpr int REST = PIPE > RED ? (PIPE > FOLD ? PIPE : FOLD)
+                                         : (RED > FOLD ? RED : FOLD);
+  static constexpr int TAB = K * kCols * 4 * 4;  // 4 copies of each entry
+  static constexpr int SMEM = TAB + REST;
+};
+
+// The block's bf16 table for dec_mma_kernel: code k of column c at 32-bit
+// word k * 512 + (c % 4) * 128 + (c / 4) * 4 + t, once for each t of 0..3
+// (bf16 in the low half), so that lane (g, t), reading columns 4g + q of a
+// quarter, finds its entries in bank 4g + t whatever the codes: byte offset
+// k << 11 | q << 9 | (c / 4) << 4 | t << 2. A thread writes 4 codes of a
+// column, the lanes of a warp consecutive c / 4, so that their 16-byte
+// stores never conflict.
+template <int K>
+__device__ __forceinline__ void load_dec_table(uint32_t* tab,
+                                               const float* lut,
+                                               const float* sd, int col0,
+                                               int out_f) {
+  constexpr int N = kCols * K / 4 / kThreads;  // 2 (4-bit) or 1 (3-bit)
+#pragma unroll
+  for (int n = 0; n < N; ++n) {  // every load in flight together
+    const int t = threadIdx.x + n * kThreads;
+    const int c = ((t & 31) << 2) | ((t >> 5) & 3), j = t >> 7;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = 4 * j + i;
+      const uint32_t v = __bfloat16_as_ushort(__float2bfloat16_rn(
+          table_value<K>(lut, sd, col0 + c, k, out_f)));
+      *reinterpret_cast<uint4*>(tab + k * 512 + (c & 3) * 128 +
+                                (c >> 2) * 4) = make_uint4(v, v, v, v);
+    }
+  }
+}
+
+// code j of word wd at its table row's byte offset (k << 11)
+template <int BITS>
+__device__ __forceinline__ uint32_t dec_code(uint32_t wd, int j) {
+  const int sh = BITS * j - 11;
+  const uint32_t v = sh >= 0 ? wd >> sh : wd << -sh;
+  return v & (((1u << BITS) - 1) << 11);
+}
+
+// The A fragments of product h for the lane's two m-tiles of a column
+// quarter: a[i] for m-tile 2p + i, whose rows g and g + 8 are columns
+// 4g + 2i and 4g + 2i + 1 (words wd[2i], wd[2i + 1]); slots 2t, 2t + 1,
+// 2t + 8, 2t + 9 of the product hold codes 4h .. 4h + 3 of the word, zeros
+// past its codes (3-bit words pad their last product).
+template <int BITS>
+__device__ __forceinline__ void dec_fragments(uint32_t (&a)[2][4],
+                                              const uint32_t (&wd)[4],
+                                              const uint32_t (&lb)[4],
+                                              const char* tabc, int h) {
+  constexpr int CPW = Pack<BITS>::CPW;
+  uint32_t v[4][4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      v[q][e] = 4 * h + e < CPW
+                    ? *reinterpret_cast<const uint32_t*>(
+                          tabc + (lb[q] | dec_code<BITS>(wd[q], 4 * h + e)))
+                    : 0u;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    a[i][0] = __byte_perm(v[2 * i][0], v[2 * i][1], 0x5410);
+    a[i][1] = __byte_perm(v[2 * i + 1][0], v[2 * i + 1][1], 0x5410);
+    a[i][2] = __byte_perm(v[2 * i][2], v[2 * i][3], 0x5410);
+    a[i][3] = __byte_perm(v[2 * i + 1][2], v[2 * i + 1][3], 0x5410);
+  }
+}
+
+// The B fragments of one x row for the lane's word of a group: b[h] =
+// inputs 4h .. 4h + 3 of the word's CPW as two bf16 pairs (f32 x rounded
+// here; zeros past the word's inputs).
+template <int CPW, typename XT>
+__device__ __forceinline__ void dec_b(uint32_t (&b)[(CPW + 3) / 4][2],
+                                      const char* p) {
+  constexpr int NP = CPW / 2;                // bf16 pairs of the inputs
+  constexpr int NU = (CPW + 3) / 4 * 2;      // pairs the products take
+  uint32_t u[NU];
+  if constexpr (sizeof(XT) == 2) {
+    if constexpr (CPW == 8) {
+      const uint4 q = *reinterpret_cast<const uint4*>(p);
+      u[0] = q.x; u[1] = q.y; u[2] = q.z; u[3] = q.w;
+    } else {
+#pragma unroll
+      for (int j = 0; j < NP; ++j)
+        u[j] = reinterpret_cast<const uint32_t*>(p)[j];
+    }
+  } else {
+    if constexpr (CPW == 8) {
+      const float4 q0 = reinterpret_cast<const float4*>(p)[0];
+      const float4 q1 = reinterpret_cast<const float4*>(p)[1];
+      u[0] = slt::pack_bf16(q0.x, q0.y);
+      u[1] = slt::pack_bf16(q0.z, q0.w);
+      u[2] = slt::pack_bf16(q1.x, q1.y);
+      u[3] = slt::pack_bf16(q1.z, q1.w);
+    } else {
+#pragma unroll
+      for (int j = 0; j < NP; ++j) {
+        const float2 f = reinterpret_cast<const float2*>(p)[j];
+        u[j] = slt::pack_bf16(f.x, f.y);
+      }
+    }
+  }
+#pragma unroll
+  for (int j = NP; j < NU; ++j) u[j] = 0u;
+#pragma unroll
+  for (int h = 0; h < NU / 2; ++h) {
+    b[h][0] = u[2 * h];
+    b[h][1] = u[2 * h + 1];
+  }
+}
+
+// Sums the 4 warps of each column half (grp 0..3) into grp 0's acc in a
+// fixed tree, (0 + 2) + (1 + 3), through `red` (DecShape::RED bytes). The
+// caller syncs before (red aliases the stages).
+template <int NT>
+__device__ __forceinline__ void dec_tree_sum(float (&acc)[4][NT][4],
+                                             float* red, int grp, int half) {
+  const int lane = threadIdx.x & 31;
+  float4* r4 = reinterpret_cast<float4*>(red);
+#pragma unroll
+  for (int h = 2; h >= 1; h /= 2) {
+    if (grp >= h && grp < 2 * h) {
+      float4* dst = r4 + (half * 2 + grp - h) * (4 * NT) * 32 + lane;
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+          dst[(mt * NT + nt) * 32] =
+              make_float4(acc[mt][nt][0], acc[mt][nt][1], acc[mt][nt][2],
+                          acc[mt][nt][3]);
+    }
+    __syncthreads();
+    if (grp < h) {
+      const float4* src = r4 + (half * 2 + grp) * (4 * NT) * 32 + lane;
+#pragma unroll
+      for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          const float4 o = src[(mt * NT + nt) * 32];
+          acc[mt][nt][0] += o.x;
+          acc[mt][nt][1] += o.y;
+          acc[mt][nt][2] += o.z;
+          acc[mt][nt][3] += o.w;
+        }
+    }
+    __syncthreads();
+  }
+}
+
+template <int BITS, int NT, typename XT>
+__global__ void __launch_bounds__(kThreads, 2)
+    dec_mma_kernel(const XT* __restrict__ x, const void* xt, int xalign,
+                   const uint32_t* __restrict__ qw,
+                   const float* __restrict__ lut,
+                   const float* __restrict__ sd,
+                   const int* __restrict__ rowptr,
+                   const int* __restrict__ cols,
+                   const float* __restrict__ vals,
+                   const void* __restrict__ y0, int y0_bf16,
+                   float* __restrict__ y, float* ws, int* counters, int M,
+                   int in_f, int out_f, int vec, int splits,
+                   int words_per_split, int folds) {
+  using S = DecShape<BITS, NT, XT>;
+  constexpr int CPW = S::CPW, K = S::K, H = S::H, ROWS = S::ROWS;
+  extern __shared__ __align__(16) unsigned char smem[];
+  uint32_t* tab = reinterpret_cast<uint32_t*>(smem);
+  char* pipe = reinterpret_cast<char*>(smem) + S::TAB;
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tq = lane & 3;
+  const int grp = warp & 3, half = warp >> 2;  // word group; column half
+  const int col0 = blockIdx.x * kCols;
+  const int m0 = blockIdx.z * ROWS;
+  constexpr int E = ROWS * kCols / kThreads;  // values a thread finishes
+  const int nw = (in_f + CPW - 1) / CPW;
+  const int wb = (int)blockIdx.y * words_per_split;
+  const int we = min(nw, wb + words_per_split);
+  const int i_end = min(in_f, we * CPW);  // inputs past the split are 0
+  const int ns = (we - wb + kDecWords - 1) / kDecWords;
+  const int parts = splits + folds;  // partials a tile
+  // the word blocks first, the fold blocks after them: a fold block holds
+  // a slot as a word block does, and the gathers of a wide layer's many
+  // fold blocks would otherwise keep its word stream waiting
+  if ((int)blockIdx.y >= splits) {
+    fold_block<ROWS, E, true>(reinterpret_cast<float*>(pipe), ROWS, xt,
+                              sizeof(XT) == 2, rowptr, cols, vals, y, ws,
+                              counters, y0, y0_bf16, M, out_f, m0, col0,
+                              (int)blockIdx.y - splits, folds, parts);
+    return;
+  }
+
+  auto issue = [&](int s) {
+    char* st = pipe + (s % kDecStages) * S::STAGE;
+    const int w0 = wb + s * kDecWords;
+    stage_words(reinterpret_cast<uint32_t*>(st), qw, kDecWords, w0, we,
+                col0, out_f, vec, kDecWStride);
+    stage_rows<XT, ROWS>(st + S::W_BYTES, S::XROW, x, xalign, M, in_f, m0,
+                         w0 * CPW, S::SI, i_end);
+  };
+#pragma unroll
+  for (int s = 0; s < kDecStages - 1; ++s) {
+    if (s < ns) issue(s);
+    cp_async_commit();
+  }
+  load_dec_table<K>(tab, lut, sd, col0, out_f);
+  // the lane's byte offsets in the table for columns 64 half + 32 p + 4g +
+  // q: q << 9 | (16 half + 8p + g) << 4 | tq << 2 (p OR'd in per quarter)
+  uint32_t lb[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+    lb[q] = (q << 9) | ((16 * half + g) << 4) | (tq << 2);
+  const char* tabc = reinterpret_cast<const char*>(tab);
+
+  float acc[4][NT][4];
+#pragma unroll
+  for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+      acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] =
+          0.f;
+
+  const int wr = grp * 4 + tq;  // the lane's word row of a stage
+  for (int s = 0; s < ns; ++s) {
+    cp_async_wait<kDecStages - 2>();
+    __syncthreads();  // stage s landed; every warp is past stage s - 1
+    if (s + kDecStages - 1 < ns) issue(s + kDecStages - 1);
+    cp_async_commit();
+    const char* st = pipe + (s % kDecStages) * S::STAGE;
+    const uint32_t* W = reinterpret_cast<const uint32_t*>(st) +
+                        wr * kDecWStride + 64 * half + 4 * g;
+    const char* X = st + S::W_BYTES + wr * CPW * (int)sizeof(XT);
+    uint32_t b[NT][H][2];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+      dec_b<CPW, XT>(b[nt], X + (8 * nt + g) * S::XROW);
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      const uint4 q4 = *reinterpret_cast<const uint4*>(W + 32 * p);
+      const uint32_t wd[4] = {q4.x, q4.y, q4.z, q4.w};
+      const uint32_t lp[4] = {lb[0] | (p << 7), lb[1] | (p << 7),
+                              lb[2] | (p << 7), lb[3] | (p << 7)};
+#pragma unroll
+      for (int h = 0; h < H; ++h) {
+        uint32_t a[2][4];
+        dec_fragments<BITS>(a, wd, lp, tabc, h);
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) {
+          mma_bf16(acc[2 * p][nt], a[0], b[nt][h][0], b[nt][h][1]);
+          mma_bf16(acc[2 * p + 1][nt], a[1], b[nt][h][0], b[nt][h][1]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the stages are free for the warps' partials
+  dec_tree_sum<NT>(acc, reinterpret_cast<float*>(pipe), grp, half);
+  if (grp == 0) {
+    // acc[2p + i][nt][r]: row 8 nt + 2 tq + r % 2 of the tile, column
+    // 64 half + 32 p + 4g + 2i + r / 2
+#pragma unroll
+    for (int mt = 0; mt < 4; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int row = m0 + 8 * nt + 2 * tq + (r & 1);
+          const int col = col0 + 64 * half + 32 * (mt >> 1) + 4 * g +
+                          2 * (mt & 1) + (r >> 1);
+          if (row < M && col < out_f)
+            store_out(acc[mt][nt][r], row, col, y, ws, y0, y0_bf16, M,
+                      out_f, parts);
+        }
+  }
+  splitk_finish<E>(y, ws, counters, y0, y0_bf16, M, out_f, parts, m0, ROWS,
+                   col0);
+}
+
+// ---------------------------------------------------------------------------
 // Launch
 // ---------------------------------------------------------------------------
 
@@ -842,12 +1270,34 @@ cudaError_t launch_mma(const Args& a, dim3 grid, int xalign, int vec,
   return cudaGetLastError();
 }
 
+template <int BITS, int NT, typename XT>
+cudaError_t launch_dec(const Args& a, dim3 grid, int xalign, int vec,
+                       cudaStream_t s) {
+  constexpr int smem = DecShape<BITS, NT, XT>::SMEM;
+  static bool done = false;
+  const cudaError_t e = allow_smem(dec_mma_kernel<BITS, NT, XT>, smem, done);
+  if (e != cudaSuccess) return e;
+  dec_mma_kernel<BITS, NT, XT><<<grid, kThreads, smem, s>>>(
+      static_cast<const XT*>(a.x), a.xt, xalign, a.qw, a.lut, a.sd, a.rowptr,
+      a.cols, a.vals, a.y0, a.y0_bf16, a.y, a.ws, a.counters, a.M, a.in_f,
+      a.out_f, vec, a.splits, a.words_per_split, a.folds);
+  return cudaGetLastError();
+}
+
 template <int BITS, typename XT>
 cudaError_t launch_x(const Args& a, dim3 grid, int xalign, int vec,
                      cudaStream_t s) {
   if (a.variant == 1) {  // tensor cores, bf16 mode
     if (!a.bf16_mode || a.row_tile != kMmaRows) return cudaErrorInvalidValue;
     return launch_mma<BITS, XT>(a, grid, xalign, vec, s);
+  }
+  if (a.variant == 2) {  // the decode calls' tensor-core kernel, bf16 mode
+    if (!a.bf16_mode) return cudaErrorInvalidValue;
+    if (a.row_tile == 8)
+      return launch_dec<BITS, 1, XT>(a, grid, xalign, vec, s);
+    if (a.row_tile == 16)
+      return launch_dec<BITS, 2, XT>(a, grid, xalign, vec, s);
+    return cudaErrorInvalidValue;
   }
   if (a.variant != 0) return cudaErrorInvalidValue;
   switch (a.row_tile) {
@@ -893,8 +1343,8 @@ int launch(const Args& a, cudaStream_t s) {
 // sidecar's blocks a column tile (0 without one); ws: f32 (folds + splits,
 // M, out) when that is above 1, else null; counters: int32, one per
 // (row tile, column tile), all 0 (each launch leaves them 0). variant 0 =
-// GEMV
-// (row_tile 1/2/4/8/16), 1 = MMA (bf16 mode, row_tile 64);
+// GEMV (row_tile 1/2/4/8/16), 1 = MMA (bf16 mode, row_tile 64), 2 = DEC
+// (bf16 mode, row_tile 8/16);
 // words_per_split a multiple of 8 covering the words in `splits` parts.
 // All contiguous. Returns cudaGetLastError().
 extern "C" int slt_lut_matmul(const void* x, int x_bf16, const void* xt,

@@ -78,20 +78,20 @@ class Engine:
     PyTorch version whatever the device (the reference the kernels are
     held against), always eagerly; graphs: capture every per-token step
     program as a CUDA graph on a CUDA device (False runs the same steps
-    eagerly: the comparison of the two in one process); window_gemv: a
+    eagerly: the comparison of the two in one process); window_decode: a
     speculative verify window of at most ``WINDOW_DECODE_ROWS`` rows runs
-    its linears through K1/K10's GEMV, as a decode step (False: the mode's
-    kernel, the tensor cores in bf16 mode). The Engine runs
-    the model as it is given; fusing q|k|v and gate|up is the loader's or
-    caller's step (``models.fuse.fuse_for_decode``). A tensor-parallel
-    shard (``parallel.tp.shard_model``) runs too, every rank making the
-    same calls, its cache over the rank's kv heads; its steps are captured
-    only over NCCL (``graphs.check_capturable``)."""
+    its linears through K1/K10's decode kernel, as a decode step (False:
+    the mode's kernel, the prefill tensor cores in bf16 mode). The Engine
+    runs the model as it is given; fusing q|k|v and gate|up is the
+    loader's or caller's step (``models.fuse.fuse_for_decode``). A
+    tensor-parallel shard (``parallel.tp.shard_model``) runs too, every
+    rank making the same calls, its cache over the rank's kv heads; its
+    steps are captured only over NCCL (``graphs.check_capturable``)."""
 
     def __init__(self, model, *, dtype=torch.float32,
                  cache_dtype=torch.float32, mode: str = "exact",
                  plain: bool = False, graphs: bool = True,
-                 window_gemv: bool = True):
+                 window_decode: bool = True):
         self.model = model
         self.config = model.config
         self.dtype = dtype
@@ -99,7 +99,7 @@ class Engine:
         self.mode = mode
         self.plain = plain
         self.graphs = graphs
-        self.window_gemv = window_gemv
+        self.window_decode = window_decode
         self.device = model.device
         if graphs and not plain:
             check_capturable(model)
@@ -112,7 +112,7 @@ class Engine:
     def _verify(self):
         """The keyword arguments of a verify window's ``prefill``."""
         return dict(self._run(), all_logits=True,
-                    window_gemv=self.window_gemv)
+                    window_decode=self.window_decode)
 
     def _rows(self, max_seq: Optional[int]) -> int:
         """Cache rows for max_seq: the token axis rounds up to 16 rows (128

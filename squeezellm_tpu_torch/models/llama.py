@@ -121,7 +121,7 @@ def from_torch_state_dict(config: LlamaConfig, sd, dtype=torch.float32):
 
 
 # a verify window of at most this many rows runs its linears as a decode
-# step does (unless its caller passes window_gemv=False): the JAX package's
+# step does (unless its caller passes window_decode=False): the JAX package's
 # quantized linear takes one kernel and one sidecar fold for every call of
 # up to SQUEEZELLM_SGB_MAX = 16 rows (``squeezellm_tpu/ops/quant_linear.py``)
 WINDOW_DECODE_ROWS = 16
@@ -150,7 +150,7 @@ class Step:
     # a page pool's table, shared by every layer
     page_table: Optional[torch.Tensor] = None  # (B, maxp) int32
     # a speculative verify window (``verify_window``, or ``prefill`` with
-    # ``all_logits``) called with window_gemv: its rows in all, B * W; 0
+    # ``all_logits``) called with window_decode: its rows in all, B * W; 0
     # for any other call
     window_rows: int = 0
     # a tensor-parallel shard's place (``model.tp``): row-parallel outputs
@@ -159,12 +159,13 @@ class Step:
 
     def lin(self) -> dict:
         """The linears' keyword arguments: the regime, and whether K1/K10
-        run their GEMV (``decode``). The call site picks the kernel, not
-        the row count: a one-token-a-slot decode step takes the GEMV, and
-        so does a verify window of at most WINDOW_DECODE_ROWS rows, as the
-        JAX package runs such a window through its decode step's kernel
-        and fold; every other call takes the mode's kernel (the tensor
-        cores in bf16 mode)."""
+        run their decode kernel (``decode``; bf16 mode's decode tensor-core
+        kernel, exact mode's GEMV). The call site picks the kernel, not the
+        row count: a one-token-a-slot decode step takes the decode kernel,
+        and so does a verify window of at most WINDOW_DECODE_ROWS rows, as
+        the JAX package runs such a window through its decode step's
+        kernel and fold; every other call takes the mode's kernel (the
+        prefill tensor-core kernel in bf16 mode)."""
         window = 0 < self.window_rows <= WINDOW_DECODE_ROWS
         return dict(mode=self.mode, plain=self.plain,
                     decode=self.lengths is not None or window)
@@ -452,10 +453,10 @@ class Llama(nn.Module):
     def prefill(self, tokens: torch.Tensor, cache, *, dtype=torch.float32,
                 mode: str = "exact", plain: bool = False, start=0,
                 all_logits: bool = False,
-                window_gemv: bool = True) -> torch.Tensor:
+                window_decode: bool = True) -> torch.Tensor:
         """Process the prompt and fill the cache (in place); returns the
         last token's logits (B, 1, V) f32, or every position's (B, S, V)
-        with ``all_logits`` (a verify window: with window_gemv, one of at
+        with ``all_logits`` (a verify window: with window_decode, one of at
         most WINDOW_DECODE_ROWS rows runs its linears as a decode step,
         ``Step.lin``; False keeps the mode's kernel).
 
@@ -478,7 +479,7 @@ class Llama(nn.Module):
             step = self._step(
                 dtype, mode, plain, start=start,
                 positions=start + torch.arange(s, device=self.device))
-        if all_logits and window_gemv:  # a verify window (``Step.lin``)
+        if all_logits and window_decode:  # a verify window (``Step.lin``)
             step.window_rows = b * s
         for layer, layer_cache in zip(self.layers, cache):
             x = layer(x, step, layer_cache)
@@ -487,20 +488,20 @@ class Llama(nn.Module):
     def verify_window(self, tokens: torch.Tensor, pos: torch.Tensor, cache,
                       *, dtype=torch.float32, mode: str = "exact",
                       plain: bool = False,
-                      window_gemv: bool = True) -> torch.Tensor:
+                      window_decode: bool = True) -> torch.Tensor:
         """A speculative verify window per slot: tokens (B, W), slot b's
         window starting at its own position pos[b] (< 0: an inactive slot,
         which writes nothing). Writes the W rows, through the page table
         of a page pool (K8/K9) or at the slot's rows of a dense cache
         (``common.update_kv_window``, then plain attention as in the JAX
         package), and returns the logits of every window position
-        (B, W, V) f32. window_gemv: as for :meth:`prefill`."""
+        (B, W, V) f32. window_decode: as for :meth:`prefill`."""
         w = tokens.shape[1]
         positions = pos.reshape(-1, 1) + torch.arange(w, device=self.device)
         x = self.embed[tokens].to(dtype)
         step = self._step(dtype, mode, plain, window_pos=positions,
                           cache=cache)
-        if window_gemv:
+        if window_decode:
             step.window_rows = positions.numel()
         for layer, layer_cache in zip(self.layers, cache):
             x = layer(x, step, layer_cache)

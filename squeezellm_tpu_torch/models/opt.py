@@ -203,10 +203,10 @@ class OPT(nn.Module):
     def prefill(self, tokens: torch.Tensor, cache, *, dtype=torch.float32,
                 mode: str = "exact", plain: bool = False, start=0,
                 all_logits: bool = False,
-                window_gemv: bool = True) -> torch.Tensor:
+                window_decode: bool = True) -> torch.Tensor:
         """Process the prompt and fill the cache (in place); returns the
         last token's logits (B, 1, V) f32, or every position's (B, S, V)
-        with ``all_logits`` (window_gemv as for ``Llama.prefill``). start:
+        with ``all_logits`` (window_decode as for ``Llama.prefill``). start:
         position of ``tokens[:, 0]``, a python int or an int tensor of one
         element on the device (a continuation prefill attends the rows the
         cache already holds)."""
@@ -223,7 +223,7 @@ class OPT(nn.Module):
                             if torch.is_tensor(start) else
                             torch.full((b,), start + 1, dtype=torch.int32,
                                        device=self.device))
-        if all_logits and window_gemv:  # a verify window (``Step.lin``)
+        if all_logits and window_decode:  # a verify window (``Step.lin``)
             step.window_rows = b * s
         for layer, layer_cache in zip(self.layers, cache):
             x = layer(x, step, layer_cache)
@@ -232,11 +232,11 @@ class OPT(nn.Module):
     def verify_window(self, tokens: torch.Tensor, pos: torch.Tensor, cache,
                       *, dtype=torch.float32, mode: str = "exact",
                       plain: bool = False,
-                      window_gemv: bool = True) -> torch.Tensor:
+                      window_decode: bool = True) -> torch.Tensor:
         """A speculative verify window per slot, over a page pool or a
         dense cache: tokens (B, W) from each slot's own position pos[b]
         (< 0: inactive, which writes nothing). Returns the logits of every
-        window position (B, W, V) f32 (window_gemv as for
+        window position (B, W, V) f32 (window_decode as for
         ``Llama.prefill``)."""
         b, w = tokens.shape
         pos = pos.reshape(-1)
@@ -244,7 +244,7 @@ class OPT(nn.Module):
         x = self._embed(tokens, positions, dtype)
         step = self._cache_step(dtype, mode, plain, cache,
                                 starts=pos.to(torch.int32),
-                                window_rows=b * w if window_gemv else 0)
+                                window_rows=b * w if window_decode else 0)
         for layer, layer_cache in zip(self.layers, cache):
             x = layer(x, step, layer_cache)
         return self._finish(x, step)

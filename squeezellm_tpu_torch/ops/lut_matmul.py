@@ -12,24 +12,26 @@ regime); ``bf16`` rounds x and the LUT to bf16 before the products and
 accumulates in f32 (the ``pallas-bf16`` regime). The sparse fold always
 reads x unrounded.
 
-Two device kernels serve both wrappers; :func:`plan` lays one out per call
-(a pure function, so the CPU tests reach it): the GEMV (exact mode, and
-bf16 mode where the caller asks for it; 1-16 rows a tile) and the
-tensor-core kernel (``mma.sync`` bf16 with f32 accumulation; bf16 mode
-only). The CALLER picks the kernel, never the row count: the model's
-one-token-a-slot decode step asks for the GEMV at any slot count, and so
-does a verify window of at most 16 rows; every other call (prefill,
-chunks, larger verify windows, an eval forward below 1024 rows) takes
-the tensor-core kernel in bf16 mode (``quant_linear_apply(decode=...)``,
-``models.llama.Step.lin``). Both kernels split the packed words
-across blocks (``splits``) and sum the partials in a fixed order, and the
-split follows the layer's shape only, so a row's bits do not depend on the
-rows batched with it, nor a sampled token on its cohort. On the H100 the
-GEMV is the faster kernel up to 8 rows and the tensor cores from 12
-(``chip_smoke.py`` times both at 8-40 rows), so the decode step of more
-than 8 slots pays for its invariance in bf16 mode.
+Three device kernels serve both wrappers; :func:`plan` lays one out per
+call (a pure function, so the CPU tests reach it): the GEMV (exact mode;
+1-16 rows a tile), the decode kernel (``mma.sync`` bf16 with f32
+accumulation, the x rows as N: 8 or 16 rows a tile; bf16 mode only) and
+the prefill tensor-core kernel (the same products, 64-row tiles; bf16 mode
+only). The CALLER picks the kernel, never the row count: in bf16 mode the
+model's one-token-a-slot decode step asks for the decode kernel at any
+slot count, and so does a verify window of at most 16 rows; every other
+call (prefill, chunks, larger verify windows, an eval forward below 1024
+rows) takes the prefill kernel (``quant_linear_apply(decode=...)``,
+``models.llama.Step.lin``); exact mode runs the GEMV at every call. Each
+kernel splits the packed words across blocks (``splits``) and sums the
+partials in a fixed order, and the split follows the layer's shape only,
+so a row's bits do not depend on the rows batched with it, nor a sampled
+token on its cohort. The decode kernel computes the GEMV's bf16 products
+on the tensor cores, so a decode step of 16 slots no longer pays for its
+invariance with f32 FMAs (``chip_smoke.py`` and ``chip_ab.py`` time the
+three at 1-16 rows).
 
-K10 (``lut_matmul_struct``) is the same two kernels for a 4-bit
+K10 (``lut_matmul_struct``) is the same three kernels for a 4-bit
 STRUCTURED codebook, given as A (out, 8) and d (out,) with
 ``W[i, o] = A[o, c & 7] + (c & 8 ? d[o] : 0)`` (``models.fuse`` attaches
 them where a LUT decomposes so). It replaces the structured bodies of the
@@ -49,25 +51,33 @@ from squeezellm_tpu_torch.ops import plain_ops
 
 MODES = ("exact", "bf16")
 MAX_ROWS = 1023  # quant_linear_apply sends 1024 rows and more to K4
-VARIANTS = ("gemv", "mma")
+VARIANTS = ("gemv", "mma", "dec")
+TENSOR_CORE_VARIANTS = ("mma", "dec")  # bf16 mode only
 COLS = 128  # output columns a block (kCols in csrc/lut_matmul.cu)
 GEMV_ROW_TILES = (1, 2, 4, 8, 16)
+DEC_ROW_TILES = (8, 16)  # one n8 tile of rows, or two
 MMA_ROW_TILE = 64
-# k-split: at least as many blocks as the card holds at once (132 SMs; the
-# GEMV fits 4 blocks an SM at one row, the MMA kernel 2), so that every SM
-# keeps its stages of words in flight, but no split thinner than MIN_WORDS
-# packed word rows. The split is fixed per layer shape: the GEMV's is the
-# one-row tile's, the MMA kernel's the one MMA_SPLIT_ROW_TILES row tiles
-# (a 65-128-row call) fill the card with; fewer would grow the (splits, M,
-# out) f32 workspace at 1023 rows, more would idle SMs at 40 rows.
+# k-split: at least BLOCKS_PER_SM word blocks for each of the card's 132
+# SMs (the GEMV fits 4 blocks an SM at one row, the MMA kernel 2), so that
+# every SM keeps its stages of words in flight, but no split thinner than
+# MIN_WORDS packed word rows. The decode kernel fits 2 blocks an SM, but
+# its word blocks come one an SM: on the H100 that beat two at 1, 8 and 16
+# rows at the Mistral-7B shapes, fewer partials to sum and the second slot
+# left to the fold blocks and the ragged last wave. The split is fixed per
+# layer shape: the GEMV's and the decode kernel's are the one-row tile's,
+# the MMA kernel's the one MMA_SPLIT_ROW_TILES row tiles (a 65-128-row
+# call) fill the card with; fewer would grow the (splits, M, out) f32
+# workspace at 1023 rows, more would idle SMs at 40 rows.
 SMS = 132
-GEMV_MIN_WORDS, MMA_MIN_WORDS = 32, 64
+BLOCKS_PER_SM = {"gemv": 4, "dec": 1, "mma": 2}
+GEMV_MIN_WORDS, DEC_MIN_WORDS, MMA_MIN_WORDS = 32, 32, 64
 MMA_SPLIT_ROW_TILES = 2
 # the sidecar's fold runs in blocks of its own beside the word stream: 8 a
-# column tile in the GEMV, whose stream is short (a 4096-wide output's
-# blocks stream 8 KB each), 1 in the MMA kernel, whose partials are M rows
-# deep
-GEMV_FOLDS = 8
+# column tile in the GEMV, whose streams are short (a 4096-wide output's
+# blocks stream 8 KB each); 2 in the decode kernel, whose fold blocks each
+# hold one of an SM's two slots; 1 in the MMA kernel, whose partials are M
+# rows deep
+FOLDS = {"gemv": 8, "dec": 2, "mma": 1}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,33 +99,37 @@ def plan(M: int, in_f: int, out_f: int, bits: int, mode: str,
          variant: Optional[str] = None) -> Plan:
     """The kernel and grid for M rows of an (in_f -> out_f) layer.
 
-    ``variant`` None takes the mode's kernel: the tensor-core kernel in
-    bf16 mode, the GEMV in exact mode, at every row count; a decode step
-    asks for "gemv". "mma" is refused in exact mode (its bf16 operands
-    would change exact mode's numbers). The k-split depends on the shape
-    only, never on M, so a row is summed in the same order whatever else
-    is batched with it."""
+    ``variant`` None takes the mode's kernel: the prefill tensor-core
+    kernel in bf16 mode, the GEMV in exact mode, at every row count; a
+    decode call in bf16 mode asks for "dec". "mma" and "dec" are refused
+    in exact mode (their bf16 operands would change exact mode's numbers).
+    The k-split depends on the shape only, never on M, so a row is summed
+    in the same order whatever else is batched with it."""
     if variant is not None and variant not in VARIANTS:
         raise ValueError(f"variant must be one of {VARIANTS}, got "
                          f"{variant!r}")
-    if variant == "mma" and mode != "bf16":
-        raise ValueError("the tensor-core kernel runs bf16 mode only")
+    if variant in TENSOR_CORE_VARIANTS and mode != "bf16":
+        raise ValueError("the tensor-core kernels run bf16 mode only")
     if variant is None:
         variant = "mma" if mode == "bf16" else "gemv"
     nw = formats.n_words(in_f, bits)
     col_tiles = -(-out_f // COLS)
+    fill = col_tiles
     if variant == "gemv":
         row_tile = next(t for t in GEMV_ROW_TILES if t >= min(M, 16))
-        wave, min_words, fill = SMS * 4, GEMV_MIN_WORDS, col_tiles
+        min_words = GEMV_MIN_WORDS
+    elif variant == "dec":
+        row_tile = DEC_ROW_TILES[M > DEC_ROW_TILES[0]]
+        min_words = DEC_MIN_WORDS
     else:
-        row_tile = MMA_ROW_TILE
-        wave, min_words = SMS * 2, MMA_MIN_WORDS
+        row_tile, min_words = MMA_ROW_TILE, MMA_MIN_WORDS
         fill = col_tiles * MMA_SPLIT_ROW_TILES
     tiles = col_tiles * -(-M // row_tile)
+    wave = SMS * BLOCKS_PER_SM[variant]
     splits = max(1, min(-(-wave // fill), nw // min_words))
     per = -(-(-(-nw // splits)) // 8) * 8
     return Plan(variant, row_tile, -(-nw // per), per, tiles,
-                GEMV_FOLDS if variant == "gemv" else 1)
+                FOLDS[variant])
 
 
 _COUNTERS = {}

@@ -34,11 +34,12 @@ this order:
    LUT, the sidecar folded into it) followed by one dense matmul and the
    ``y0`` add; fewer rows: K1 (``ops/lut_matmul``).
 
-Inside K1 and K10 the call site picks the device kernel: ``decode=True``
-(the model's one-token-a-slot decode step, and a verify window of at most
-16 rows) takes the GEMV at any row count, every other call the mode's
-kernel (the tensor cores in bf16 mode), so a row's result does not depend
-on how many rows share its call.
+Inside K1 and K10 the call site picks the device kernel: in bf16 mode
+``decode=True`` (the model's one-token-a-slot decode step, and a verify
+window of at most 16 rows) takes the decode tensor-core kernel at any row
+count, every other call the prefill tensor-core kernel; exact mode runs
+the GEMV at every call. So a row's result does not depend on how many
+rows share its call.
 """
 
 from __future__ import annotations
@@ -100,12 +101,12 @@ def quant_linear_apply(spec: QuantLinearSpec,
     the kernels' plain versions whatever the device (the reference they
     are held against).
     decode: the call is a decode step (one token a slot), which K1 and
-    K10 run as their GEMV at any slot count.
+    K10 run in bf16 mode as their decode kernel at any slot count.
 
     The call runs inside the span ``linear.<route>`` (``tracing``), the
     route named by the kernel it runs on the card, whatever ``plain``
     says: ``t`` (K11 + K12), ``struct`` (K10), ``dequant`` (K4 and the
-    dense matmul), ``gemv`` or ``mma`` (K1's two kernels)."""
+    dense matmul), ``gemv``, ``dec`` or ``mma`` (K1's three kernels)."""
     rows = x.numel() // spec.in_features
     if rows <= T_MAX_ROWS and spec.bits == 4 and "qweight_t" in params:
         route = "t"
@@ -113,8 +114,8 @@ def quant_linear_apply(spec: QuantLinearSpec,
         route = "struct"
     elif rows >= BIG_BATCH and spec.bits <= 4:
         route = "dequant"
-    else:  # K1: the GEMV for a decode call and in exact mode
-        route = "gemv" if decode or mode != "bf16" else "mma"
+    else:  # K1: the GEMV in exact mode, a tensor-core kernel in bf16
+        route = ("dec" if decode else "mma") if mode == "bf16" else "gemv"
     with span("linear." + route):
         lead = x.shape[:-1]
         x2 = x.reshape(-1, spec.in_features).contiguous()
@@ -124,7 +125,8 @@ def quant_linear_apply(spec: QuantLinearSpec,
         if spec.include_sparse:
             sparse = dict(rowptr=params["sp_rowptr"], cols=params["sp_cols"],
                           vals=params["sp_vals"])
-        kernel = {} if plain else {"variant": "gemv" if decode else None}
+        kernel = {} if plain else {
+            "variant": "dec" if decode and mode == "bf16" else None}
         if route == "t":
             fn = lut_matmul_t_plain if plain else lut_matmul_t
             y = fn(x2, params["qweight_t"], params["lut"], mode=mode)

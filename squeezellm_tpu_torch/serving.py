@@ -428,7 +428,7 @@ class _SlotEngine:
                     max_seq: Optional[int], seed: int,
                     speculative: Optional[Tuple[int, int]],
                     prefill_chunk: Optional[int], plain: bool,
-                    window_gemv: bool) -> None:
+                    window_decode: bool) -> None:
         config = model.config
         self.model = model
         self.config = config
@@ -441,7 +441,7 @@ class _SlotEngine:
         self.dtype = dtype
         self.mode = mode
         self.plain = plain
-        self.window_gemv = window_gemv
+        self.window_decode = window_decode
         # chunked admission: a prompt longer than this prefills that many
         # tokens per engine step into a staging cache, interleaved with
         # decode windows; the slot joins decode when the last chunk is in
@@ -507,7 +507,7 @@ class _SlotEngine:
         its first use."""
         if name not in self._steps:
             model, kw, b = self.model, self._run(), self._bufs
-            body = (_spec_body(model, dict(kw, window_gemv=self.window_gemv),
+            body = (_spec_body(model, dict(kw, window_decode=self.window_decode),
                                b, self.speculative) if name == "spec"
                     else _decode_body(model, kw, b, name == "sampled",
                                       self.seed))
@@ -761,7 +761,7 @@ class ContinuousBatchEngine(_SlotEngine):
     prefill_chunk: admit a long prompt that many tokens per engine step;
     graphs: capture the decode step and the speculative window as CUDA
     graphs on a CUDA device (False runs the same steps eagerly);
-    window_gemv: a speculative window of at most 16 rows runs its linears
+    window_decode: a speculative window of at most 16 rows runs its linears
     as a decode step (``models.llama.Step.lin``; False: the mode's kernel).
 
     A prompt prefills into a staging cache of its own length (one batched
@@ -776,11 +776,11 @@ class ContinuousBatchEngine(_SlotEngine):
                  max_seq: Optional[int] = None, seed: int = 0,
                  speculative: Optional[Tuple[int, int]] = None,
                  prefill_chunk: Optional[int] = None, plain: bool = False,
-                 graphs: bool = True, window_gemv: bool = True):
+                 graphs: bool = True, window_decode: bool = True):
         self._init_slots(model, slots=slots, dtype=dtype, mode=mode,
                          max_seq=max_seq, seed=seed, speculative=speculative,
                          prefill_chunk=prefill_chunk, plain=plain,
-                         window_gemv=window_gemv)
+                         window_decode=window_decode)
         c = self.config
         self.cache_dtype = cache_dtype
         # the token axis rounds to 16 rows, to 128 for int8 (the JAX
@@ -886,7 +886,7 @@ class PagedContinuousBatchEngine(_SlotEngine):
     (the staging dense cache scatters into the pool only when complete);
     graphs: capture the decode step and the speculative window as CUDA
     graphs on a CUDA device (False runs the same steps eagerly);
-    window_gemv: a speculative window of at most 16 rows runs its linears
+    window_decode: a speculative window of at most 16 rows runs its linears
     as a decode step (``models.llama.Step.lin``; False: the mode's kernel)."""
 
     _uploaded = ("pos", "pt", "temp", "topk", "topp", "rids")
@@ -897,7 +897,7 @@ class PagedContinuousBatchEngine(_SlotEngine):
                  max_seq: Optional[int] = None, seed: int = 0,
                  speculative: Optional[Tuple[int, int]] = None,
                  prefill_chunk: Optional[int] = None, plain: bool = False,
-                 graphs: bool = True, window_gemv: bool = True):
+                 graphs: bool = True, window_decode: bool = True):
         if speculative and speculative[0] + 1 > paged_attn.MAX_WINDOW_TOKENS:
             raise ValueError(
                 f"speculative draft_len {speculative[0]} exceeds the verify "
@@ -905,7 +905,7 @@ class PagedContinuousBatchEngine(_SlotEngine):
         self._init_slots(model, slots=slots, dtype=dtype, mode=mode,
                          max_seq=max_seq, seed=seed, speculative=speculative,
                          prefill_chunk=prefill_chunk, plain=plain,
-                         window_gemv=window_gemv)
+                         window_decode=window_decode)
         config = self.config
         self.ps = page_size
         self.maxp = -(-self.max_seq // page_size)

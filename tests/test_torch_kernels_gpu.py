@@ -933,16 +933,17 @@ def _sidecar(g, dev, out_f, in_f, kind):
 
 @pytest.mark.parametrize("in_f,out_f", [(116, 203), (2056, 260)])
 @pytest.mark.parametrize("mode", ["exact", "bf16"])
-@pytest.mark.parametrize("M", [1, 2, 5, 8, 16, 17, 40, 100, 1023])
+@pytest.mark.parametrize("M", [1, 2, 3, 5, 8, 9, 12, 16, 17, 40, 100, 1023])
 @pytest.mark.parametrize("wrapper,bits", [("k1", 3), ("k1", 4), ("k10", 4)])
 def test_lut_matmul_gemv_and_mma_kernels_match_plain(dev, wrapper, bits, M,
                                                      mode, in_f, out_f):
-    """Both device kernels of K1 and K10 (the GEMV and, in bf16 mode, the
-    tensor-core kernel, each forced at every row count) against the plain
-    version within 1e-5 of max |y|, and bit-equal across two launches: x
-    and y0 in f32 and bf16, y0 absent, no sidecar, 5%, and one row of 2100
-    entries; `out` not a multiple of 4 and a partial last word (116), and
-    a k-split over several blocks (2056 inputs)."""
+    """Every device kernel of K1 and K10 (the GEMV and, in bf16 mode, the
+    decode and the prefill tensor-core kernels, each forced at every row
+    count) against the plain version within 1e-5 of max |y|, and bit-equal
+    across two launches: x and y0 in f32 and bf16, y0 absent, no sidecar,
+    5%, and one row of 2100 entries; `out` not a multiple of 4 and a
+    partial last word (116), and a k-split over several blocks (2056
+    inputs)."""
     g = torch.Generator(device=dev).manual_seed(M * 31 + bits + in_f)
     t = synthetic.random_quant_linear(g, dev, out_f, in_f, bits, 0.0, 0,
                                       structured=wrapper == "k10").tensors()
@@ -955,7 +956,7 @@ def test_lut_matmul_gemv_and_mma_kernels_match_plain(dev, wrapper, bits, M,
     else:
         kernel, plain = lut_matmul.lut_matmul, lut_matmul.lut_matmul_plain
         args = (t["qweight"], t["lut"], bits)
-    variants = ("gemv", "mma") if mode == "bf16" else ("gemv",)
+    variants = ("gemv", "mma", "dec") if mode == "bf16" else ("gemv",)
     for kind in ("none", "sparse", "crowded"):
         kw = _sidecar(g, dev, out_f, in_f, kind)
         for x_dt, y0_dt in ((torch.float32, torch.float32),
@@ -979,7 +980,9 @@ def test_lut_matmul_gemv_and_mma_kernels_match_plain(dev, wrapper, bits, M,
 @pytest.mark.parametrize("M,mode,variant,want", [
     (1, "bf16", None, "mma"), (8, "bf16", None, "mma"),
     (16, "bf16", "gemv", "gemv"), (12, "bf16", "gemv", "gemv"),
-    (100, "exact", None, "gemv")])
+    (100, "exact", None, "gemv"), (1, "bf16", "dec", "dec"),
+    (8, "bf16", "dec", "dec"), (16, "bf16", "dec", "dec"),
+    (17, "bf16", "dec", "dec"), (1, "exact", None, "gemv")])
 def test_lut_matmul_counts_the_kernel_it_ran(dev, M, mode, variant, want):
     g = torch.Generator(device=dev).manual_seed(M)
     t = synthetic.random_quant_linear(g, dev, 96, 116, 4, 0.05, 0).tensors()
@@ -1017,6 +1020,38 @@ def test_lut_matmul_gemv_rows_do_not_depend_on_the_batch(dev, wrapper):
                           variant="gemv", **kw)
             torch.cuda.synchronize()
             assert torch.equal(part, full[:M]), (mode, M)
+
+
+@pytest.mark.parametrize("wrapper,bits", [("k1", 4), ("k1", 3), ("k10", 4)])
+@pytest.mark.parametrize("in_f,out_f", [(2056, 260), (4096, 4096)])
+def test_lut_matmul_dec_rows_do_not_depend_on_the_batch(dev, wrapper, bits,
+                                                        in_f, out_f):
+    """The decode kernel (bf16 mode's decode steps and verify windows of
+    at most 16 rows) sums a row in one order whatever the batch: the
+    k-split follows the layer's shape, and one n8 tile of rows or two
+    run the same products for a row, so a row's bits are the same at M
+    1, 3, 8, 12, 16 and 17 and at any place in the batch: a slot gets the
+    same tokens served alone or in a full batch."""
+    g = torch.Generator(device=dev).manual_seed(11 + bits)
+    t = synthetic.random_quant_linear(g, dev, out_f, in_f, bits, 0.0045, 0,
+                                      structured=wrapper == "k10").tensors()
+    if wrapper == "k10":
+        kernel = lut_matmul.lut_matmul_struct
+        args = (t["qweight"], t["lut"][:, :8].contiguous(),
+                (t["lut"][:, 8] - t["lut"][:, 0]).contiguous())
+    else:
+        kernel, args = lut_matmul.lut_matmul, (t["qweight"], t["lut"], bits)
+    kw = dict(rowptr=t["sp_rowptr"], cols=t["sp_cols"], vals=t["sp_vals"],
+              mode="bf16", variant="dec")
+    x = torch.randn(40, in_f, generator=g, device=dev).to(torch.bfloat16)
+    y0 = torch.randn(40, out_f, generator=g, device=dev).to(torch.bfloat16)
+    full = kernel(x, *args, y0=y0, **kw)
+    for a, b in ((0, 1), (0, 3), (0, 8), (0, 12), (0, 16), (0, 17), (7, 8),
+                 (5, 17), (20, 32), (23, 40), (39, 40)):
+        part = kernel(x[a:b].contiguous(), *args, y0=y0[a:b].contiguous(),
+                      **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(part, full[a:b]), (a, b)
 
 
 @pytest.mark.parametrize("wrapper", ["k1", "k10"])

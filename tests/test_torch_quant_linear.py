@@ -185,21 +185,27 @@ def test_lut_matmul_wrapper_takes_plain_path_on_cpu():
     (40, "bf16", None, "mma"), (1023, "bf16", None, "mma"),
     (1, "bf16", "gemv", "gemv"), (12, "bf16", "gemv", "gemv"),
     (40, "bf16", "gemv", "gemv"), (1, "exact", None, "gemv"),
-    (40, "exact", None, "gemv"), (1023, "exact", None, "gemv")])
+    (40, "exact", None, "gemv"), (1023, "exact", None, "gemv"),
+    (1, "bf16", "dec", "dec"), (8, "bf16", "dec", "dec"),
+    (9, "bf16", "dec", "dec"), (16, "bf16", "dec", "dec"),
+    (17, "bf16", "dec", "dec"), (1023, "bf16", "dec", "dec")])
 def test_k1_plan_picks_the_kernel_by_rows_and_mode(M, mode, variant, want):
-    """The mode's kernel whatever the row count (the tensor cores in bf16
-    mode, the GEMV in 16-row tiles in exact mode), and the GEMV in bf16
-    mode at any row count when the call site (a decode step) asks for
-    it: the row count picks no kernel."""
+    """The mode's kernel whatever the row count (the prefill tensor-core
+    kernel in bf16 mode, the GEMV in 16-row tiles in exact mode), and the
+    decode tensor-core kernel (one n8 tile of rows up to 8, two from 9)
+    or the GEMV in bf16 mode at any row count when the call site (a
+    decode step) asks for it: the row count picks no kernel."""
     p = tlm.plan(M, 4096, 4096, 4, mode, variant)
     assert p.variant == want
     if want == "gemv":
         assert p.row_tile == min(16, 1 << (M - 1).bit_length())
+    elif want == "dec":
+        assert p.row_tile == (8 if M <= 8 else 16)
     else:
         assert p.row_tile == tlm.MMA_ROW_TILE
 
 
-@pytest.mark.parametrize("variant", ["gemv", "mma"])
+@pytest.mark.parametrize("variant", ["gemv", "mma", "dec"])
 @pytest.mark.parametrize("M", [1, 8, 40, 1023])
 @pytest.mark.parametrize("in_f,out_f,bits", [
     (4096, 12288, 4), (4096, 4096, 4), (4096, 22016, 4), (11008, 4096, 4),
@@ -215,9 +221,9 @@ def test_k1_plan_splits_cover_the_words(in_f, out_f, bits, M, variant):
         p.splits * p.words_per_split)
     col_tiles = -(-out_f // tlm.COLS)
     assert p.tiles == col_tiles * -(-M // p.row_tile)
-    if variant == "gemv" and M == 1 and out_f == 4096:
-        assert p.splits >= 8
-    if variant == "gemv":  # a row's summation order ignores the batch
+    if variant in ("gemv", "dec") and M == 1 and out_f == 4096:
+        assert p.splits >= {"gemv": 8, "dec": 4}[variant]
+    if variant in ("gemv", "dec"):  # a row's order ignores the batch
         one = tlm.plan(1, in_f, out_f, bits, "bf16", variant)
         assert (p.splits, p.words_per_split, p.folds) == (
             one.splits, one.words_per_split, one.folds)
@@ -227,20 +233,29 @@ FLAGSHIP = ((4096, 12288, 4), (4096, 4096, 4), (4096, 22016, 4),
             (11008, 4096, 4), (4096, 32000, 4))
 
 
-@pytest.mark.parametrize("in_f,out_f,bits", FLAGSHIP)
-def test_k1_plan_mma_split_is_fixed_per_shape(in_f, out_f, bits):
-    """At the five LLaMA-2-7B shapes the tensor-core kernel splits the
-    words the same way at every row count from 9 to 1023 (and 1-8), so a
-    row is summed in one order whether it is prefilled alone or in a
-    cohort; its partials' workspace stays within 3 (M, out) planes and a
-    sidecar's fold."""
-    first = tlm.plan(1, in_f, out_f, bits, "bf16", "mma")
+@pytest.mark.parametrize("variant", ["mma", "dec"])
+@pytest.mark.parametrize("in_f,out_f,bits", FLAGSHIP + (
+    (4096, 6144, 4), (4096, 28672, 4), (14336, 4096, 4), (4096, 32000, 3),
+    (2056, 260, 4)))
+def test_k1_plan_mma_split_is_fixed_per_shape(in_f, out_f, bits, variant):
+    """At the LLaMA-2-7B and Mistral-7B shapes each tensor-core kernel
+    splits the words the same way at every row count from 1 to 1023, so a
+    row is summed in one order whether it is prefilled (decoded) alone or
+    in a cohort. The prefill kernel's partials' workspace stays within 3
+    (M, out) planes and a sidecar's fold; the decode kernel's, with or
+    without a sidecar, is never larger than the GEMV's at the same rows."""
+    first = tlm.plan(1, in_f, out_f, bits, "bf16", variant)
+    gemv = tlm.plan(1, in_f, out_f, bits, "bf16", "gemv")
     for M in range(2, tlm.MAX_ROWS + 1):
-        p = tlm.plan(M, in_f, out_f, bits, "bf16", "mma")
+        p = tlm.plan(M, in_f, out_f, bits, "bf16", variant)
         assert (p.splits, p.words_per_split, p.folds) == (
             first.splits, first.words_per_split, first.folds), M
-        assert p.tiles == -(-out_f // tlm.COLS) * -(-M // tlm.MMA_ROW_TILE)
-    assert first.splits <= 5
+        assert p.tiles == -(-out_f // tlm.COLS) * -(-M // p.row_tile)
+    if variant == "mma":
+        assert first.splits <= 5
+    else:  # (folds + splits, M, out) f32, and a plane or none without one
+        assert first.folds + first.splits <= gemv.folds + gemv.splits
+        assert first.splits <= gemv.splits
 
 
 def test_quant_linear_picks_the_kernel_by_call_site(monkeypatch):
@@ -279,14 +294,21 @@ def test_quant_linear_picks_the_kernel_by_call_site(monkeypatch):
                                      cache, **kw)) == {(12, None), (60, None)}
     assert run(lambda: model.decode_step(
         torch.ones(12, 1, dtype=torch.long), 5, cache, **kw)) == {
-            (12, "gemv")}
+            (12, "dec")}
     assert run(lambda: model.prefill(torch.ones(1, 1, dtype=torch.long),
                                      eng.new_cache(1), **kw)) == {
-        (1, "gemv")}
+        (1, "dec")}
     assert run(lambda: model.forward(torch.ones(1, 9, dtype=torch.long),
                                      **kw)) == {(9, None)}
     assert run(lambda: eng.generate(np.ones((1, 7), np.int64), 2)) == {
-        (1, None), (1, "gemv"), (7, None)}
+        (1, None), (1, "dec"), (7, None)}
+    # exact mode: the mode's kernel, the GEMV, at every call
+    exact = engine.Engine(model)
+    assert run(lambda: model.decode_step(
+        torch.ones(12, 1, dtype=torch.long), 5, exact.new_cache(12))) == {
+            (12, None)}
+    assert run(lambda: exact.generate(np.ones((1, 7), np.int64), 2)) == {
+        (1, None), (7, None)}
 
 
 def test_k1_wrappers_refuse_a_variant_on_the_cpu():
@@ -303,8 +325,12 @@ def test_k1_wrappers_refuse_a_variant_on_the_cpu():
         tlm.lut_matmul(x, qw, lut, 4, mode="exact", variant="mma")
     with pytest.raises(ValueError, match="bf16 mode only"):
         tlm.lut_matmul_struct(x, qw, a, d, mode="exact", variant="mma")
-    # the plain version stands in for either kernel on the CPU
-    for variant in ("gemv", "mma", None):
+    for fn, tables in ((tlm.lut_matmul, (lut, 4)),
+                       (tlm.lut_matmul_struct, (a, d))):
+        with pytest.raises(ValueError, match="bf16 mode only"):
+            fn(x, qw, *tables, mode="exact", variant="dec")
+    # the plain version stands in for any kernel on the CPU
+    for variant in ("gemv", "mma", "dec", None):
         torch.testing.assert_close(
             tlm.lut_matmul(x, qw, lut, 4, mode="bf16", variant=variant),
             tlm.lut_matmul_plain(x, qw, lut, 4, mode="bf16"), rtol=0, atol=0)

@@ -11,8 +11,8 @@ kernel a verify window asks for:
   `utils.profiling.summarize_trace` on a small synthetic trace file
   against a hand-counted table;
 * a verify window of at most 16 rows (`Engine`'s prompt-lookup and draft
-  windows, a dense slot window at 2 slots) asks K1 for the GEMV, as a
-  decode step does; a 40-row window (8 slots x 5) does not.
+  windows, a dense slot window at 2 slots) asks K1 for its decode kernel,
+  as a decode step does; a 40-row window (8 slots x 5) does not.
 """
 
 import http.client
@@ -175,10 +175,11 @@ def test_base_name_names_the_ports_kernels(name, want):
 
 def test_verify_windows_ask_k1_for_the_decode_steps_kernel(monkeypatch):
     """bf16 mode: `Engine`'s prompt-lookup and draft-model windows (5 rows)
-    and a dense slot window at 2 slots (10 rows) ask K1 for the GEMV, as
-    the decode step does (the JAX package runs every call of up to 16 rows
-    through one kernel); a window at 8 slots (40 rows) and a prompt (its 8
-    rows, then its last row's lm_head) keep the tensor-core kernel."""
+    and a dense slot window at 2 slots (10 rows) ask K1 for its decode
+    kernel, as the decode step does (the JAX package runs every call of up
+    to 16 rows through one kernel); a window at 8 slots (40 rows) and a
+    prompt (its 8 rows, then its last row's lm_head) keep the prefill
+    tensor-core kernel."""
     calls = []
     inner = tql.lut_matmul
 
@@ -205,11 +206,11 @@ def test_verify_windows_ask_k1_for_the_decode_steps_kernel(monkeypatch):
     for host_loop in (False, True):
         assert run(lambda: eng.generate_speculative(
             prompt, 6, draft_len=4, host_loop=host_loop)) == {
-                (8, None), (1, None), (5, "gemv")}
+                (8, None), (1, None), (5, "dec")}
         draft = engine.Engine(engine.truncate_for_draft(model, 1), **kw)
         assert run(lambda: eng.generate_draft_speculative(
             prompt, 6, draft, draft_len=4, host_loop=host_loop)) == {
-                (8, None), (1, None), (5, "gemv"), (1, "gemv")}
+                (8, None), (1, None), (5, "dec"), (1, "dec")}
 
     def window(slots):
         e = serving.ContinuousBatchEngine(model, slots=slots, max_seq=32,
@@ -217,24 +218,24 @@ def test_verify_windows_ask_k1_for_the_decode_steps_kernel(monkeypatch):
         e.add_requests([[1, 2, 3]] * slots, 8)
         return run(e.step_spec_window)
 
-    assert window(2) == {(10, "gemv")}
+    assert window(2) == {(10, "dec")}
     assert window(8) == {(40, None)}
     e = serving.ContinuousBatchEngine(model, slots=8, max_seq=32, **kw)
     e.add_requests([[1, 2, 3]] * 8, 8)
-    assert run(e.step) == {(8, "gemv")}
+    assert run(e.step) == {(8, "dec")}
 
-    # window_gemv=False keeps every window on the mode's kernel, and
-    # leaves the decode steps (the draft's) on the GEMV
-    eng = engine.Engine(model, **kw, window_gemv=False)
+    # window_decode=False keeps every window on the mode's kernel, and
+    # leaves the decode steps (the draft's) on the decode kernel
+    eng = engine.Engine(model, **kw, window_decode=False)
     assert run(lambda: eng.generate_speculative(prompt, 6, draft_len=4)) \
         == {(8, None), (1, None), (5, None)}
     assert run(lambda: eng.generate_draft_speculative(
         prompt, 6, draft, draft_len=4, host_loop=True)) == {
-            (8, None), (1, None), (5, None), (1, "gemv")}
+            (8, None), (1, None), (5, None), (1, "dec")}
     for cls, extra in ((serving.ContinuousBatchEngine, {}),
                        (serving.PagedContinuousBatchEngine,
                         dict(n_pages=8, page_size=16))):
         e = cls(model, slots=2, max_seq=32, speculative=(4, 2),
-                window_gemv=False, **extra, **kw)
+                window_decode=False, **extra, **kw)
         e.add_requests([[1, 2, 3]] * 2, 8)
         assert run(e.step_spec_window) == {(10, None)}

@@ -55,21 +55,27 @@ def test_dense_engine_graphed_equals_eager(dev, regime, how):
     if how == "sampled":
         run["sampling"] = SamplingParams(temperature=0.8, top_k=40,
                                          top_p=0.95)
-    got = {}
+    got, dec = {}, {}
     for graphed in (True, False):
         eng = serving.ContinuousBatchEngine(model, slots=4, max_seq=128,
                                             seed=5, graphs=graphed, **kw)
         k2 = (decode_attn.decode_attention_q8 if regime == "int8"
               else decode_attn.decode_attention)
         before = k2.launches
+        k1 = dict(lut_matmul.lut_matmul.variant_launches)
         got[graphed] = eng.run(PROMPTS, **run)
         torch.cuda.synchronize()
+        # K1's decode kernel, replays included, in bf16 mode only
+        dec[graphed] = (lut_matmul.lut_matmul.variant_launches["dec"]
+                        - k1["dec"])
         assert eng._capture == graphed
         assert all(s.graph is not None for s in eng._steps.values()) == graphed
         # one K2 (K5) launch a layer a decode step, replays included, and
         # a decode step's for the one-token prompt's prefill
         assert k2.launches - before == 2 * (eng.stats["decode_steps"] + 1)
     assert got[True] == got[False]
+    assert dec[True] == dec[False]
+    assert (dec[True] > 0) == (regime == "bf16")
     assert sorted(got[True]) == list(range(len(PROMPTS)))
     if regime == "f32" and how == "step":
         plain = serving.ContinuousBatchEngine(model, slots=4, max_seq=128,
@@ -79,10 +85,11 @@ def test_dense_engine_graphed_equals_eager(dev, regime, how):
 
 @pytest.mark.parametrize("rows", [2, 5, 9, 16])
 def test_bf16_window_rows_equal_one_row_decode_calls(dev, rows):
-    """A verify window of up to 16 rows takes the decode step's GEMV
-    (``Step.lin``), whose rows do not depend on their call: each window
-    row equals the same row called alone, bit for bit, at every shape of
-    a LLaMA layer (with the sidecar and the residual folded in)."""
+    """A verify window of up to 16 rows takes the decode step's kernel
+    (``Step.lin``; bf16 mode's decode tensor-core kernel), whose rows do
+    not depend on their call: each window row equals the same row called
+    alone, bit for bit, at every shape of a LLaMA layer (with the sidecar
+    and the residual folded in)."""
     model = _model(dev)
     gen = torch.Generator(device=dev).manual_seed(rows)
     layer = model.layers[0]
@@ -97,8 +104,9 @@ def test_bf16_window_rows_equal_one_row_decode_calls(dev, rows):
         before = dict(lut_matmul.lut_matmul.variant_launches)
         whole = quant_linear.quant_linear_apply(
             spec.quant, t, x, mode="bf16", y0=y0, decode=True)
-        assert (lut_matmul.lut_matmul.variant_launches["gemv"]
-                == before["gemv"] + 1)
+        after = lut_matmul.lut_matmul.variant_launches
+        assert {k: after[k] - before[k] for k in after} == {
+            k: int(k == "dec") for k in after}
         for r in range(rows):
             one = quant_linear.quant_linear_apply(
                 spec.quant, t, x[r:r + 1], mode="bf16", y0=y0[r:r + 1],

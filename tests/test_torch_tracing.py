@@ -101,9 +101,9 @@ def test_admission_and_window_spans_nest(family, kind):
     if family == "llama":
         parts.add("rope")
     assert _inside(spans, top[1]) == parts
-    # the decode step runs eagerly on the CPU: K1's GEMV route, no K3
+    # the decode step runs eagerly on the CPU: K1's decode route, no K3
     inner = _inside(spans, top[5])
-    assert {"linear.gemv", "norm", "act", "head"} <= inner
+    assert {"linear.dec", "norm", "act", "head"} <= inner
     assert not inner & {"linear.mma", "attn", "kv"}
     assert not _inside(spans, top[6])  # the sync holds nothing
 
