@@ -2,7 +2,7 @@
 (``add_requests``), over the requests it admitted, in the window."""
 
 LAYER = "serving loop"
-UNIT, BETTER, SOURCE, MOVES = "ms", "lower", "host_clock", "ttft_p95_ms"
+UNIT, BETTER, SOURCE, MOVES = "ms", "lower", "host_clock", "output_tok_s"
 
 
 def read(run):

@@ -5,7 +5,7 @@ in %."""
 from pbench import work
 
 LAYER = "kernels in admission"
-UNIT, BETTER, SOURCE, MOVES = "%", "higher", "device_trace", "ttft_p95_ms"
+UNIT, BETTER, SOURCE, MOVES = "%", "higher", "device_trace", "output_tok_s"
 
 
 def read(run):

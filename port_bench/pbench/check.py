@@ -4,7 +4,8 @@ requests against the plain reference.
 Once the window has closed and the program's state is freed, a sample
 drawn from the seed of the requests the loop finished, the longest among
 them and at least as many as the cell has slots, is run through the
-reference once, teacher-forced over each prompt and its served tokens.
+reference once, teacher-forced over each prompt and its served tokens:
+the ``logits`` of the configuration's family (``pbench.spec.family``).
 For each served token the reference's logits say how far its logit
 lies below the reference's best one; the widest such gap
 (``max_logit_gap``) is held to the cell's limit. Greedy tokens of a
@@ -28,8 +29,8 @@ from typing import List
 import numpy as np
 import torch
 
-from pbench import mixes
-from reference import model as ref
+from pbench import mixes, spec
+from reference.rounding import fp8
 
 
 def sample(requests: List[mixes.Request], seed: int, served: int,
@@ -81,9 +82,10 @@ def judge(cfg: dict, reqs, seed: int, vocab: int, device,
         return {**out, "correct": False,
                 "checks": {"sampled_requests": {"value": 0, "limit": 1}}}
     seqs, starts = _sequences(reqs, seed, vocab)
-    got = ref.logits(cfg, seed, seqs, starts, device)
+    fam = spec.family(cfg)
+    got = fam.logits(cfg, seed, seqs, starts, device)
     if control:
-        low = ref.logits(cfg, seed, seqs, starts, device, act=ref.fp8)
+        low = fam.logits(cfg, seed, seqs, starts, device, act=fp8)
         judged = [b.argmax(-1) for b in low]
     else:
         judged = [torch.tensor(r.tokens, device=device) for r in reqs]

@@ -1,8 +1,12 @@
 """The system under test: the port's model, built from the raw weights by
 the port's own packing, fusion and model classes, and its paged engine.
 
-This is the one module of the harness that imports the port
-(``squeezellm_tpu_torch``); the reference imports none of it.
+``build_model`` builds the dense families (``families/mistral.py``,
+``families/opt.py``); ``_linear`` packs one raw linear for any family;
+``build_engine``, the engine at the cell's settings, is the same for
+every architecture. The port (``squeezellm_tpu_torch``) is imported
+inside the functions, here and in the family files, never by the
+reference.
 """
 
 from __future__ import annotations

@@ -12,7 +12,9 @@ or a metric by adding files:
   configuration and the weights' recipe;
 * ``traffic/<traffic>.json``: a traffic mix, the parameters of one kind;
 * ``traffic/<kind>.py``: the generator of that kind;
-* ``metrics/<metric>.py``: the reader of one metric.
+* ``metrics/<metric>.py``: the reader of one metric;
+* ``families/<model_type>.py``: the architecture of every configuration
+  whose published ``model_type`` it is named after (``family``).
 """
 
 from __future__ import annotations
@@ -45,24 +47,35 @@ def _by_name(entries: List[dict], name: str, what: str) -> dict:
 def cell(name: str, root: str = ROOT,
          harness_dir: str = HARNESS_DIR) -> dict:
     """Everything one run of cell ``name`` reads: its entry in
-    ``BENCHMARK.json``, its own settings, its configuration, its traffic
-    mix and the metrics it reports (end-to-end and per-layer)."""
+    ``BENCHMARK.json``, its own settings, its configuration and the
+    configuration's family, its traffic mix and the metrics it reports
+    (end-to-end and per-layer, ``reported``). Raises ``MissingFamily``
+    where the configuration's family has no file."""
     bench = load_benchmark(root)
     entry = _by_name(bench["workloads"], name, "workload")
     conf_entry = _by_name(bench["configs"], entry["config"], "config")
     mix = _read_json(os.path.join(harness_dir, "traffic",
                                   entry["traffic"] + ".json"))
+    config = _read_json(os.path.join(root, conf_entry["file"]))
     return {
         "name": name,
         "entry": entry,
         "settings": _read_json(os.path.join(harness_dir, "workloads",
                                             name + ".json")),
-        "config": _read_json(os.path.join(root, conf_entry["file"])),
+        "config": config,
         "config_name": conf_entry["name"],
+        "family": family(config, harness_dir),
         "mix": mix,
-        "end_to_end": bench["end_to_end"],
-        "per_layer": bench["per_layer"],
+        "end_to_end": reported(bench["end_to_end"], name),
+        "per_layer": reported(bench["per_layer"], name),
     }
+
+
+def reported(metrics: List[dict], cell_name: str) -> List[dict]:
+    """The metrics that cell ``cell_name`` reports: those whose
+    ``workloads`` key lists it, and those without the key."""
+    return [m for m in metrics
+            if cell_name in m.get("workloads", [cell_name])]
 
 
 def _module(path: str, label: str):
@@ -72,6 +85,27 @@ def _module(path: str, label: str):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+class MissingFamily(FileNotFoundError):
+    """A configuration whose ``model_type`` has no family file."""
+
+
+def family(cfg: dict, harness_dir: str = HARNESS_DIR):
+    """The architecture module of configuration ``cfg``,
+    ``families/<model_type>.py``. It defines ``build_model(cfg, seed,
+    device)``, the port's model made from the seed's raw weights;
+    ``logits(cfg, seed, seqs, starts, device, act=None)``, the plain
+    reference's f32 logits, teacher-forced, ``act`` the control's
+    rounding; and ``Work(cfg)``, the work counts (``pbench/work.py``'s
+    meanings)."""
+    mtype = cfg["model_type"]
+    path = os.path.join(harness_dir, "families", mtype + ".py")
+    if not os.path.isfile(path):
+        raise MissingFamily(
+            f"no family file {os.path.relpath(path, ROOT)} for model_type "
+            f"{mtype!r}")
+    return _module(path, "port_bench_family_" + mtype)
 
 
 def traffic_kind(kind: str, harness_dir: str = HARNESS_DIR):

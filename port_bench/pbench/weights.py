@@ -2,9 +2,13 @@
 
 One recipe for both sides: the port gets these arrays packed by its own
 ``formats`` functions (``pbench/port.py``), the plain reference gets them
-as they are (``reference/model.py``). Every layer draws from a generator
-of its own, seeded from (seed, layer), so the reference can make one
-layer at a time again after the program's state is freed.
+as they are (``reference/``). ``layer`` and ``globals_`` make the dense
+families' weights (``families/mistral.py``, ``families/opt.py``); every
+layer draws from a generator of its own, seeded from (seed, layer), so
+the reference can make one layer at a time again after the program's
+state is freed. ``raw_linear`` makes one linear in the same recipe from a
+generator of its own (seed, tag), for a family whose layers hold other
+linears.
 
 The recipe follows the reference implementation's packed checkpoints:
 every decoder linear is 4-bit with one LUT of 16 values per output
@@ -78,7 +82,10 @@ def kv_heads(cfg: dict) -> int:
 
 
 def head_dim(cfg: dict) -> int:
-    return cfg["hidden_size"] // cfg["num_attention_heads"]
+    """The configuration's ``head_dim`` where it gives one, else hidden /
+    heads."""
+    return (cfg.get("head_dim")
+            or cfg["hidden_size"] // cfg["num_attention_heads"])
 
 
 def ffn(cfg: dict) -> int:
@@ -127,6 +134,46 @@ def _lut(draws: torch.Tensor, std: float) -> torch.Tensor:
     ffn 16384, a token-independent vector that sets every logit's rank."""
     lut = draws * std
     return (lut - lut.mean(1, keepdim=True)).sort(1).values
+
+
+@torch.no_grad()
+def raw_linear(seed: int, tag: str, out_f: int, in_f: int, quant: dict,
+               gain: float, device, bias_std=None) -> dict:
+    """One linear's raw arrays in the recipe of ``layer`` (balanced codes,
+    a sorted mean-free LUT a channel at ``gain``, the bucketed sidecar,
+    top-X rows; a bias of ``bias_std`` where given), drawn from a
+    generator of its own seeded from (seed, tag): for architectures whose
+    layers hold many linears, such as experts, each under a tag of its
+    own. ``layer`` keeps its own code: it draws a whole layer's arrays of
+    each kind at once, and its every allocation, in order, is what the
+    published cells' ``peak_mem_gib`` was measured with (the caching
+    allocator's peak counts whole blocks, so moving a temporary's free
+    moves the reading by megabytes)."""
+    bits, topx = quant["bits"], quant["topx"]
+    gen = generator(seed, tag, device)
+    n = sidecar_count(out_f, in_f, quant["sparsity"])
+    codes = _balanced_codes(out_f, in_f, 2**bits, gen, device)
+    lut_draws = torch.randn(out_f, 2**bits, generator=gen, device=device)
+    offs = torch.rand(n, generator=gen, device=device)
+    vals = torch.randn(n, generator=gen, device=device)
+    tw = torch.randn(in_f, topx, generator=gen, device=device)
+    bucket = out_f * in_f // n
+    pos = (torch.arange(n, device=device) * bucket
+           + (offs * bucket).long().clamp(max=bucket - 1))
+    lin = {
+        "codes": codes,
+        "lut": _lut(lut_draws, gain / math.sqrt(in_f)),
+        "sp_rows": pos // in_f,
+        "sp_cols": pos % in_f,
+        "sp_vals": vals * (OUTLIER_GAIN / math.sqrt(in_f)),
+        "topx_idx": torch.randperm(out_f, generator=gen,
+                                   device=device)[:topx].sort().values,
+        "topx_w": tw * (TOPX_GAIN / math.sqrt(in_f)),
+    }
+    if bias_std is not None:
+        lin["bias"] = torch.randn(out_f, generator=gen,
+                                  device=device) * bias_std
+    return lin
 
 
 @torch.no_grad()

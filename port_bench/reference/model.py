@@ -25,7 +25,8 @@ models: random weights in the recipe's scales; no dropout (inference).
 ``act``, when given, rounds what the program holds at its configuration's
 precision (bf16) to a lower one: every LUT (per channel), every linear's
 input, the keys and values as the cache would hold them, and the
-residual stream after every add. ``fp8`` is the control's.
+residual stream after every add. ``fp8`` (``reference/rounding.py``) is
+the control's.
 """
 
 from __future__ import annotations
@@ -36,15 +37,10 @@ from typing import Callable, List, Optional, Sequence
 import torch
 
 from pbench import weights
+from reference.rounding import fp8  # noqa: F401 (the control's)
 
 MLP_ROWS = 8192   # rows of the MLP a block
 ATTN_QUERIES = 512  # queries of the attention a block
-
-
-def fp8(x: torch.Tensor) -> torch.Tensor:
-    """x rounded through float8 e4m3, each row scaled to its range (448)."""
-    scale = x.abs().amax(-1, keepdim=True).clamp_min(1e-30) / 448.0
-    return (x / scale).to(torch.float8_e4m3fn).float() * scale
 
 
 def dequant(lin: dict) -> torch.Tensor:

@@ -18,7 +18,11 @@ standard error. Earlier lines of standard error give the set-up's parts,
 the card's clock and power, each timing's median and sample count, and
 the trace's reduction.
 
-Exits 2 without a result when no card (or too few) is present, and 3 when
+The configuration's architecture is its family (``pbench.spec.family``,
+``families/<model_type>.py``): the port's model, the plain reference and
+the work counts. Exits 4 without a result, before anything is built, when the
+configuration's ``model_type`` has no family file (the last line of
+standard error names it); 2 when no card (or too few) is present; 3 when
 a module of JAX or of the JAX package is loaded in this process.
 """
 
@@ -101,8 +105,9 @@ def warm_up(eng, lengths, window: int, seed: int, vocab: int) -> None:
 def prepare(c: dict, seed: int, device: str, seconds: float,
             trace: bool, fault=None) -> dict:
     """Everything before the loop for cell ``c`` (``spec.cell``): the
-    kernels, the model, the engine (given to ``fault`` first, if one is
-    given), the warm-up; each part's seconds."""
+    kernels, the model (its family's ``build_model``), the engine (given
+    to ``fault`` first, if one is given), the warm-up; each part's
+    seconds."""
     import torch
 
     from pbench import mixes, port
@@ -117,7 +122,7 @@ def prepare(c: dict, seed: int, device: str, seconds: float,
         _build.lib()
     parts["build_s"] = time.perf_counter() - t
     t = time.perf_counter()
-    model = port.build_model(cfg, seed, device)
+    model = c["family"].build_model(cfg, seed, device)
     eng = port.build_engine(model, st, cfg["serve"])
     if fault is not None:
         fault(eng)
@@ -171,8 +176,15 @@ def _report_loop(lp) -> None:
     log(f"window: {lp.seconds:.3f} s, {lp.decode_steps} decode steps, "
         f"{sum(w.tokens for w in lp.windows if lp.inside(w.t1))} tokens, "
         f"{len(lp.admissions)} admission calls in the run")
-    log(f"ttft_ms: median {stats.median(ttft)}, n {len(ttft)}; "
-        f"tpot_ms: median {stats.median(tpot)}, n {len(tpot)}")
+    log(f"ttft_ms: median {stats.median(ttft)}, p95 {stats.pct(ttft, 0.95)}, "
+        f"n {len(ttft)}; tpot_ms: median {stats.median(tpot)}, "
+        f"p95 {stats.pct(tpot, 0.95)}, n {len(tpot)}")
+    sizes = {}
+    for a in lp.admissions:
+        if lp.inside(a.t1):
+            sizes[len(a.prompts)] = sizes.get(len(a.prompts), 0) + 1
+    log("admission calls in the window by requests admitted: "
+        + json.dumps(dict(sorted(sizes.items()))))
     log("traffic: " + json.dumps(lp.traffic))
 
 
@@ -190,11 +202,15 @@ def main(argv=None, device: str = "cuda", fault=None) -> int:
 
     import torch
 
-    from pbench import check, spec, work
+    from pbench import check, spec
     from pbench import trace as trace_mod
     from pbench.card import power_limit
 
-    entry = spec.cell(args.workload, harness_dir=HERE)
+    try:
+        entry = spec.cell(args.workload, harness_dir=HERE)
+    except spec.MissingFamily as e:
+        log(f"no result: {e}")
+        return 4
     chips = entry["entry"]["chips"]
     if device == "cuda":
         if not torch.cuda.is_available() or \
@@ -234,8 +250,8 @@ def main(argv=None, device: str = "cuda", fault=None) -> int:
                                 "ramp_s": setup_s - sum(parts.values())}))
     log("window clocks: " + json.dumps(clocks))
     _report_loop(lp)
-    run = Run(loop=lp, work=work.Work(cfg), trace=reduced, peak_bytes=peak,
-              setup_s=setup_s)
+    run = Run(loop=lp, work=entry["family"].Work(cfg), trace=reduced,
+              peak_bytes=peak, setup_s=setup_s)
     wanted = entry["per_layer"] if args.trace else entry["end_to_end"]
     readers = spec.readers(wanted, harness_dir=HERE)
     metrics = {}

@@ -64,6 +64,49 @@ def test_configs_keep_published_sizes():
         assert conf["reduced"] == want
 
 
+@pytest.mark.parametrize("conf", [c["name"] for c in _bench()["configs"]])
+def test_every_config_has_its_family(conf):
+    """``families/<model_type>.py`` with its three names."""
+    entry = next(c for c in _bench()["configs"] if c["name"] == conf)
+    with open(os.path.join(REPO, entry["file"])) as f:
+        cfg = json.load(f)
+    fam = spec.family(cfg)
+    assert callable(fam.build_model) and callable(fam.logits)
+    assert fam.Work(cfg).weight_bytes > 0
+
+
+def test_missing_family_is_named():
+    with pytest.raises(spec.MissingFamily,
+                       match=r"port_bench/families/no-such\.py"):
+        spec.family({"model_type": "no-such"})
+
+
+@pytest.mark.parametrize("cell", [w["name"] for w in _bench()["workloads"]])
+def test_cell_reports_what_its_per_layer_metrics_move(cell):
+    """A cell reports ``setup_s``, another end-to-end metric and a
+    per-layer one, and every per-layer metric it reports moves one of its
+    end-to-end metrics."""
+    c = spec.cell(cell)
+    e2e = {m["name"] for m in c["end_to_end"]}
+    assert "setup_s" in e2e and len(e2e) >= 2 and c["per_layer"]
+    for m in c["per_layer"]:
+        assert m["moves"] in e2e, (cell, m["name"])
+
+
+def test_metric_workloads_name_cells():
+    """A metric's ``workloads`` lists cells of BENCHMARK.json; only those
+    report it, and a metric without the key is reported everywhere."""
+    b = _bench()
+    cells = [w["name"] for w in b["workloads"]]
+    for kind in ("end_to_end", "per_layer"):
+        for m in b[kind]:
+            listed = m.get("workloads", cells)
+            assert listed and set(listed) <= set(cells), m["name"]
+            for name in cells:
+                got = {x["name"] for x in spec.cell(name)[kind]}
+                assert (m["name"] in got) == (name in listed)
+
+
 @pytest.mark.parametrize("kind", ["end_to_end", "per_layer"])
 def test_every_metric_has_its_reader(kind):
     for m in _bench()[kind]:

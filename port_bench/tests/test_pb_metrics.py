@@ -35,6 +35,16 @@ def test_ttft_over_all_requests_in_the_window():
     assert stats.pct(list(range(1, 101)), 0.95) == 96
 
 
+def test_saturated_ttft_reads_as_the_end_to_end_one():
+    """``ttft_p95_ms.saturated`` is ``ttft_p95_ms``'s reading, per layer."""
+    reqs = [_req(i, 10.5, 10.5 + (i + 1) / 1e3, 11.0, 2)
+            for i in range(40)]
+    run = _run(reqs, [])
+    got = spec.metric_reader("ttft_p95_ms.saturated").read(run)
+    assert got == spec.metric_reader("ttft_p95_ms").read(run) \
+        == pytest.approx(39.0)  # sorted[int(0.95 * 40)]
+
+
 def test_tpot_over_requests_finished_in_the_window():
     reqs = [_req(0, 10.0, 11.0, 12.0, 11, done=12.0),   # 100 ms
             _req(1, 10.0, 11.0, 11.5, 11, done=11.5),   # 50 ms

@@ -44,10 +44,16 @@ def test_window_and_fp8_change_the_result():
 
 
 def test_reference_imports_neither_port_nor_jax():
-    code = ("import sys; sys.path.insert(0, %r); import reference.model, "
-            "pbench.check; print(sorted({m.split('.')[0] for m in "
+    """Every module under ``reference/``, with the check that runs it."""
+    mods = sorted(n[:-3] for n in os.listdir(os.path.join(HARNESS,
+                                                          "reference"))
+                  if n.endswith(".py") and n != "__init__.py")
+    assert "model" in mods
+    code = ("import sys; sys.path.insert(0, %r); %s; import pbench.check; "
+            "print(sorted({m.split('.')[0] for m in "
             "sys.modules} & {'squeezellm_tpu_torch', 'squeezellm_tpu', "
-            "'jax', 'jaxlib', 'flax'}))" % HARNESS)
+            "'jax', 'jaxlib', 'flax'}))"
+            % (HARNESS, "; ".join("import reference." + m for m in mods)))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True, env=dict(os.environ,
                                                          PYTHONPATH=""))

@@ -51,9 +51,10 @@ def test_tiny_run(tree, cell, trace):
                            "device"] and list(r)[-1] == "checks"
     assert r["correct"] is True and r["failed"] == 0 and r["attempted"] > 0
     want = ({"admit_host_ms", "window_ms_per_step", "mfu"} if trace == "1"
-            else {"output_tok_s", "ttft_p95_ms", "tpot_p95_ms",
-                  "peak_mem_gib", "setup_s"})
+            else {"output_tok_s", "tpot_p95_ms", "peak_mem_gib", "setup_s"})
     assert want <= set(r["metrics"])
+    # metrics whose ``workloads`` key does not list the tiny cell
+    assert not {"ttft_p95_ms", "ttft_p95_ms.saturated"} & set(r["metrics"])
     assert err.rstrip().splitlines()[-1].startswith("check short_requests")
 
 
@@ -124,6 +125,62 @@ def test_cell_added_by_files_alone(tree):
     r = _result(out)
     assert r["correct"] and r["metrics"]["requests_done"]["value"] > 0
     assert "clients" in err and '"clients": 2' in err
+
+
+def _add_architecture(tree, model_type):
+    """A configuration of ``model_type`` and its cell ``tiny-fam.chat``,
+    as files and BENCHMARK.json's entries; for ``tiny-fam`` also its
+    family file and its reference (``tests/tiny_family/``)."""
+    pb = os.path.join(tree, "port_bench")
+    if model_type == "tiny-fam":
+        src = os.path.join(TESTS, "tiny_family")
+        shutil.copy(os.path.join(src, "tiny-fam.py"),
+                    os.path.join(pb, "families", "tiny-fam.py"))
+        shutil.copy(os.path.join(src, "tiny_fam.py"),
+                    os.path.join(pb, "reference", "tiny_fam.py"))
+    cfg = dict(TINY["tiny-llama"], model_type=model_type)
+    del cfg["sliding_window"]
+    with open(os.path.join(pb, "configs", "tiny-fam.json"), "w") as f:
+        json.dump(cfg, f)
+    shutil.copy(os.path.join(pb, "workloads", "tiny-llama.chat.json"),
+                os.path.join(pb, "workloads", "tiny-fam.chat.json"))
+    path = os.path.join(tree, "BENCHMARK.json")
+    with open(path) as f:
+        bench = json.load(f)
+    bench["configs"].append({"name": "tiny-fam", "source": "test",
+                             "file": "port_bench/configs/tiny-fam.json",
+                             "reduced": [], "why": "test"})
+    bench["workloads"].append({"name": "tiny-fam.chat", "config": "tiny-fam",
+                               "traffic": "tinymix", "chips": 1,
+                               "why": "test"})
+    with open(path, "w") as f:
+        json.dump(bench, f)
+
+
+@pytest.mark.parametrize("fault", [None, "token_altered"])
+def test_architecture_added_by_files_alone(tree, fault):
+    """A configuration whose ``model_type`` names a family file added with
+    its reference: the cell runs, is correct and reports its traced
+    per-layer metrics; a token altered where it is produced fails it."""
+    _add_architecture(tree, "tiny-fam")
+    rc, out, err = _run(tree, ["--workload", "tiny-fam.chat", *ARGS,
+                               "--trace", "0" if fault else "1"],
+                        fault=fault)
+    assert rc == 0, err[-3000:]
+    r = _result(out)
+    assert r["correct"] is (fault is None), r["checks"]
+    if fault is None:
+        assert {"admit_host_ms", "window_ms_per_step", "mfu"} \
+            <= set(r["metrics"])
+
+
+def test_refuses_a_model_type_without_a_family(tree):
+    """Exit 4 and no result line; the last line of standard error names
+    the missing file."""
+    _add_architecture(tree, "tiny-none")
+    rc, out, err = _run(tree, ["--workload", "tiny-fam.chat", *ARGS])
+    assert rc == 4 and not any(line.startswith("{") for line in out)
+    assert "port_bench/families/tiny-none.py" in err.rstrip().splitlines()[-1]
 
 
 def test_refuses_without_the_program(tmp_path):
