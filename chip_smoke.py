@@ -6,7 +6,7 @@ Run from the repository root on a machine with one NVIDIA H100:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from csrc/ with nvcc, holds each kernel
-(K1-K12) against its plain PyTorch version at the main path's shapes, and
+(K1-K13) against its plain PyTorch version at the main path's shapes, and
 drives the port's paths on random full-width models made from a seed,
 checking after each that it went through its kernels:
 
@@ -29,6 +29,11 @@ checking after each that it went through its kernels:
   bf16 and int8 pools (K7, K9), then with transposed words attached: eight
   f32 requests against the plain path and the bf16 step profiled (K11,
   K12);
+* Mellum2-12B-A2.5B w4 at its published size (28 layers of 64 experts, 8
+  a token) through serving.PagedContinuousBatchEngine in bf16 mode, 16
+  slots over a bf16 pool, graphed and eager (K13 over each layer's
+  experts and its combine, K1, K3, K6); K13 itself is held and timed at
+  its widths as a decode step of 16 slots and a 256-token prompt call it;
 * serving.ContinuousBatchEngine on a w4 model of SERVE_LAYERS layers, 8
   slots of a 512-row dense
   cache, the same 16 requests: f32 greedy by steps, windows, speculation
@@ -157,6 +162,19 @@ K12_ROWS = (1, 8, 40, 100)
 # of x it makes first at more than one row) and K6-K9's (one template)
 K12_KERNELS = ("spmv",)
 PAGED_KERNELS = ("paged_attn_kernel",)
+# K13 at Mellum2-12B-A2.5B's widths (the published config.json, as
+# port_bench/configs holds it): hidden 2304, 64 experts of width 896, 8 a
+# token; held and timed as a decode step of 16 slots (128 pairs, the decode
+# body) and a 256-token prompt (2048 pairs, the prefill body) call it
+MELLUM_CONFIG = os.path.join("port_bench", "configs", "mellum2-12b-w4.json")
+K13_CASES = (("dec", 16), ("mma", 256))
+K13_KERNELS = {"dec": ("moe_dec_kernel",), "mma": ("moe_mma_kernel",),
+               "combine": ("moe_combine_kernel",)}
+# the Mellum path: 16 slots over 160 pages of 128 rows, as the benchmark's
+# chat cell serves it, prompt lengths below the 1024 rows where K4 takes
+# over, the longest served past the 1024-row window
+MELLUM_LENS = (64, 1000, 96, 256, 130, 512, 200, 77, 300, 150, 700, 90,
+               256, 180, 420, 110)
 # offline quantization: a dense LLaMA-2-7B at full width and depth (Fisher
 # keeps the f32 weights and the grad^2 sums of every layer on the card, ~54
 # GB), calibrated on FISHER_SAMPLES synthetic windows of FISHER_SEQLEN
@@ -1244,7 +1262,7 @@ def _per_step(rows, get):
 
 
 def counters():
-    """The twelve wrappers, K1 to K12."""
+    """The wrappers, K1 to K13, then K13's combine."""
     from squeezellm_tpu_torch import graphs
 
     return graphs.counted_wrappers()
@@ -1254,7 +1272,7 @@ def reset_counts():
     for fn in counters():
         fn.launches = 0
     counters()[1].ropeless_launches = 0
-    for fn in (counters()[0], counters()[9]):  # K1, K10 by device kernel
+    for fn in (counters()[0], counters()[9], counters()[12]):  # by kernel
         fn.variant_launches = dict.fromkeys(fn.variant_launches, 0)
     k3 = counters()[2]  # K3 by regime
     k3.regime_launches = dict.fromkeys(k3.regime_launches, 0)
@@ -1267,17 +1285,19 @@ def expect_counts(record, path, want):
     got = read_counts()
     want = list(want) + [0] * (len(got) - len(want))
     if got != want:
-        raise AssertionError(f"{path}: launches K1..K12 {got} != {want}")
+        raise AssertionError(f"{path}: launches K1..K13, combine {got} != "
+                             f"{want}")
     record["paths"].append({"path": path, "launches": got,
                             "variants": variants()})
     return got
 
 
 def variants():
-    """The launches by device kernel (K1, K10), by regime (K3) and K12's
-    copies of x since the counts were reset."""
+    """The launches by device kernel (K1, K10, K13), by regime (K3) and
+    K12's copies of x since the counts were reset."""
     return {"K1": dict(counters()[0].variant_launches),
             "K10": dict(counters()[9].variant_launches),
+            "K13": dict(counters()[12].variant_launches),
             "K3": dict(counters()[2].regime_launches),
             "K12 copies of x": counters()[11].copy_launches}
 
@@ -1559,7 +1579,7 @@ def run_model(torch, config, bits, record):
     print(f"w{bits} (i) 3 requests (prompts {PROMPT_LENS}, {NEW_TOKENS} new "
           f"tokens) in {res['requests_s']:.2f} s graphed, "
           f"{res['requests_eager_s']:.2f} s eager, tokens identical to each "
-          f"other and to the plain path; launches K1..K12 "
+          f"other and to the plain path; launches K1..K13, combine "
           f"{res['launches']}; f32 teacher-forced logits "
           f"rel err {res['tf_exact_rel_err']:.3g}")
 
@@ -1623,7 +1643,8 @@ def run_model(torch, config, bits, record):
                          cache, dtype=torch.bfloat16, mode="bf16")
     stats["launches_per_decode_step"] = read_counts()
     if stats["launches_per_decode_step"] != [4 * config.n_layers + 1,
-                                             config.n_layers] + [0] * 10:
+                                             config.n_layers] + [0] * (
+                                                 len(counters()) - 2):
         raise AssertionError(f"per-step launches {read_counts()}")
     res["bench"] = stats
     print(f"w{bits} (ii) bf16 decode: {stats['tokens_per_s']:.2f} tok/s "
@@ -1639,7 +1660,7 @@ def run_model(torch, config, bits, record):
           f"not held): kernels vs plain {stats['tf_bf16_rel_err']:.3g}, "
           f"argmax agree {stats['tf_bf16_argmax_agree']:.3f}, plain bf16 vs "
           f"plain f32 {stats['tf_bf16_plain_vs_f32']:.3g}")
-    print(f"w{bits} (iii) launches per decode step K1..K12: "
+    print(f"w{bits} (iii) launches per decode step K1..K13, combine: "
           f"{stats['launches_per_decode_step']}")
     print_profile(f"w{bits}", stats, record)
     record["models"].append(res)
@@ -1698,7 +1719,7 @@ def run_eval(torch, model, label, record, modes=("exact", "bf16"),
               f"{ppl_plain:.6g} plain, rel {rel:.3g} ({held}); "
               f"{secs / strides:.3f} s a stride (host clock, {strides} "
               f"strides, {EVAL_GROUP} a forward; card meanwhile "
-              f"{card.stats}); launches K1..K12 {launches}")
+              f"{card.stats}); launches K1..K13, combine {launches}")
         if prof["profile_failed"]:
             record["profile_failed"].append(f"{label} eval {mode}")
             print(f"{label} eval {mode} PROFILE FAILED, device time not "
@@ -1776,7 +1797,8 @@ def run_int8(torch, model, ids, bf16_stats, record):
                          dtype=torch.bfloat16, mode="bf16")
     stats["launches_per_decode_step"] = read_counts()
     if stats["launches_per_decode_step"] != [4 * cfg.n_layers + 1, 0, 0, 0,
-                                             cfg.n_layers] + [0] * 7:
+                                             cfg.n_layers] + [0] * (
+                                                 len(counters()) - 5):
         raise AssertionError(f"int8 per-step launches {read_counts()}")
     if not math.isfinite(stats["check_ppl"]):
         raise AssertionError(f"int8 bf16 benchmark: {stats}")
@@ -1785,8 +1807,8 @@ def run_int8(torch, model, ids, bf16_stats, record):
           f"(reported, not held) the logits that "
           f"choose its tokens lie {rel:.3g} of max |logit| from the plain "
           f"path's, {flips} argmax flips, {same} of {NEW_TOKENS} leading "
-          f"tokens identical; launches K1..K12 {launches}; per decode step "
-          f"{stats['launches_per_decode_step']}")
+          f"tokens identical; launches K1..K13, combine {launches}; per "
+          f"decode step {stats['launches_per_decode_step']}")
     print_layer_check("w4 f32, int8 cache", lc, TOL_LAYER_INT8, "int8 cache")
     for name, st in (("int8 cache", stats), ("bf16 cache", bf16_stats)):
         prof = st["profile"]
@@ -2193,6 +2215,144 @@ def check_paged(torch, timer, record, number):
           f"{worst:.3g}")
 
 
+def check_k13(torch, timer, record):
+    """K13 (``ops/moe_lut``: one launch over a layer's stacked experts,
+    routed from the card) and its combine against their plain versions at
+    Mellum2-12B-A2.5B's widths: 64 experts of gate|up 1792x2304 (fused, 20
+    top-X rows) and down 2304x896 (10), w4 with 0.45% sidecars, routed by
+    ``models.moe.route`` from a random router, at K13_CASES. Each output
+    within K1's bf16 tolerance of the plain loop over the experts, bit-equal
+    across two launches (the combine bit-equal to its plain version); timed
+    by the timer and by the profiler's device time beside the bound of the
+    experts the routing read."""
+    from squeezellm_tpu_torch import synthetic
+    from squeezellm_tpu_torch.models import fuse, moe, registry
+    from squeezellm_tpu_torch.ops import moe_lut
+
+    with open(os.path.join(HERE, MELLUM_CONFIG)) as f:
+        cfg = registry.config_class("mellum").from_hf_config(json.load(f))
+    h, w, E, k = (cfg.hidden_size, cfg.expert_size, cfg.n_experts,
+                  cfg.top_k)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    ex = torch.nn.ModuleDict({
+        name: moe.Experts.stack([synthetic.random_quant_linear(
+            gen, dev, o, i, 4, 0.0045, 10) for _ in range(E)])
+        for name, (o, i) in cfg.expert_shapes().items()})
+    fuse.fuse_experts(ex)
+    router = torch.randn(E, h, generator=gen, device=dev) * (
+        synthetic.ROUTER_GAIN / math.sqrt(h))
+    record["k13_detail"], record["k13_combine"] = [], []
+    worst = 0.0
+    for variant, T in K13_CASES:
+        x = torch.randn(T, h, generator=gen, device=dev).to(torch.bfloat16)
+        r = moe.route(x, router, k, True, moe_lut.row_tile(T, variant))
+        P = T * k
+        counts = (r.offsets[1:] - r.offsets[:-1]).tolist()
+        read = [e for e in range(E) if counts[e]]
+        for name, xin in (
+                ("gateup", x.index_select(0, r.tok).contiguous()),
+                ("down", torch.randn(P, w, generator=gen, device=dev)
+                 .to(torch.bfloat16))):
+            t = ex[name].tensors()
+            _, nw, out_f = t["qweight"].shape
+            in_f = xin.shape[1]
+            kw = dict(rowptr=t["sp_rowptr"], cols=t["sp_cols"],
+                      vals=t["sp_vals"], topx_weights=t["topx_weights"],
+                      topx_indices=t["topx_indices"], mode="bf16")
+
+            def kernel():
+                return moe_lut.moe_lut_matmul(
+                    xin, r.offsets, t["qweight"], t["lut"], 4,
+                    variant=variant, tiles=r.tiles, row_tile=r.row_tile,
+                    per_row=k, **kw)
+
+            def plain():
+                return moe_lut.moe_lut_matmul_plain(
+                    xin, r.offsets, t["qweight"], t["lut"], 4, **kw)
+
+            got, again, want = kernel(), kernel(), plain()
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"K13 {name} {variant} T={T}: two "
+                                     f"launches differ")
+            err = rel_err(got, want)
+            if err > TOL_K1["bf16"]:
+                raise AssertionError(f"K13 {name} {variant} T={T}: rel err "
+                                     f"{err}")
+            worst = max(worst, abs_err(got, want))
+            # the experts read: words, LUTs, row pointers and top-X rows
+            # of each, their sidecar entries; the pairs' rows in and out
+            rp = t["sp_rowptr"].long().cpu()
+            nnz = [int(rp[e, -1] - rp[e, 0]) for e in range(E)]
+            X = t["topx_indices"].shape[1]
+            per = (nw * out_f + out_f * 16 + out_f + 1 + X * in_f + X) * 4
+            nbytes = (len(read) * per + sum(nnz[e] for e in read) * 8
+                      + xin.numel() * 2 + got.numel() * 4)
+            b, by = bound_ms(nbytes, [
+                (2 * P * in_f * out_f, "bf16"),
+                (2 * sum(counts[e] * nnz[e] for e in read) + 2 * P * X * in_f,
+                 "f32")])
+            row = dict(shape=name, variant=variant, T=T, pairs=P, out=out_f,
+                       inp=in_f, experts_read=len(read), rel_err=err,
+                       ms=timer.ms(kernel),
+                       device_ms=flushed_device_ms(torch, timer, kernel,
+                                                   K13_KERNELS[variant]),
+                       plain_ms=timer.ms(plain, iters=3, warmup=1),
+                       library_ms=None, bound_ms=b, bound_by=by,
+                       bytes=nbytes)
+            row["gb_s"] = nbytes / (row["device_ms"] or row["ms"]) / 1e6
+            record["k13_detail"].append(row)
+        # the combine of the pairs' down outputs with the residual
+        d = torch.randn(P, h, generator=gen, device=dev)
+
+        def combine():
+            return moe_lut.moe_combine(d, r.inv, r.weights, x)
+
+        got = combine()
+        want = moe_lut.moe_combine_plain(d, r.inv, r.weights, x)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"K13 combine T={T}: differs from its "
+                                 f"plain version")
+        nbytes = P * h * 4 + T * k * 12 + 2 * T * h * 2
+        b, by = bound_ms(nbytes, [(2 * P * h, "f32")])
+        record["k13_combine"].append(dict(
+            T=T, pairs=P, ms=timer.ms(combine),
+            device_ms=flushed_device_ms(torch, timer, combine,
+                                        K13_KERNELS["combine"]),
+            plain_ms=timer.ms(lambda: moe_lut.moe_combine_plain(
+                d, r.inv, r.weights, x), iters=5),
+            library_ms=None, bound_ms=b, bound_by=by, bytes=nbytes))
+    record["k13_max_abs_err"] = worst
+    print("  K13 ms by the timer / device time (bound by b=bytes/"
+          "o=operations, plain loop over the experts); GB/s by device time")
+    for r in record["k13_detail"]:
+        print(f"  K13 {r['shape']:6s} {r['variant']} T={r['T']:3d} "
+              f"({r['pairs']} pairs, {r['experts_read']} experts read) "
+              f"{r['ms']:.4f} / {_ms(r['device_ms'])} ({r['bound_ms']:.4f}"
+              f"{r['bound_by'][0]}, {r['plain_ms']:.3f}) [{r['gb_s']:.0f} "
+              f"GB/s]")
+    for r in record["k13_combine"]:
+        print(f"  K13 combine T={r['T']:3d} {r['ms']:.4f} / "
+              f"{_ms(r['device_ms'])} ({r['bound_ms']:.4f}"
+              f"{r['bound_by'][0]}, {r['plain_ms']:.3f})")
+    for variant, T in K13_CASES:
+        rows = [r for r in record["k13_detail"] if r["T"] == T] + [
+            r for r in record["k13_combine"] if r["T"] == T]
+        step = {key: _per_step([dict(q, launches_per_step=cfg.n_layers)
+                                for q in rows], lambda q, key=key: q[key])
+                for key in ("ms", "device_ms", "bound_ms")}
+        record[f"k13_{variant}_all_layers"] = step
+        print(f"  K13 over {cfg.n_layers} layers ({T} tokens, gate|up, down "
+              f"and the combine a layer): {_ms(step['ms'])} / "
+              f"{_ms(step['device_ms'])} ms (bound {step['bound_ms']:.4f})")
+    print(f"K13 ok: {len(record['k13_detail'])} cases (gate|up and down, "
+          f"{K13_CASES}), each bit-equal across two launches, within "
+          f"{TOL_K1['bf16']} of max |y| of the plain loop (max abs err "
+          f"{worst:.3g}); the combine bit-equal to its plain version")
+
+
 def paged_requests(config):
     """The 16 requests: eight share a 256-token prefix (two full pages),
     four of 100 and four of 37 tokens. Two prefix requests stand in the
@@ -2373,7 +2533,7 @@ def paged_transposed(torch, model, prompts, engine, record, bkw):
     got = eng.run(few, max_new_tokens=TRANSPOSED_NEW)
     st = eng.stats
     counts = read_counts()
-    want = [0] * 12
+    want = [0] * len(counters())
     want[0], want[3] = counts[0], counts[3]  # a prompt's rows pick K1 or K4
     want[2] = L * st["prefills"]
     want[5] = L * st["decode_steps"]
@@ -2393,7 +2553,7 @@ def paged_transposed(torch, model, prompts, engine, record, bkw):
     print(f"paged transposed f32 greedy: {len(few)} requests of "
           f"{TRANSPOSED_NEW} new tokens identical to the plain path; "
           f"{st['prefills']} prefills, {st['decode_steps']} decode steps; "
-          f"launches K1..K12 {launches}, K12's copies of x "
+          f"launches K1..K13, combine {launches}, K12's copies of x "
           f"{record['paths'][-1]['variants']['K12 copies of x']}")
     prof = profile_paged_step(torch, engine(**bkw), prompts)
     prof_eager = profile_paged_step(torch, engine(graphs=False, **bkw),
@@ -2482,7 +2642,7 @@ def run_paged(torch, config, record, smi):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         st = eng.stats
-        want = [0] * 12
+        want = [0] * len(counters())
         if not eng.plain:
             want[0] = k1_call * (st["prefills"] + st["decode_steps"]
                                  + st["spec_windows"])
@@ -2512,7 +2672,7 @@ def run_paged(torch, config, record, smi):
               f"{n_new / secs:.1f} generated tok/s{acc}; {st['prefills']} "
               f"prefills, {st['decode_steps']} decode steps; pages "
               f"allocated {pool.allocated} (unshared {unshared}), all free "
-              f"or cached again; launches K1..K12 {launches} [{smi}]")
+              f"or cached again; launches K1..K13, combine {launches} [{smi}]")
         return out
 
     def run(eng, **kw):
@@ -2707,6 +2867,76 @@ def run_paged(torch, config, record, smi):
     record["paged"] = res
 
 
+def run_mellum(torch, record, smi):
+    """Mellum2-12B-A2.5B w4 (the published config, all 28 layers and 64
+    experts) through PagedContinuousBatchEngine in bf16 mode over a bf16
+    pool: 16 slots, 160 pages of 128 rows, MELLUM_LENS prompts, windows of
+    8, graphed and eager (the same tokens). Each run's launches held to
+    the engine's count of model calls (K1 for q|k|v, o and the head, K3,
+    K6, and per layer two K13 launches and one combine a call), its
+    routed pairs to 8 a slot and layer of every decode step."""
+    import numpy as np
+
+    from squeezellm_tpu_torch import serving, synthetic
+    from squeezellm_tpu_torch.models import fuse, registry
+
+    with open(os.path.join(HERE, MELLUM_CONFIG)) as f:
+        cfg = registry.config_class("mellum").from_hf_config(json.load(f))
+    L, E, k, slots = cfg.n_layers, cfg.n_experts, cfg.top_k, 16
+    t0 = time.perf_counter()
+    model = fuse.fuse_for_decode(synthetic.quantized_mellum(cfg, 4, seed=19))
+    torch.cuda.synchronize()
+    made_s = time.perf_counter() - t0
+    rng = np.random.default_rng(19)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in MELLUM_LENS]
+    res = {"made_s": made_s, "runs": {}}
+
+    def timed(label, graphs):
+        eng = serving.PagedContinuousBatchEngine(
+            model, slots=slots, n_pages=160, page_size=128,
+            dtype=torch.bfloat16, cache_dtype=torch.bfloat16, mode="bf16",
+            max_seq=1280, graphs=graphs)
+        pairs0, read0 = (int(v) for v in model.moe_stats.cpu())
+        reset_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = eng.run(prompts, max_new_tokens=NEW_TOKENS, window=8)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        st = eng.stats
+        calls = st["prefills"] + st["decode_steps"]
+        want = [0] * len(counters())
+        want[0] = (2 * L + 1) * calls
+        want[2] = L * st["prefills"]
+        want[5] = L * st["decode_steps"]
+        want[12], want[13] = 2 * L * calls, L * calls
+        launches = expect_counts(record, f"mellum {label}", want)
+        pairs = st["moe_pairs"] - pairs0
+        read = (st["moe_experts_read"] - read0) / (L * st["decode_steps"])
+        if pairs != L * k * slots * st["decode_steps"]:
+            raise AssertionError(f"mellum {label}: {pairs} pairs routed in "
+                                 f"{st['decode_steps']} decode steps")
+        n_new = sum(len(v) for v in out.values())
+        res["runs"][label] = dict(seconds=secs, tok_s=n_new / secs,
+                                  launches=launches, stats=st,
+                                  experts_read_per_layer_step=read)
+        print(f"mellum {label}: {n_new} tokens in {secs:.2f} s, "
+              f"{n_new / secs:.1f} generated tok/s; {st['prefills']} "
+              f"prefills, {st['decode_steps']} decode steps, {read:.2f} of "
+              f"{E} experts read a layer and step; launches K1..K13, "
+              f"combine {launches} [{smi}]")
+        return out
+
+    graphed = timed("bf16 window(8)", True)
+    hold_equal("mellum bf16, graphed vs eager",
+               timed("bf16 window(8), eager", False), graphed)
+    record["mellum"] = res
+    print(f"mellum ok: made in {made_s:.1f} s, {len(prompts)} requests of "
+          f"{NEW_TOKENS} tokens, graphed equal to eager")
+    del model
+
+
 def run_dense_slots(torch, config, record, smi):
     """ContinuousBatchEngine on LLaMA-2-7B w4 at full width and
     SERVE_LAYERS layers (``config``): 8
@@ -2751,7 +2981,7 @@ def run_dense_slots(torch, config, record, smi):
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         st = eng.stats
-        want = [0] * 12
+        want = [0] * len(counters())
         if not eng.plain:
             big = sum(n >= 1024 for n in rows)
             want[0] = (k1_call * (len(rows) + st["decode_steps"]
@@ -2776,7 +3006,7 @@ def run_dense_slots(torch, config, record, smi):
         print(f"dense {label}: {n_new} tokens in {secs:.2f} s, "
               f"{n_new / secs:.1f} generated tok/s{acc}; {len(rows)} "
               f"prefills of {rows} rows, {st['decode_steps']} decode steps; "
-              f"launches K1..K12 {launches} [{smi}]")
+              f"launches K1..K13, combine {launches} [{smi}]")
         return out
 
     def run(eng, **kw):
@@ -2846,9 +3076,9 @@ def run_dense_slots(torch, config, record, smi):
         raise AssertionError(f"dense decode step: {dec} of {k1_call} K1 "
                              f"launches ran the decode kernel")
     cancel_all(eng)
-    print(f"dense bf16 decode step at {PAGED_SLOTS} slots: launches K1..K12 "
-          f"{res['decode_step_launches']}, all {dec} K1 launches the decode "
-          f"kernel")
+    print(f"dense bf16 decode step at {PAGED_SLOTS} slots: launches K1..K13, "
+          f"combine {res['decode_step_launches']}, all {dec} K1 launches the "
+          f"decode kernel")
     del eng
 
     # (v) host and device time a step at 8 active slots, beside the paged
@@ -3037,8 +3267,8 @@ def serve_over_http(torch, model, bkw, record, smi):
           f"sampled: {len(s)} tokens, finish {out[1]['finish_reason']}) in "
           f"{secs:.2f} s, "
           f"{n / secs:.1f} tok/s; the {len(greedy)} greedy answers equal "
-          f"run() on a fresh engine; /health {health}; launches K1..K12 "
-          f"{launches} [{smi}]")
+          f"run() on a fresh engine; /health {health}; launches K1..K13, "
+          f"combine {launches} [{smi}]")
     return {"warmup_s": warm, "seconds": secs, "tokens": n,
             "launches": launches, "health": health,
             "sampled_tokens": len(s)}
@@ -3110,7 +3340,7 @@ def run_opt(torch, record):
     res["tokens"] = got[0, OPT_PROMPT:].tolist()
     print(f"opt-6.7b w4 request (prompt {OPT_PROMPT}, {NEW_TOKENS} new "
           f"tokens, f32) identical to the plain path and graphed to eager; "
-          f"launches K1..K12 "
+          f"launches K1..K13, combine "
           f"{res['launches']}, all {ropeless} K2 launches without rope")
     record["opt"] = res
 
@@ -3253,7 +3483,7 @@ def run_quantize(torch, config, record):
         reset_counts()
         got = engine.Engine(model).generate(prompt, NEW_TOKENS)
         k = 9 if structured else 0  # K10 or K1
-        want = [0] * 12
+        want = [0] * len(counters())
         want[k] = NEW_TOKENS * (4 * n + 1)
         want[1], want[2] = (NEW_TOKENS - 1) * n, n
         launches = expect_counts(record, f"quantized {label} request", want)
@@ -3273,7 +3503,7 @@ def run_quantize(torch, config, record):
               f"{r['widest_sidecar_row']}), load {load_s:.1f} s; "
               f"{with_struct} of {len(lins)} linears structured; f32 request "
               f"({PROMPT_LENS[-1]}-token prompt, {NEW_TOKENS} new) "
-              f"token-identical to the plain path, launches K1..K12 "
+              f"token-identical to the plain path, launches K1..K13, combine "
               f"{launches}; f32 teacher-forced logits rel err {tf:.3g}")
         del model
     record["quantize"] = res
@@ -3457,7 +3687,7 @@ def run_convert(torch, config, record):
               f"{r['checkpoint_bytes'] / 2**20:.0f} MiB; K4's W bit-equal "
               f"to the reference's dequantization at {shapes} linears; f32 "
               f"request ({PROMPT_LENS[-1]}-token prompt, {NEW_TOKENS} new) "
-              f"token-identical to the plain path, launches K1..K12 "
+              f"token-identical to the plain path, launches K1..K13, combine "
               f"{r['launches']}; f32 teacher-forced logits rel err "
               f"{r['tf_exact_rel_err']:.3g}")
     record["convert"] = res
@@ -3578,7 +3808,7 @@ def run_staged(torch, config, record):
                                       for k, v in res["bytes"].items())
           + f"; {res['outlier_pct']}% outliers at IQR range {STAGED_RANGE}; "
           f"{compared} packed arrays equal quantize_model's; f32 request "
-          f"token-identical to the plain path, launches K1..K12 "
+          f"token-identical to the plain path, launches K1..K13, combine "
           f"{res['launches']}")
 
 
@@ -3666,19 +3896,19 @@ def run_structured(torch, config, record, smi):
                                  f"plain tokens {ref}")
         print(f"{label}: f32 request ({PROMPT_LENS[-1]}-token prompt, "
               f"{NEW_TOKENS} new) token-identical to the plain path; "
-              f"launches K1..K12 {launches}; f32 teacher-forced logits rel "
-              f"err {tf:.3g}")
+              f"launches K1..K13, combine {launches}; f32 teacher-forced "
+              f"logits rel err {tf:.3g}")
         return dict(launches=launches, tokens=got[0].tolist(),
                     tf_exact_rel_err=tf)
 
     # K10: the prompt (100 rows) and every decode step
-    want = [0] * 12
+    want = [0] * len(counters())
     want[9] = NEW_TOKENS * per_step
     want[1], want[2] = (NEW_TOKENS - 1) * L, L
     res["structured"] = request("structured w4", want)
     bf, res["structured"]["bench"] = _bench(torch, model, ids,
                                             "structured w4 (K10)", smi)
-    step = [0] * 12
+    step = [0] * len(counters())
     step[9], step[1] = per_step, L
     res["structured"]["launches_per_decode_step"] = _one_step(
         torch, bf, record, "structured w4 decode step", step)
@@ -3688,7 +3918,7 @@ def run_structured(torch, config, record, smi):
         m.drop_tensors("struct_a", "struct_d")
     bf, res["withheld"] = _bench(torch, model, ids,
                                  "structured w4, table withheld (K1)", smi)
-    step = [0] * 12
+    step = [0] * len(counters())
     step[0], step[1] = per_step, L
     res["withheld"]["launches_per_decode_step"] = _one_step(
         torch, bf, record, "structured w4 withheld decode step", step)
@@ -3697,7 +3927,7 @@ def run_structured(torch, config, record, smi):
     # transposed: the 100-row prompt takes K10 but for the lm_head, which
     # reads the last row only (K11); every decode step takes K11 for the
     # 129 linears and K12 for the 128 sidecars
-    want = [0] * 12
+    want = [0] * len(counters())
     want[9] = 4 * L
     want[10] = (NEW_TOKENS - 1) * per_step + 1
     want[11] = (NEW_TOKENS - 1) * 4 * L
@@ -3705,7 +3935,7 @@ def run_structured(torch, config, record, smi):
     res["transposed"] = request("transposed w4", want)
     bf, res["transposed"]["bench"] = _bench(torch, model, ids,
                                             "transposed w4 (K11 + K12)", smi)
-    step = [0] * 12
+    step = [0] * len(counters())
     step[10], step[11], step[1] = per_step, 4 * L, L
     res["transposed"]["launches_per_decode_step"] = _one_step(
         torch, bf, record, "transposed w4 decode step", step)
@@ -3758,14 +3988,15 @@ def print_long_profile(label, stats, record):
 
 
 def tp_expect(eng, L, rows):
-    """The launches K1..K12 of a serving run on one rank's fused local
-    model, from the engine's own count of model calls: each call runs 4L+1
-    linears (K4 instead for a layer's four at a prefill of 1024 rows or
-    more), each prefill L K3s, each decode step L dense (K2/K5) or paged
-    (K6/K7) attentions, each verify window L K8/K9 over a page pool."""
+    """The launches K1..K13 and the combine of a serving run on one rank's
+    fused local model, from the engine's own count of model calls: each
+    call runs 4L+1 linears (K4 instead for a layer's four at a prefill of
+    1024 rows or more), each prefill L K3s, each decode step L dense
+    (K2/K5) or paged (K6/K7) attentions, each verify window L K8/K9 over a
+    page pool."""
     from squeezellm_tpu_torch.models import common
 
-    st, want = eng.stats, [0] * 12
+    st, want = eng.stats, [0] * len(counters())
     if eng.plain:
         return want
     big = sum(n >= 1024 for n in rows)
@@ -3828,7 +4059,7 @@ def tp_rank(rank, config_dict, prompts, ids):
         got, want = read_counts(), tp_expect(eng, L, rows)
         if got != want:
             raise AssertionError(f"rank {rank} tp {label}: launches "
-                                 f"K1..K12 {got} != {want}")
+                                 f"K1..K13, combine {got} != {want}")
         out["paths"][label] = dict(launches=got, variants=variants(),
                                    seconds=secs, stats=dict(eng.stats),
                                    prefill_rows=rows)
@@ -3867,7 +4098,7 @@ def tp_rank(rank, config_dict, prompts, ids):
         eng.step()
         step = dict(launches=read_counts(), collectives={
             k: tp.counts[k] - calls[k] for k in calls})
-        want = [4 * L + 1, L] + [0] * 10
+        want = [4 * L + 1, L] + [0] * (len(counters()) - 2)
         if (step["launches"] != want or step["collectives"]
                 != {"all_reduce": 2 * L, "gather": 1}):
             raise AssertionError(f"rank {rank} tp bf16 decode step: {step}")
@@ -3988,17 +4219,17 @@ def run_tp(torch, config, record, smi):
           f"f32 greedy tokens equal the single-device engine's (reported) "
           f"[{smi}]")
     for label, p in p0.items():
-        print(f"  tp rank 0 {label}: {p['seconds']:.2f} s, launches K1..K12 "
-              f"{p['launches']}, {p['stats']}")
+        print(f"  tp rank 0 {label}: {p['seconds']:.2f} s, launches K1..K13, "
+              f"combine {p['launches']}, {p['stats']}")
     for r, got in enumerate(ranks):
         st = got["bf16_step"]
         dev = ("not measured (" + st["profile_failed"] + ")"
                if st["device_ms"] is None else f"{st['device_ms']:.3f} ms")
         print(f"tp rank {r} bf16 decode step at {PAGED_SLOTS} slots: "
-              f"launches K1..K12 {st['launches']} (K1 {4 * L + 1} = 4 x {L} "
-              f"layers + lm_head, K2 {L}), collectives {st['collectives']} "
-              f"(2 a layer + the vocab gather); host {st['host_ms']:.3f} ms "
-              f"a step, device {dev}; with each collective timed (synced "
+              f"launches K1..K13, combine {st['launches']} (K1 {4 * L + 1} "
+              f"= 4 x {L} layers + lm_head, K2 {L}), collectives "
+              f"{st['collectives']} (2 a layer + the vocab gather); host "
+              f"{st['host_ms']:.3f} ms a step, device {dev}; with each collective timed (synced "
               f"before and after) {st['host_ms_timed']:.3f} ms, of it "
               f"{st['collective_share']:.3f} inside collectives [{smi}]")
     print(f"tp: two ranks time-sharing one card measure correctness and "
@@ -4109,6 +4340,25 @@ def kernel_lines(record):
          ":427 _spmv_kernel)", launches[11], record["k12_max_abs_err"], k12,
          "0.45% CSR sidecar of fused gate|up 22016x4096, 1 row of bf16 x"),
     ]
+    k13 = {(r["variant"], r["shape"]): r for r in record["k13_detail"]}
+    mellum = ("Mellum2-12B-A2.5B, 64 experts w4 with 0.45% sidecars, "
+              "routed 8 a token: ")
+    long_["moe_lut_matmul"] = (k13["mma", "gateup"], mellum + (
+        "fused gate|up 1792x2304 (20 top-X rows), a 256-token prompt's "
+        "2048 pairs (moe_mma_kernel)"))
+    long_["moe_combine"] = (record["k13_combine"][1], mellum + (
+        "a 256-token prompt's 2048 pairs, bf16 residual"))
+    rows += [
+        ("moe_lut_matmul", "squeezellm_tpu_torch/csrc/moe_lut.cu",
+         "none: the JAX package has no sparse experts", launches[12],
+         record["k13_max_abs_err"], k13["dec", "gateup"], mellum + (
+             "fused gate|up 1792x2304 (20 top-X rows), a decode step of "
+             "16 slots, 128 pairs (moe_dec_kernel)")),
+        ("moe_combine", "squeezellm_tpu_torch/csrc/moe_lut.cu",
+         "none: the JAX package has no sparse experts", launches[13], 0.0,
+         record["k13_combine"][0], mellum + (
+             "a decode step's 128 pairs of 2304, bf16 residual")),
+    ]
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     lines = []
     for name, src, rep, n, err, r, at in rows:
@@ -4149,7 +4399,9 @@ def ptxas_lines(source):
     for line in text.splitlines():
         if "Compiling entry function" in line:
             mangled = line.split("'")[1]
-            name = next((k for k in ("flash_attn_mma_kernel",
+            name = next((k for k in ("moe_dec_kernel", "moe_mma_kernel",
+                                     "moe_combine_kernel",
+                                     "flash_attn_mma_kernel",
                                      "flash_attn_kernel",
                                      "decode_attn_kernel",
                                      "paged_attn_kernel", "gemv_kernel",
@@ -4219,7 +4471,7 @@ def main():
     record["ptxas"] = [line for src in ("lut_matmul.cu", "flash_attn.cu",
                                         "decode_attn.cu", "paged_attn.cu",
                                         "dequant_dense.cu", "lut_matmul_t.cu",
-                                        "spmv.cu")
+                                        "spmv.cu", "moe_lut.cu")
                        for line in ptxas_lines(src)]
     for line in record["ptxas"]:
         print(f"  ptxas {line}")
@@ -4240,7 +4492,8 @@ def main():
                for n in (6, 7, 8, 9)]
     phases += [("K10", lambda: check_k10(torch, timer, record)),
                ("K11", lambda: check_k11(torch, timer, record)),
-               ("K12", lambda: check_k12(torch, timer, record))]
+               ("K12", lambda: check_k12(torch, timer, record)),
+               ("K13", lambda: check_k13(torch, timer, record))]
     phases += [(f"model w{b}", lambda b=b: run_model(torch, config, b, record))
                for b in (4, 3)]
     serve_cfg = dataclasses.replace(config, n_layers=SERVE_LAYERS)
@@ -4248,6 +4501,7 @@ def main():
           f"{config.n_layers} layers (cut for the run's time limit)")
     phases += [("paged serving",
                 lambda: run_paged(torch, serve_cfg, record, smi)),
+               ("mellum2-12b w4", lambda: run_mellum(torch, record, smi)),
                ("dense-slot serving",
                 lambda: run_dense_slots(torch, serve_cfg, record, smi)),
                ("opt-6.7b w4", lambda: run_opt(torch, record)),

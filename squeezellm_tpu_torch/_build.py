@@ -75,6 +75,13 @@ SIGNATURES = {
     "slt_decode_attn_q8": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P,
                            _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                            _I, _P],
+    # x, x_bf16, xt, qweight, lut, rowptr, cols, vals, topx_w, topx_idx,
+    # topx, offsets, tiles, ntiles, y, ws, counters, P, in, out, bits,
+    # variant, row_tile, splits, words_per_split, folds, stream
+    "slt_moe_lut_matmul": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
+                           _P, _I, _P, _P, _P] + [_I] * 9 + [_P],
+    # d, inv, w, res, out, rows, k, n, bf16, stream
+    "slt_moe_combine": [_P] * 5 + [_I] * 4 + [_P],
 }
 # q, k_new, v_new, 3 q strides, 3 k/v strides, in_bf16, cos, sin, then the
 # pool (pk, pv, cache_bf16; or pk, pv, sk, sv for the int8 twins), then

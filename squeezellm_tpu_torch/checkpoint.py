@@ -73,7 +73,8 @@ def save_quantized(path: str, model_type: str, config, specs,
         "model_type": model_type,
         "wbits": wbits,
         "n_layers": len(params["layers"]),
-        "config": dataclasses.asdict(config),
+        "config": (config.manifest() if hasattr(config, "manifest")
+                   else dataclasses.asdict(config)),
         "modules": modules,
     }
     with open(os.path.join(path, "manifest.json"), "w") as f:

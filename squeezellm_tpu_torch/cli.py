@@ -81,8 +81,9 @@ def _load_model(args, path=None):
         path = path or args.synthetic
         model_dir = os.path.dirname(path) if os.path.isfile(path) else path
         model_type, config = registry.load_config(model_dir)
-        make = (synthetic.quantized_opt if model_type == "opt"
-                else synthetic.quantized_llama)
+        make = {"opt": synthetic.quantized_opt,
+                "mellum": synthetic.quantized_mellum}.get(
+                    model_type, synthetic.quantized_llama)
         model = make(config, args.wbits, seed=args.seed, device=args.device)
     # a tensor-parallel engine shards the unfused model and fuses its shards
     if getattr(args, "fuse", False) and _tp(args) <= 1:

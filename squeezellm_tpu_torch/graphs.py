@@ -44,10 +44,11 @@ COUNTERS = ("launches", "ropeless_launches", "copy_launches",
 
 
 def counted_wrappers() -> tuple:
-    """The twelve kernel wrappers, K1 to K12."""
+    """The kernel wrappers, K1 to K12, then K13 and its combine."""
     from squeezellm_tpu_torch.ops import (decode_attn, dequant_dense,
                                           flash_attn, lut_matmul,
-                                          lut_matmul_t, paged_attn, spmv)
+                                          lut_matmul_t, moe_lut, paged_attn,
+                                          spmv)
 
     return (lut_matmul.lut_matmul, decode_attn.decode_attention,
             flash_attn.flash_attention, dequant_dense.dequant_dense,
@@ -57,7 +58,7 @@ def counted_wrappers() -> tuple:
             paged_attn.paged_verify_attention,
             paged_attn.paged_verify_attention_q8,
             lut_matmul.lut_matmul_struct, lut_matmul_t.lut_matmul_t,
-            spmv.spmv)
+            spmv.spmv, moe_lut.moe_lut_matmul, moe_lut.moe_combine)
 
 
 Counts = Dict[Tuple[int, str], object]

@@ -207,6 +207,80 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
     return torch.cos(emb).to(dtype), torch.sin(emb).to(dtype)
 
 
+@dataclasses.dataclass(frozen=True)
+class RopeSpec:
+    """One layer type's rotary embedding: ``theta``, and for yarn (HF
+    ``rope_type`` "yarn") its scale ``factor`` over
+    ``original_max`` positions, the ramp's ``beta_fast`` / ``beta_slow``
+    and the ``attention_factor`` that multiplies cos and sin. ``factor``
+    None is the default rope."""
+
+    theta: float = 10000.0
+    factor: Optional[float] = None
+    original_max: Optional[int] = None
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    attention_factor: Optional[float] = None
+
+    @staticmethod
+    def from_hf(d: dict) -> "RopeSpec":
+        """From one entry of an HF config's ``rope_parameters``."""
+        kind = d.get("rope_type", "default")
+        if kind == "default":
+            return RopeSpec(theta=d["rope_theta"])
+        if kind != "yarn":
+            raise ValueError(f"rope_type {kind!r} is not supported")
+        return RopeSpec(theta=d["rope_theta"], factor=d["factor"],
+                        original_max=d["original_max_position_embeddings"],
+                        beta_fast=d.get("beta_fast") or 32.0,
+                        beta_slow=d.get("beta_slow") or 1.0,
+                        attention_factor=d.get("attention_factor"))
+
+
+def yarn_inv_freq(head_dim: int, rope: RopeSpec, device="cpu"):
+    """(inv_freq (head_dim / 2,) f32, attention factor) of a yarn rope, as
+    HF transformers' ``_compute_yarn_parameters`` computes them: the
+    frequencies blended between theta's own (extrapolation) and theta's
+    over ``factor`` (interpolation) by a linear ramp between the correction
+    dims of ``beta_fast`` and ``beta_slow`` (floored and ceiled), and the
+    attention factor 0.1 ln(factor) + 1 where none is given."""
+    dim, base, factor = head_dim, rope.theta, rope.factor
+
+    def corr(rot):
+        return (dim * math.log(rope.original_max / (rot * 2 * math.pi))
+                / (2 * math.log(base)))
+
+    low = max(math.floor(corr(rope.beta_fast)), 0)
+    high = min(math.ceil(corr(rope.beta_slow)), dim - 1)
+    if low == high:
+        high += 0.001
+    pos_freqs = base ** (torch.arange(0, dim, 2, dtype=torch.float32,
+                                      device=device) / dim)
+    extra, inter = 1.0 / pos_freqs, 1.0 / (factor * pos_freqs)
+    ramp = ((torch.arange(dim // 2, dtype=torch.float32, device=device)
+             - low) / (high - low)).clamp(0, 1)
+    keep = 1 - ramp  # the share of theta's own frequency
+    inv_freq = inter * (1 - keep) + extra * keep
+    af = rope.attention_factor
+    if af is None:
+        af = 0.1 * math.log(factor) + 1.0 if factor > 1 else 1.0
+    return inv_freq, float(af)
+
+
+def rope_cos_sin_spec(positions: torch.Tensor, head_dim: int,
+                      rope: RopeSpec, dtype=torch.float32):
+    """``rope_cos_sin`` for a layer type's rope: the default rope is
+    ``rope_cos_sin`` itself; yarn takes its blended frequencies and scales
+    cos and sin by its attention factor, in f32, then casts to dtype."""
+    if rope.factor is None:
+        return rope_cos_sin(positions, head_dim, rope.theta, dtype)
+    inv_freq, af = yarn_inv_freq(head_dim, rope, positions.device)
+    angles = positions.float()[..., None] * inv_freq
+    emb = torch.cat([angles, angles], dim=-1)
+    return ((torch.cos(emb) * af).to(dtype),
+            (torch.sin(emb) * af).to(dtype))
+
+
 def apply_rope_tm(x: torch.Tensor, cos: torch.Tensor,
                   sin: torch.Tensor) -> torch.Tensor:
     """x: (B, S, H, D) TOKEN-major; cos/sin: (B, S, D) or (S, D)."""

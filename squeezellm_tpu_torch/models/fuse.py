@@ -82,12 +82,16 @@ def fuse_linears(linears: List[Linear]) -> Linear:
 def fuse_for_decode(model):
     """Fuse every fusable q|k|v and gate|up group of a Llama or OPT model
     in place (one layer at a time, so the old tensors are freed as it
-    goes), then ``attach_decode_luts``; returns the model. Unfusable
-    groups stay as they are; OPT has no gate|up group (its MLP is up,
-    ReLU, down)."""
+    goes), a sparse-expert block's gate|up expert by expert
+    (:func:`fuse_experts`), then ``attach_decode_luts``; returns the
+    model. Unfusable groups stay as they are; OPT has no gate|up group
+    (its MLP is up, ReLU, down)."""
     for layer in model.layers:
         for block in (layer.attn, getattr(layer, "mlp", None)):
             if block is None:
+                continue
+            if hasattr(block, "experts"):  # a sparse-expert MLP
+                fuse_experts(block.experts)
                 continue
             for fused_name, names in FUSE_GROUPS:
                 members = [block.proj[n] if n in block.proj else None
@@ -99,6 +103,59 @@ def fuse_for_decode(model):
                     del block.proj[n]
                 block.proj[fused_name] = fused
     return attach_decode_luts(model)
+
+
+def fuse_experts(experts) -> None:
+    """Fuse gate|up expert by expert in a sparse-expert block's stacked
+    linears (``models.moe.Experts``, a ModuleDict of ``gate``, ``up`` and
+    ``down``), in place, on the stacked tensors: expert e's ``gateup`` is
+    what ``fuse_linears`` makes of its gate and up (the codes, LUTs and
+    top-X rows side by side, its sidecar gate's entries then up's)."""
+    if "gate" not in experts or "up" not in experts:
+        return
+    gate, up = experts["gate"], experts["up"]
+    g, u = gate.tensors(), up.tensors()
+    f, n_exp = gate.spec.out_features, gate.n_experts
+    new = {"qweight": torch.cat([g["qweight"], u["qweight"]], dim=2),
+           "lut": torch.cat([g["lut"], u["lut"]], dim=1)}
+    nnz = gate.spec.nnz + up.spec.nnz
+    if nnz:
+        dev = g["qweight"].device
+        ptr, cols, vals, key = [], [], [], []
+        for j, t, spec in ((0, g, gate.spec), (1, u, up.spec)):
+            rp = t.get("sp_rowptr")
+            if rp is None:
+                rp = torch.zeros(n_exp, spec.out_features + 1,
+                                 dtype=torch.int32, device=dev)
+            rp = rp.long()
+            ptr.append(rp - rp[:, :1])  # each expert's from 0
+            cols.append(t.get("sp_cols", rp.new_zeros(0, dtype=torch.int32)))
+            vals.append(t.get("sp_vals", rp.new_zeros(0, dtype=torch.float32)))
+            ent = torch.arange(spec.nnz, device=dev)
+            key.append(2 * torch.searchsorted(rp[:, -1].contiguous(), ent,
+                                              right=True) + j)
+        # expert e's entries move to after every earlier expert's of both
+        base = (ptr[0][:, -1] + ptr[1][:, -1]).cumsum(0)
+        base = (base - ptr[0][:, -1] - ptr[1][:, -1])[:, None]
+        new["sp_rowptr"] = torch.cat(
+            [ptr[0] + base, ptr[1][:, 1:] + base + ptr[0][:, -1:]],
+            dim=1).to(torch.int32)
+        order = torch.argsort(torch.cat(key), stable=True)
+        new["sp_cols"] = torch.cat(cols)[order]
+        new["sp_vals"] = torch.cat(vals)[order]
+    topx = gate.spec.topx + up.spec.topx
+    if topx:
+        parts = [(t["topx_weights"], t["topx_indices"] + off)
+                 for t, s, off in ((g, gate.spec, 0), (u, up.spec, f))
+                 if s.topx]
+        new["topx_weights"] = torch.cat([w for w, _ in parts], dim=1)
+        new["topx_indices"] = torch.cat([i for _, i in parts], dim=1)
+    spec = QuantLinearSpec(bits=gate.spec.bits,
+                           in_features=gate.spec.in_features,
+                           out_features=f + up.spec.out_features, nnz=nnz,
+                           topx=topx)
+    del experts["gate"], experts["up"]
+    experts["gateup"] = type(gate)(spec, n_exp, new)
 
 
 def quant_linears(model):

@@ -25,7 +25,7 @@ the vocab blocks, as the JAX package's ``axis_name=`` paths do.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
@@ -57,41 +57,95 @@ class LlamaConfig:
     max_seq: int = 2048
     sliding_window: Optional[int] = None  # Mistral: 4096
     tie_embeddings: bool = False
+    # a head's width; None (the HF config gives none): hidden / heads
+    head_dim: Optional[int] = None
+    # each layer's attention type, "sliding_attention" (under
+    # sliding_window) or "full_attention"; None: every layer alike, under
+    # sliding_window where one is given
+    layer_types: Optional[Tuple[str, ...]] = None
+    # each layer type's rope as (type, RopeSpec) pairs; None: rope_theta's
+    # default rope in every layer
+    ropes: Optional[Tuple[Tuple[str, common.RopeSpec], ...]] = None
 
-    @property
-    def head_dim(self) -> int:
-        return self.hidden_size // self.n_heads
+    def __post_init__(self):
+        if self.head_dim is None:
+            object.__setattr__(self, "head_dim",
+                               self.hidden_size // self.n_heads)
+
+    def layer_type(self, i: int) -> Optional[str]:
+        return None if self.layer_types is None else self.layer_types[i]
+
+    def window(self, layer_type: Optional[str]) -> Optional[int]:
+        """The sliding window of a layer of this type (None: full)."""
+        return None if layer_type == "full_attention" else \
+            self.sliding_window
+
+    def rope(self, layer_type: Optional[str]) -> common.RopeSpec:
+        """The rope of a layer of this type."""
+        return (dict(self.ropes) if self.ropes else {}).get(
+            layer_type, common.RopeSpec(self.rope_theta))
 
     def linear_shapes(self) -> Dict[str, tuple]:
         """(out, in) of each quantizable module, torch W orientation."""
         h = self.hidden_size
+        qd = self.n_heads * self.head_dim
         kv = self.n_kv_heads * self.head_dim
         return {
-            "q": (h, h),
+            "q": (qd, h),
             "k": (kv, h),
             "v": (kv, h),
-            "o": (h, h),
+            "o": (h, qd),
             "gate": (self.intermediate_size, h),
             "up": (self.intermediate_size, h),
             "down": (h, self.intermediate_size),
         }
 
     @staticmethod
-    def from_hf_config(d: dict) -> "LlamaConfig":
-        """From an HF config.json dict (llama / mistral / vicuna / xgen)."""
-        return LlamaConfig(
+    def hf_fields(d: dict) -> dict:
+        """The fields read from an HF config.json dict."""
+        types = d.get("layer_types")
+        rp = d.get("rope_parameters")
+        ropes = None
+        if types and isinstance(rp, dict) and all(t in rp for t in types):
+            ropes = tuple((t, common.RopeSpec.from_hf(rp[t]))
+                          for t in sorted(set(types)))
+        theta = d.get("rope_theta", 10000.0)
+        if ropes:
+            theta = ropes[0][1].theta
+        return dict(
             vocab_size=d["vocab_size"],
             hidden_size=d["hidden_size"],
             intermediate_size=d["intermediate_size"],
             n_layers=d["num_hidden_layers"],
             n_heads=d["num_attention_heads"],
             n_kv_heads=d.get("num_key_value_heads") or d["num_attention_heads"],
-            rope_theta=d.get("rope_theta", 10000.0),
+            rope_theta=theta,
             rms_eps=d.get("rms_norm_eps", 1e-5),
             max_seq=min(d.get("max_position_embeddings", 2048), 8192),
             sliding_window=d.get("sliding_window"),
             tie_embeddings=d.get("tie_word_embeddings", False),
+            head_dim=d.get("head_dim"),
+            layer_types=tuple(types) if types else None,
+            ropes=ropes,
         )
+
+    @staticmethod
+    def from_hf_config(d: dict) -> "LlamaConfig":
+        """From an HF config.json dict (llama / mistral / vicuna / xgen)."""
+        return LlamaConfig(**LlamaConfig.hf_fields(d))
+
+    def manifest(self) -> dict:
+        """The fields a checkpoint's manifest records: the JAX package's
+        (which has no head_dim, layer types or ropes), and beside them
+        only those that depart from it."""
+        d = {f.name: getattr(self, f.name)
+             for f in dataclasses.fields(self)}
+        if d["head_dim"] == self.hidden_size // self.n_heads:
+            del d["head_dim"]
+        for name in ("layer_types", "ropes"):
+            if d[name] is None:
+                del d[name]
+        return d
 
 
 def _state_dict_getter(sd, dtype):
@@ -130,20 +184,24 @@ WINDOW_DECODE_ROWS = 16
 @dataclasses.dataclass
 class Step:
     """Per-call state shared by every layer of one forward. A model
-    without rope (OPT) leaves the four rope fields None."""
+    without rope (OPT) leaves ``ropes`` empty."""
 
     dtype: torch.dtype
     mode: str
     plain: bool
-    cos: Optional[torch.Tensor] = None  # (S, hd) in dtype
-    sin: Optional[torch.Tensor] = None
+    # each layer type's rope (key None where the model has one type,
+    # ``LlamaConfig.layer_types``) as (cos, sin, rope_cos, rope_sin): cos
+    # and sin (S, hd) in dtype where the layer ropes q and k itself
+    # (prefill, a dense verify window), else None; rope_cos and rope_sin
+    # (B, hd) f32, (B, W, hd) for a paged verify window, the attention
+    # kernel's operands in decode, else None
+    ropes: Dict[Optional[str], tuple] = dataclasses.field(
+        default_factory=dict)
     # prefill: position of the first token, an int or an int tensor of one
     # element on the device (read by K3 and the cache write there)
     start: object = 0
     # decode (one token per slot, with a cache): K2/K5/K6/K7 operands
     lengths: Optional[torch.Tensor] = None  # (B,) int32
-    rope_cos: Optional[torch.Tensor] = None  # (B, hd) f32; (B, W, hd)
-    rope_sin: Optional[torch.Tensor] = None  # for a paged verify window
     # a verify window per slot (over a page pool the K8/K9 operand; over a
     # dense cache where the window's rows are written)
     starts: Optional[torch.Tensor] = None  # (B,) int32, < 0: inactive
@@ -156,6 +214,10 @@ class Step:
     # a tensor-parallel shard's place (``model.tp``): row-parallel outputs
     # are all-reduced before the residual joins, the lm_head's gathered
     tp: Optional[common.TPGroup] = None
+
+    def rope(self, layer_type: Optional[str]) -> tuple:
+        """(cos, sin, rope_cos, rope_sin) of a layer of this type."""
+        return self.ropes.get(layer_type, (None,) * 4)
 
     def lin(self) -> dict:
         """The linears' keyword arguments: the regime, and whether K1/K10
@@ -201,12 +263,18 @@ class AttnBlock(nn.Module):
     """``_attn_block``: q|k|v (fused or not), attention, o-proj with the
     residual, when one is given, folded into its output init
     (:func:`row_parallel`). Shared with OPT, whose steps carry no rope
-    rows."""
+    rows. ``layer_type`` (``LlamaConfig.layer_types``) picks the layer's
+    window and its type's rope rows from the step."""
 
-    def __init__(self, config, proj: Dict[str, Linear]):
+    def __init__(self, config, proj: Dict[str, Linear],
+                 layer_type: Optional[str] = None):
         super().__init__()
         self.config = config
         self.proj = nn.ModuleDict(proj)
+        self.layer_type = layer_type
+        window = getattr(config, "window", None)
+        self.window = (window(layer_type) if window is not None
+                       else config.sliding_window)
 
     def heads(self):
         """(query heads, kv heads) this block holds, from its linears'
@@ -240,6 +308,7 @@ class AttnBlock(nn.Module):
         q = q.reshape(b, s, nh, hd)
         k = k.reshape(b, s, nkv, hd)
         v = v.reshape(b, s, nkv, hd)
+        cos, sin, rope_cos, rope_sin = step.rope(self.layer_type)
 
         if cache is not None and "pk" in cache:
             # a page pool: rope + pool write + attention through the page
@@ -255,8 +324,8 @@ class AttnBlock(nn.Module):
             out = attend(
                 qh, kh, vh, *(cache[n] for n in names), step.page_table,
                 step.lengths if decode else step.starts,
-                sliding_window=cfg.sliding_window, rope_cos=step.rope_cos,
-                rope_sin=step.rope_sin)
+                sliding_window=self.window, rope_cos=rope_cos,
+                rope_sin=rope_sin)
             if not decode:
                 out = out.transpose(1, 2)  # (B, W, H, hd)
             out = out.to(step.dtype).reshape(b, s, nh * hd)
@@ -273,13 +342,13 @@ class AttnBlock(nn.Module):
                 caches = (cache["k"], cache["v"])
             out = attend(
                 q[:, 0], k[:, 0], v[:, 0], *caches, step.lengths,
-                sliding_window=cfg.sliding_window, rope_cos=step.rope_cos,
-                rope_sin=step.rope_sin)
+                sliding_window=self.window, rope_cos=rope_cos,
+                rope_sin=rope_sin)
             out = out.to(step.dtype).reshape(b, 1, nh * hd)
         else:
-            if step.cos is not None:
-                q = common.apply_rope_tm(q, step.cos, step.sin)
-                k = common.apply_rope_tm(k, step.cos, step.sin)
+            if cos is not None:
+                q = common.apply_rope_tm(q, cos, sin)
+                k = common.apply_rope_tm(k, cos, sin)
             qh = q.transpose(1, 2)
             if step.starts is not None:
                 # a verify window per slot over a dense cache: the JAX
@@ -289,7 +358,7 @@ class AttnBlock(nn.Module):
                 common.update_kv_window(cache, k, v, step.starts)
                 kh, vh = common.read_kv(cache, step.dtype, nkv)
                 mask = common.window_mask(s, kh.shape[2], step.starts,
-                                          cfg.sliding_window)
+                                          self.window)
                 out = common.attention(qh, common.repeat_kv(kh, nh // nkv),
                                        common.repeat_kv(vh, nh // nkv), mask)
             else:
@@ -312,7 +381,7 @@ class AttnBlock(nn.Module):
                           else flash_attn.flash_attention)
                 with span("attn"):
                     out = attend(qh, kh, vh, step.start,
-                                 sliding_window=cfg.sliding_window,
+                                 sliding_window=self.window,
                                  mode=step.mode)
             out = out.to(step.dtype).transpose(1, 2).reshape(b, s, nh * hd)
         return row_parallel(self.proj["o"], out, step, residual)
@@ -341,18 +410,23 @@ class MLPBlock(nn.Module):
 
 
 class DecoderLayer(nn.Module):
-    """``_layer``: pre-norm attention and MLP blocks with residuals."""
+    """``_layer``: pre-norm attention and MLP blocks with residuals. ``mlp``
+    replaces the dense MLP of ``linears`` (a sparse-expert block,
+    ``models/moe.py``); ``layer_type`` is the attention's
+    (``AttnBlock``)."""
 
     def __init__(self, config: LlamaConfig, linears: Dict[str, Linear],
-                 input_norm: torch.Tensor, post_norm: torch.Tensor):
+                 input_norm: torch.Tensor, post_norm: torch.Tensor,
+                 mlp: Optional[nn.Module] = None,
+                 layer_type: Optional[str] = None):
         super().__init__()
         self.config = config
         attn = {n: m for n, m in linears.items()
                 if n in ("q", "k", "v", "qkv", "o")}
-        mlp = {n: m for n, m in linears.items()
-               if n in ("gate", "up", "gateup", "down")}
-        self.attn = AttnBlock(config, attn)
-        self.mlp = MLPBlock(mlp)
+        self.attn = AttnBlock(config, attn, layer_type)
+        self.mlp = mlp if mlp is not None else MLPBlock(
+            {n: m for n, m in linears.items()
+             if n in ("gate", "up", "gateup", "down")})
         self.register_buffer("input_norm", input_norm)
         self.register_buffer("post_norm", post_norm)
 
@@ -405,29 +479,36 @@ class Llama(nn.Module):
         step at ``decode_pos`` (B,) the attention kernel's operands:
         lengths and the rope rows (the rope_cos_sin values in dtype, as
         f32); or for a W-token window from ``window_pos`` (B,) the starts
-        and the (B, W, hd) rope rows. A page pool's table is read from the
-        first layer's cache."""
+        and the (B, W, hd) rope rows; each layer type's in ``Step.ropes``.
+        A page pool's table is read from the first layer's cache."""
         cfg = self.config
         step = Step(dtype=dtype, mode=mode, plain=plain, tp=self.tp)
         if cache is not None and "pk" in cache[0]:
             step.page_table = cache[0]["pt"]
-        if decode_pos is not None or window_pos is not None:
-            at = decode_pos if window_pos is None else window_pos
-            cos, sin = common.rope_cos_sin(at, cfg.head_dim, cfg.rope_theta,
-                                           dtype)
+        decode = decode_pos is not None or window_pos is not None
+        if decode:
             if window_pos is None:
                 step.lengths = (decode_pos + 1).to(torch.int32)
             else:
                 step.starts = window_pos[:, 0].to(torch.int32)
-            if window_pos is not None and step.page_table is None:
-                step.cos, step.sin = cos, sin  # a dense window ropes itself
-            else:
-                step.rope_cos = cos.float().contiguous()
-                step.rope_sin = sin.float().contiguous()
         else:
-            step.cos, step.sin = common.rope_cos_sin(
-                positions, cfg.head_dim, cfg.rope_theta, dtype)
             step.start = start
+
+        def rope(spec):
+            if not decode:
+                cos, sin = common.rope_cos_sin_spec(positions, cfg.head_dim,
+                                                    spec, dtype)
+                return cos, sin, None, None
+            at = decode_pos if window_pos is None else window_pos
+            cos, sin = common.rope_cos_sin_spec(at, cfg.head_dim, spec,
+                                                dtype)
+            if window_pos is not None and step.page_table is None:
+                return cos, sin, None, None  # a dense window ropes itself
+            return None, None, cos.float().contiguous(), \
+                sin.float().contiguous()
+
+        step.ropes = {t: rope(cfg.rope(t))
+                      for t in dict.fromkeys(cfg.layer_types or (None,))}
         return step
 
     def _finish(self, x, step: Step):

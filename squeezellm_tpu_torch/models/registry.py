@@ -1,5 +1,5 @@
-"""Architecture adapter: model type -> implementation (the LLaMA family
-and OPT).
+"""Architecture adapter: model type -> implementation (the LLaMA family,
+OPT, and Mellum's sparse experts).
 
 The counterpart of the JAX package's ``models/registry.py``.
 """
@@ -11,6 +11,7 @@ import os
 from typing import Optional
 
 from squeezellm_tpu_torch.models import llama as llama_mod
+from squeezellm_tpu_torch.models import moe as moe_mod
 from squeezellm_tpu_torch.models import opt as opt_mod
 
 # mistral/vicuna/xgen are llama-architecture variants (different configs).
@@ -20,6 +21,8 @@ _REGISTRY = {
     "vicuna": llama_mod,
     "xgen": llama_mod,
     "opt": opt_mod,
+    # LLaMA-family attention with sparse experts (models/moe.py)
+    "mellum": moe_mod,
 }
 
 
@@ -48,7 +51,8 @@ def parse_model_type(name_or_path: str,
 
 def config_class(model_type: str):
     mod = get_model_module(model_type)
-    return mod.OPTConfig if mod is opt_mod else mod.LlamaConfig
+    return {opt_mod: opt_mod.OPTConfig,
+            moe_mod: moe_mod.MoEConfig}.get(mod, llama_mod.LlamaConfig)
 
 
 def load_config(model_dir: str):

@@ -486,9 +486,25 @@ class _SlotEngine:
         # speculation's drafts proposed and accepted
         self.stats = {"prefills": 0, "decode_steps": 0, "spec_windows": 0,
                       "drafted": 0, "accepted": 0}
+        # a sparse-expert model's counters on the device (models/moe.py):
+        # the pairs its decode steps routed and the experts they read,
+        # summed over layers and steps since the model was made
+        self._moe_stats = getattr(self.model, "moe_stats", None)
+        if self._moe_stats is not None:
+            self.stats.update(moe_pairs=0, moe_experts_read=0)
 
     def _run(self):
         return dict(dtype=self.dtype, mode=self.mode, plain=self.plain)
+
+    def _fetch(self, toks: torch.Tensor) -> np.ndarray:
+        """A window's tokens on the host, in one copy; a sparse-expert
+        model's counters ride on the same copy into ``stats``."""
+        if self._moe_stats is None:
+            return toks.cpu().numpy()
+        host = torch.cat([toks.reshape(-1), self._moe_stats]).cpu().numpy()
+        self.stats["moe_pairs"] = int(host[-2])
+        self.stats["moe_experts_read"] = int(host[-1])
+        return host[:-2].reshape(toks.shape)
 
     def free_slots(self) -> int:
         return sum(not s.active for s in self._slots)
@@ -657,7 +673,7 @@ class _SlotEngine:
                 step()
                 self.stats["decode_steps"] += 1
         with span("window.sync"):  # the window's one sync
-            toks_host = self._bufs.toks[:k].cpu().numpy()
+            toks_host = self._fetch(self._bufs.toks[:k])
         with span("window.collect"):
             sent = self._sent["pos"]
             sent[sent >= 0] += k  # as the device advanced them

@@ -21,6 +21,13 @@ not subtract d / 2: there every weight is biased by d / 2 on average, so
 each linear amplifies the common mode of its input by ~in * d / 2 (~27 at
 4096 inputs) and 32 layers overflow even f32; it only times the model.
 
+``quantized_mellum`` is ``quantized_llama`` for a sparse-expert config
+(``models/moe.MoEConfig``): attention linears and every expert's gate, up
+and down as above, a router of N(0, 1.5 / sqrt(hidden)) f32 (logits of
+deviation 1.5 at unit-rms states, so that a token's top-k weights spread
+over several experts), stacked experts (``models.moe.Experts``) and the
+model's counters attached.
+
 ``quantized_opt`` and ``dense_opt`` are the same two for an OPT config:
 every layer linear also has a bias (N(0, 0.02)), the lm_head has none, the
 layer norms are unit with zero bias, and the learned position table has
@@ -34,7 +41,7 @@ import math
 import torch
 
 from squeezellm_tpu_torch import formats
-from squeezellm_tpu_torch.models import llama, opt
+from squeezellm_tpu_torch.models import llama, moe, opt
 from squeezellm_tpu_torch.models.common import Linear, LinearSpec
 from squeezellm_tpu_torch.ops.quant_linear import QuantLinearSpec
 
@@ -118,6 +125,42 @@ def quantized_llama(config: llama.LlamaConfig, bits: int, *,
                                structured=structured)
     return llama.Llama(config, embed, layers, torch.ones(h, device=device),
                        head)
+
+
+ROUTER_GAIN = 1.5  # a router weight's std times sqrt(hidden)
+
+
+def quantized_mellum(config: moe.MoEConfig, bits: int, *,
+                     sparsity: float = 0.0045, topx: int = 10,
+                     seed: int = 0, device="cuda") -> llama.Llama:
+    """The random Dense-and-Sparse sparse-expert model, unfused."""
+    device = torch.device(device)
+    gen = _generator(seed, device)
+    h = config.hidden_size
+    layers = []
+    for i in range(config.n_layers):
+        linears = {name: random_quant_linear(gen, device, o, i_f, bits,
+                                             sparsity, topx)
+                   for name, (o, i_f) in config.linear_shapes().items()}
+        experts = {
+            name: moe.Experts.stack([
+                random_quant_linear(gen, device, o, i_f, bits, sparsity,
+                                    topx)
+                for _ in range(config.n_experts)])
+            for name, (o, i_f) in config.expert_shapes().items()}
+        router = torch.randn(config.n_experts, h, generator=gen,
+                             device=device) * (ROUTER_GAIN / math.sqrt(h))
+        layers.append(llama.DecoderLayer(
+            config, linears, torch.ones(h, device=device),
+            torch.ones(h, device=device),
+            mlp=moe.MoEBlock(config, router, experts),
+            layer_type=config.layer_type(i)))
+    embed = (torch.randn(config.vocab_size, h, generator=gen, device=device)
+             * 0.02).to(torch.bfloat16)
+    head = random_quant_linear(gen, device, config.vocab_size, h, bits, 0.0,
+                               0)
+    return moe.attach_counters(llama.Llama(
+        config, embed, layers, torch.ones(h, device=device), head))
 
 
 def dense_llama(config: llama.LlamaConfig, *, seed: int = 0,
